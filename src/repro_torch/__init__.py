@@ -1,0 +1,24 @@
+"""repro_torch — the One-Class Slab SVM system in PyTorch, with hand-written
+CUDA kernels for an NVIDIA Hopper card.
+
+``repro_torch.fit(X, spec)`` is the training front door and
+``repro_torch.serve(X, spec)`` the serving one (warm-model cache + batched
+scoring through the ``decision`` kernel). Both run on the CUDA card unless
+called with ``device="cpu"``. Imports are lazy so subpackage imports stay
+cheap.
+"""
+
+
+def __getattr__(name):
+    if name == "fit":
+        from repro_torch.api import fit
+        return fit
+    if name == "serve":
+        # The subpackage is a callable module: ``repro_torch.serve(X, s)``
+        # and ``repro_torch.serve.ModelCache`` resolve to the same object.
+        import repro_torch.serve as serve_pkg
+        return serve_pkg
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = ["fit", "serve"]

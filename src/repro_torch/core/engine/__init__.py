@@ -1,0 +1,40 @@
+"""repro_torch.core.engine — the SMO solver engine.
+
+    SolverState ──▶ Selector.select ──▶ Selection (2P rows)
+                          │                   │
+                          │            provider.block (2P x 2P)
+                          │                   ▼
+                          │         gauss_seidel_pairs (eq. 35-39)
+                          │                   │ delta (2P,)
+                          ▼                   ▼
+                provider.scatter     provider.apply_update
+                  (gamma += )         (f += K[:, sel] @ delta —
+                          │            the fupdate CUDA kernel)
+                          └───────┬───────────┘
+                                  ▼
+                       stats_fn (rho recovery + KKT + gap)
+
+* GramProvider (``gram.py``) — ``precomputed``, ``on_the_fly`` and the
+  fused ``pallas`` provider (``FusedGram``).
+* Selector (``select.py``) — ``BlockSelector`` (top-P pairs per sweep).
+* Driver (``driver.py``) — the one loop with the stall/patience/gap logic;
+  ``stats.py`` holds rho recovery and the KKT / duality-gap diagnostics.
+"""
+from repro_torch.core.engine.driver import (gauss_seidel_pairs,
+                                            has_converged, init_state, run)
+from repro_torch.core.engine.gram import (BLOCK, SINGLE_PASS_MAX, FusedGram,
+                                          OnTheFlyGram, PrecomputedGram,
+                                          make_provider, raw_scores_blocked)
+from repro_torch.core.engine.select import BlockSelector
+from repro_torch.core.engine.stats import (LOCAL_COMM, LocalComm,
+                                           recover_rhos, slab_margin,
+                                           solver_stats_fresh, violation)
+from repro_torch.core.engine.types import Selection, SMOResult, SolverState
+
+__all__ = [
+    "run", "init_state", "gauss_seidel_pairs", "has_converged",
+    "make_provider", "PrecomputedGram", "OnTheFlyGram", "FusedGram",
+    "raw_scores_blocked", "SINGLE_PASS_MAX", "BLOCK", "BlockSelector",
+    "LocalComm", "LOCAL_COMM", "recover_rhos", "slab_margin", "violation",
+    "solver_stats_fresh", "Selection", "SMOResult", "SolverState",
+]

@@ -1,0 +1,217 @@
+"""GramProvider — the pluggable Gram-access axis of the solver engine.
+
+A provider owns the training rows and answers the kernel-matrix queries
+the SMO hot loop needs, each against a ``Selection`` of 2P rows:
+
+* ``init_scores(gamma)``          — f = K @ gamma (once, at solve start)
+* ``block(sel)``                  — the (2P, 2P) Gram block of the pairs
+* ``apply_update(f, sel, delta)`` — f + K[:, sel] @ delta (rank-2P update,
+                                    the per-iteration hot path)
+* ``scatter(gamma, sel, delta)``  — fold the pair steps back into gamma
+
+Implementations:
+
+* ``precomputed`` — materialize K once (O(m^2) memory; small m / tests).
+* ``on_the_fly``  — recompute the needed kernel rows from X per iteration.
+* ``pallas``      — ``FusedGram``: ``on_the_fly`` with the f-cache update
+                    fused into the ``fupdate`` CUDA kernel (one pass over
+                    X per iteration; the name is the JAX package's, so
+                    call sites match).
+
+Every provider takes a ``precision`` ("f32" default, "bf16", "f16"): the
+training rows are round-tripped through the tile dtype ONCE at
+construction, so the plain providers see exactly the rounded values the
+fused provider streams in 16 bits. Norms, the f-cache, gamma and all
+epilogues stay f32.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.engine.types import Selection
+from repro_torch.core.kernel_fn import KernelFn
+from repro_torch.kernels.fupdate.ops import as_tile, fupdate, row_norms
+from repro_torch.kernels.precision import (check_precision, round_to_tile,
+                                           tile_dtype)
+
+Tensor = torch.Tensor
+
+# Largest m for a single unblocked cross-kernel pass; above this,
+# row-blocked accumulation keeps the working set at O(BLOCK * m).
+SINGLE_PASS_MAX = 4096
+BLOCK = 2048
+
+
+def raw_scores_blocked(X: Tensor, gamma: Tensor, kernel: KernelFn,
+                       block: int = BLOCK) -> Tensor:
+    """K @ gamma without materializing K (row-blocked above the threshold)."""
+    m = X.shape[0]
+    if m <= SINGLE_PASS_MAX:
+        return kernel.cross(X, X) @ gamma
+    return torch.cat([kernel.cross(X[i:i + block], X) @ gamma
+                      for i in range(0, m, block)])
+
+
+class _ScoreDeltas:
+    """Shared O(s * m) score-delta algebra — the warm-start substrate.
+
+    ``delta_scores`` folds a rank-s kernel contribution into an f-cache
+    with ONE pass over the owned rows; ``reconcile_scores`` turns a warm
+    start's seeded f-cache into the new problem's exact K @ gamma0.
+    """
+
+    def delta_scores(self, f: Tensor, X_delta: Tensor,
+                     g_delta: Tensor) -> Tensor:
+        """f + k(X_own, X_delta) @ g_delta — one pass, no m^2 anything."""
+        if X_delta.shape[0] == 0:
+            return f
+        return f + self.kernel.rows(self.X, X_delta) @ g_delta
+
+    def reconcile_scores(self, warm) -> Tensor:
+        """Fold a warm start's correction set (``f_seed``, ``x_corr``,
+        ``delta``) into its seeded f-cache."""
+        return self.delta_scores(warm.f_seed, warm.x_corr, warm.delta)
+
+
+class PrecomputedGram(_ScoreDeltas):
+    """Materialized m x m Gram matrix: every query is a gather/matmul."""
+
+    name = "precomputed"
+
+    def __init__(self, X: Tensor, kernel: KernelFn, precision: str = "f32"):
+        self.precision = check_precision(precision)
+        self.X = round_to_tile(X, precision)
+        self.kernel = kernel
+        self.K = kernel.gram(self.X)
+        self._diag = kernel.diag(self.X)
+
+    def diag(self) -> Tensor:
+        return self._diag
+
+    def column(self, i) -> Tensor:
+        return self.K[:, i]
+
+    def init_scores(self, gamma: Tensor) -> Tensor:
+        return self.K @ gamma
+
+    def prepare(self, sel: Selection) -> Selection:
+        # Gather the 2P columns once; block() and apply_update() both
+        # read them.
+        if sel.rows is None:
+            sel = sel._replace(rows=self.K[:, sel.ids])
+        return sel
+
+    def block(self, sel: Selection) -> Tensor:
+        if sel.rows is not None:
+            return sel.rows[sel.ids]
+        return self.K[sel.ids][:, sel.ids]
+
+    def diag_sel(self, sel: Selection) -> Tensor:
+        return self._diag[sel.ids]
+
+    def apply_update(self, f: Tensor, sel: Selection,
+                     delta: Tensor) -> Tensor:
+        rows = self.K[:, sel.ids] if sel.rows is None else sel.rows
+        return f + rows @ delta
+
+    def scatter(self, gamma: Tensor, sel: Selection,
+                delta: Tensor) -> Tensor:
+        # index_add accumulates duplicate ids, as jax's .at[].add does.
+        return gamma.index_add(0, sel.ids, delta)
+
+
+class OnTheFlyGram(_ScoreDeltas):
+    """Recompute the <= 2P needed kernel rows from X each iteration."""
+
+    name = "on_the_fly"
+
+    def __init__(self, X: Tensor, kernel: KernelFn, precision: str = "f32"):
+        self.precision = check_precision(precision)
+        self.X = round_to_tile(X, precision)
+        self.kernel = kernel
+        self._diag = kernel.diag(self.X)
+
+    def diag(self) -> Tensor:
+        return self._diag
+
+    def column(self, i) -> Tensor:
+        return self.kernel.rows(self.X, self.X[i][None, :])[:, 0]
+
+    def init_scores(self, gamma: Tensor) -> Tensor:
+        return raw_scores_blocked(self.X, gamma, self.kernel)
+
+    def prepare(self, sel: Selection) -> Selection:
+        return sel   # rows are recomputed exactly where needed
+
+    def block(self, sel: Selection) -> Tensor:
+        if sel.rows is not None:
+            return sel.rows[sel.ids]
+        return self.kernel.cross(sel.X, sel.X)
+
+    def diag_sel(self, sel: Selection) -> Tensor:
+        return self._diag[sel.ids]
+
+    def apply_update(self, f: Tensor, sel: Selection,
+                     delta: Tensor) -> Tensor:
+        rows = (self.kernel.rows(self.X, sel.X) if sel.rows is None
+                else sel.rows)
+        return f + rows @ delta
+
+    def scatter(self, gamma: Tensor, sel: Selection,
+                delta: Tensor) -> Tensor:
+        return gamma.index_add(0, sel.ids, delta)
+
+
+class FusedGram(OnTheFlyGram):
+    """on_the_fly with the rank-2P f update fused into the ``fupdate``
+    kernel. The tile-dtype rows and their f32 norms are made once here,
+    so each iteration's launch reads X and nothing else of size m*d."""
+
+    name = "pallas"
+
+    def __init__(self, X: Tensor, kernel: KernelFn, precision: str = "f32"):
+        super().__init__(X, kernel, precision=precision)
+        # self.X is already tile-rounded, so this cast is exact.
+        self.X_tile = as_tile(self.X, tile_dtype(precision))
+        self.norms = row_norms(self.X_tile)
+
+    def _fupdate(self, f: Tensor, X_sel: Tensor, delta: Tensor) -> Tensor:
+        return fupdate(self.X_tile, X_sel, delta, f, self.kernel,
+                       precision=self.precision, xn=self.norms)
+
+    def init_scores(self, gamma: Tensor) -> Tensor:
+        if self.X.shape[0] <= BLOCK:
+            # f = 0 + k(X, X) @ gamma in one fused pass (the JAX package
+            # takes this branch below the same threshold).
+            return self._fupdate(torch.zeros_like(gamma), self.X, gamma)
+        return raw_scores_blocked(self.X, gamma, self.kernel)
+
+    def apply_update(self, f: Tensor, sel: Selection,
+                     delta: Tensor) -> Tensor:
+        if sel.rows is not None:
+            # A selector already produced the full columns.
+            return f + sel.rows @ delta
+        return self._fupdate(f, sel.X, delta)
+
+    def delta_scores(self, f: Tensor, X_delta: Tensor,
+                     g_delta: Tensor) -> Tensor:
+        # The warm-start reconcile sweep IS the hot-loop update with the
+        # correction set as the selected block; above BLOCK rows the JAX
+        # package takes the plain pass, and so does this one.
+        if X_delta.shape[0] == 0:
+            return f
+        if X_delta.shape[0] > BLOCK:
+            return super().delta_scores(f, X_delta, g_delta)
+        return self._fupdate(f, X_delta, g_delta)
+
+
+def make_provider(gram_mode: str, X: Tensor, kernel: KernelFn,
+                  precision: str = "f32"):
+    """Build a local provider by name."""
+    if gram_mode == "precomputed":
+        return PrecomputedGram(X, kernel, precision=precision)
+    if gram_mode == "on_the_fly":
+        return OnTheFlyGram(X, kernel, precision=precision)
+    if gram_mode == "pallas":
+        return FusedGram(X, kernel, precision=precision)
+    raise ValueError(f"unknown gram_mode {gram_mode!r}")

@@ -1,0 +1,138 @@
+"""The port's CUDA kernels held against their plain versions, on the card.
+
+    python -m pytest -m gpu tests/test_torch_gpu.py
+
+Every test here needs a CUDA card and skips without one (the ``cuda``
+fixture decides, so every worker collects the same tests). The file
+imports nothing of JAX: the machine with the card has no JAX. Kernel and
+plain version see the same operands, so they differ by the f32 summation
+order only and are compared at the f32 tolerance of ``TOLERANCES``.
+"""
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+import repro_torch.core.kernel_fn as tkf
+from repro_torch.api import resolve_device
+from repro_torch.core.ocssvm import OCSSVMModel, SlabSpec
+from repro_torch.data import make_toy
+from repro_torch.kernels import precision as tprec
+from repro_torch.kernels.decision import ops as tdec
+from repro_torch.kernels.decision.ref import decision_plain
+from repro_torch.kernels.fupdate import ops as tfup
+from repro_torch.kernels.fupdate.ref import fupdate_plain
+from repro_torch.serve.model_cache import ModelCache, pack_model
+
+pytestmark = pytest.mark.gpu
+
+KERNELS = [("linear", 1.0, 0.0, 3), ("rbf", 0.35, 0.0, 3),
+           ("poly", 0.2, 1.0, 2), ("poly", 0.2, 1.0, 3)]
+KIDS = ["linear", "rbf", "poly2", "poly3"]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return resolve_device("cuda")   # and TF32 off
+
+
+def _kern(k):
+    name, g, c0, deg = k
+    return tkf.KernelFn(name=name, gamma=g, coef0=c0, degree=deg)
+
+
+def _t(a, dev):
+    return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+
+def _close(out, ref):
+    ref = ref.float().cpu().numpy()
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref,
+                               **tprec.truth_tolerance("f32", ref))
+
+
+@pytest.mark.parametrize("precision", tprec.PRECISIONS)
+@pytest.mark.parametrize("k", KERNELS, ids=KIDS)
+@pytest.mark.parametrize("m,d,s", [(1000, 37, 16), (333, 130, 33),
+                                   (2048, 128, 2048)])
+def test_fupdate_kernel_matches_plain(cuda, k, precision, m, d, s):
+    tk = _kern(k)
+    rng = np.random.default_rng(8)
+    x = _t(rng.standard_normal((m, d)) / np.sqrt(d), cuda).to(
+        tprec.tile_dtype(precision))
+    xs = x[:s].contiguous()
+    delta = _t(rng.standard_normal(s) * 0.1, cuda)
+    f = _t(rng.standard_normal(m), cuda)
+    xn, seln = tfup.row_norms(x), tfup.row_norms(xs)
+    n0 = tfup.FUPDATE.launches
+    out = tfup.fupdate(x, xs, delta, f, tk, precision=precision, xn=xn)
+    torch.cuda.synchronize()
+    assert tfup.FUPDATE.launches == n0 + 1
+    plain = fupdate_plain(x, xs, delta, f, xn, seln, kind=k[0], gamma=k[1],
+                          coef0=k[2], degree=k[3])
+    _close(out, plain)
+
+
+@pytest.mark.parametrize("k", KERNELS, ids=KIDS)
+def test_fupdate_zero_rows_add_nothing(cuda, k):
+    """Zero rows with zero deltas appended to the selected block add
+    exactly nothing: each thread's partial sum only gains +0 terms."""
+    tk = _kern(k)
+    rng = np.random.default_rng(7)
+    x = _t(rng.standard_normal((96, 17)), cuda)
+    dl = _t(rng.standard_normal(5) * 0.1, cuda)
+    f = _t(rng.standard_normal(96), cuda)
+    out = tfup.fupdate(x, x[:5], dl, f, tk)
+    xs = torch.cat([x[:5], torch.zeros((128, 17), device=cuda)])
+    dp = torch.cat([dl, torch.zeros(128, device=cuda)])
+    assert torch.equal(out, tfup.fupdate(x, xs, dp, f, tk))
+
+
+@pytest.mark.parametrize("precision", tprec.PRECISIONS)
+@pytest.mark.parametrize("k", KERNELS, ids=KIDS)
+@pytest.mark.parametrize("nq", [64, 100, 4096])
+def test_decision_kernel_matches_plain(cuda, k, precision, nq):
+    tk = _kern(k)
+    rng = np.random.default_rng(9)
+    T = rng.standard_normal((1500, 128)) / np.sqrt(128)
+    model = OCSSVMModel(gamma=_t(rng.standard_normal(1500) * 0.05, cuda),
+                        rho1=_t(0.2, cuda), rho2=_t(0.8, cuda),
+                        X=_t(T, cuda), spec=SlabSpec(kernel=tk))
+    sm = pack_model(model, precision=precision, sv_threshold=0.0)
+    q = _t(rng.standard_normal((nq, 128)) / np.sqrt(128), cuda).to(
+        tprec.tile_dtype(precision))
+    n0 = tdec.DECISION.launches
+    out = tdec.decision_packed(q, sm.t_pad, sm.gamma_pad, sm.t_norms, 0.2,
+                               0.8, tk, tm=nq, tn=sm.tn, precision=precision)
+    torch.cuda.synchronize()
+    assert tdec.DECISION.launches == n0 + 1
+    plain = decision_plain(q, sm.t_pad, sm.gamma_pad.reshape(-1),
+                           tfup.row_norms(q), sm.t_norms.reshape(-1), 0.2,
+                           0.8, kind=k[0], gamma=k[1], coef0=k[2],
+                           degree=k[3])
+    _close(out, plain)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_fit_and_serve_on_the_card_match_the_cpu(cuda, precision):
+    """The fused provider on the card against the plain provider on the
+    CPU, end to end, within the solver floor of the parity tests."""
+    X, _ = make_toy(3, 600, d=16)
+    spec = SlabSpec(nu1=0.5, nu2=0.05, eps=0.5, kernel=tkf.rbf(1 / 16))
+    kw = dict(strategy="pallas", P=16, tol=1e-3, precision=precision)
+    n0 = tfup.FUPDATE.launches
+    on_card = repro_torch.fit(X, spec, **kw)
+    assert tfup.FUPDATE.launches - n0 >= int(on_card.iters) > 0
+    on_cpu = repro_torch.fit(X, spec, device="cpu", **kw)
+    assert bool(on_card.converged) and bool(on_cpu.converged)
+    rho = [float(on_card.model.rho1), float(on_card.model.rho2)]
+    np.testing.assert_allclose(rho, [float(on_cpu.model.rho1),
+                                     float(on_cpu.model.rho2)], atol=5e-3)
+    sm = repro_torch.serve(X, spec, cache=ModelCache(), offsets="quantile",
+                           **kw)
+    q = make_toy(4, 65, d=16)[0]
+    s = sm.score(q)
+    ref = sm.model.decision_function(_t(q, cuda)).cpu().numpy()
+    np.testing.assert_allclose(s, ref, **tprec.truth_tolerance("f32", ref))
