@@ -6,21 +6,35 @@
 Phases, in order; any failure raises and the script exits non-zero
 without printing the result line:
 
-1. build   — compile every ``src/repro_torch/csrc/*.cu`` (one nvcc each,
-             all at once) and print ptxas's register/shared-memory lines;
-2. kernels — call each kernel's wrapper at the main path's shapes and hold
-             it against its plain PyTorch version on the card;
-3. main    — ``fit`` (f32 and bf16) then ``serve(...).score`` on the toy
-             set at m = 8192, d = 128, with the kernels' launch counts set
-             to 0 just before and read just after;
-4. timing  — device times of each kernel and its plain version (CUDA
-             events around a CUDA graph of repeated calls) beside the
-             least time the card could take (its bound), and the scorer's
-             latency per bucket on the host's clock;
-5. trace   — a torch.profiler window over PROFILE_ITERS iterations of the
-             f32 fit: the device's busy and idle share from its own
-             events, the top kernels by device time and the top
-             operations by host time.
+1. build    — compile every ``src/repro_torch/csrc/*.cu`` (one nvcc
+              each, all at once), print ptxas's register/shared-memory
+              lines and hold the autotuner's register estimate against
+              them;
+2. kernels  — call each kernel's wrapper at the main path's shapes (gram:
+              the 8192 x 8192 matrix of the toy rows, and a ragged shape)
+              and hold it against its plain PyTorch version on the card;
+              launch every menu entry of every family at a small ragged
+              shape, against its plain version and bitwise against its
+              class's default entry;
+3. main     — ``fit`` (f32 and bf16) then ``serve(...).score`` on the toy
+              set at m = 8192, d = 128, with the kernels' launch counts
+              set to 0 just before and read just after;
+4. autotune — the autotuner's path, with the counts set to 0 just before
+              and read just after: a quick sweep on the card over
+              ``QUICK_CELLS`` and the main path's fupdate and gram cells
+              in f32, its winners and seconds; then the f32 fit with the
+              committed tile table and with an empty one, which must be
+              bitwise equal;
+5. timing   — device times of each kernel and its plain version (CUDA
+              events around a CUDA graph of repeated calls) beside the
+              least time the card could take (its bound) and, for gram
+              linear, the one PyTorch call that computes the same
+              (``x @ y.T``); the scorer's latency per bucket on the host's
+              clock;
+6. trace    — a torch.profiler window over PROFILE_ITERS iterations of
+              the f32 fit: the device's busy and idle share from its own
+              events, the top kernels by device time and the top
+              operations by host time.
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, a JSON line with one entry per kernel, and the result line
@@ -36,10 +50,6 @@ import sys
 import time
 from pathlib import Path
 
-# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit).
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "f16": 989e12}
-
 SEED = 0
 M, D = 8192, 128          # the largest m "auto" solves as one blocked solve
 P, TOL = 16, 1e-3         # examples/serve_ocssvm.py's solver settings
@@ -54,6 +64,13 @@ INIT_M = 2048             # the fused init pass: S = m <= BLOCK
 FUPDATE_SHAPES = ((M, 16), (M, 2 * P), (INIT_M, INIT_M))
 SUPPORT = 4096            # packed support rows the decision kernel meets
 PROFILE_ITERS = 100       # solver iterations inside the profiler window
+# gram: the kernel matrix of the main path's rows, and a ragged shape.
+GRAM_SHAPES = ((M, M, D), (130, 77, 129))
+MENU_ROWS, MENU_D = 203, 45   # the menu check's ragged shape
+# fupdate's S per class in the menu check: the hot loop's and a wide one.
+MENU_S = {32: 20, 64: 77}
+GRAM_TIMED = (("linear", "f32"), ("linear", "bf16"), ("rbf", "f32"),
+              ("rbf", "bf16"))
 
 
 class SmokeFailure(RuntimeError):
@@ -88,9 +105,14 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.decision import ops as dec
     from repro_torch.kernels.decision.ref import decision_plain
+    from repro_torch.kernels import autotune, tiling
     from repro_torch.kernels.fupdate import ops as fup
     from repro_torch.kernels.fupdate.ref import fupdate_plain
-    from repro_torch.kernels.precision import PRECISIONS, truth_tolerance
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.gram.ref import gram_plain
+    from repro_torch.kernels.precision import (PRECISIONS, TOLERANCES,
+                                               tile_dtype, truth_tolerance)
+    from repro_torch.utils.roofline import terms
     from repro_torch.serve import BUCKETS, pack_model
     from repro_torch.api import resolve_device
     from repro_torch.core.ocssvm import OCSSVMModel
@@ -108,6 +130,23 @@ def main() -> int:
         for line in b.ptxas:
             if "registers" in line or "spill" in line or "smem" in line:
                 say(f"[build] {name}: {line}")
+    # The autotuner's feasibility model estimates registers from TR x TC;
+    # ptxas says what each instantiation takes.
+    regs = autotune.ptxas_registers(ln for b in built.values()
+                                    for ln in b.ptxas)
+    if regs:
+        n_inst = len(PRECISIONS) * sum(len(v) for v in tiling.MENUS.values())
+        check(len(regs) == n_inst, f"ptxas named {len(regs)} kernel "
+              f"instantiations, the menus {n_inst}")
+        est = {k: autotune.register_estimate(tiling.config_of(k[2]))
+               for k in regs}
+        low = [(k, used, est[k]) for k, used in sorted(regs.items())
+               if used > est[k]]
+        say(f"[build] registers of {len(regs)} instantiations: "
+            f"{min(regs.values())}-{max(regs.values())}; estimate below "
+            f"ptxas for {len(low)}: {low}")
+    else:
+        say("[build] libraries reused: no ptxas lines to check")
 
     # -- 2. kernels against their plain versions ---------------------------
     # Check data: rbf on the main path's toy rows at its width; linear and
@@ -129,20 +168,29 @@ def main() -> int:
         return dict(kind=kind, gamma=k.gamma, coef0=k.coef0, degree=k.degree)
 
     def hold(out, plain, work, what):
-        """out against plain at the f32 tolerance of TOLERANCES (both see
-        the same operands, so only the summation order differs), a
-        tolerance that must be at most 1% of the median |work|. Returns
-        (max abs err, max rel err, tolerance, tolerance / median |work|)."""
-        out, plain, work = (a.float().cpu().numpy() for a in (out, plain,
-                                                              work))
-        check(np.all(np.isfinite(out)), f"{what}: non-finite kernel output")
-        tol = truth_tolerance("f32", plain)
-        share = tol["atol"] / float(np.median(np.abs(work)))
+        """out against plain at the f32 tolerance of TOLERANCES, atol
+        scaled by max |plain| as truth_tolerance scales it (both see the
+        same operands, so only the summation order differs), a tolerance
+        that must be at most 1% of the median |work|. On the card: the
+        full-width gram matrices are 67M values. Returns (max abs err,
+        max rel err, tolerance, tolerance / median |work|)."""
+        out, plain, work = (a.float() for a in (out, plain, work))
+        check(out.shape == plain.shape, f"{what}: shape {tuple(out.shape)}"
+              f" against {tuple(plain.shape)}")
+        check(bool(torch.isfinite(out).all()),
+              f"{what}: non-finite kernel output")
+        top = float(plain.abs().max())
+        tol = dict(rtol=TOLERANCES["f32"]["rtol"],
+                   atol=TOLERANCES["f32"]["atol"] * max(1.0, top))
+        share = tol["atol"] / float(work.abs().median())
         check(share <= 1e-2, f"{what}: tolerance {tol} is {share:.3g} of "
               f"the median work of the kernel; the check would be blind")
-        np.testing.assert_allclose(out, plain, err_msg=what, **tol)
-        err = float(np.max(np.abs(out - plain)))
-        return err, err / float(np.max(np.abs(plain))), tol, share
+        diff = (out - plain).abs()
+        bad = int((diff > tol["atol"] + tol["rtol"] * plain.abs()).sum())
+        err = float(diff.max())
+        check(bad == 0, f"{what}: {bad} values outside {tol} "
+              f"(max abs err {err:.3e})")
+        return err, err / top, tol, share
 
     def fupdate_operands(kind, m, s, precision):
         """Prepared operands: s of the first m check rows at random, f
@@ -160,7 +208,7 @@ def main() -> int:
         step = fupdate_plain(*ops, **plain_kw(kind)).abs().max()
         return fup.prepare(x, xsel, delta / step, f, precision=precision)
 
-    worst = {"fupdate": 0.0, "decision": 0.0}
+    worst = {"fupdate": 0.0, "decision": 0.0, "gram": 0.0}
     for (m, s) in FUPDATE_SHAPES:
         for kind, kern in kernels.items():
             for precision in PRECISIONS:
@@ -228,6 +276,96 @@ def main() -> int:
                     f"{sm.t_pad.shape[0]} d={D} {kind:6s} {precision:4s} "
                     f"max_abs={err:.3e} max_rel={rel:.3e} tol={tol} "
                     f"tol/median_work={share:.2e}")
+
+    def gram_rows(kind, m, d, seed):
+        """Toy rows, unit-length for linear and poly (as above)."""
+        r = X_np if (m, d, seed) == (M, D, SEED) else make_toy(seed, m,
+                                                                d=d)[0]
+        if kind != "rbf":
+            r = r / np.linalg.norm(r, axis=1, keepdims=True)
+        return torch.as_tensor(r, device=dev)
+
+    for (gm, gn, gd) in GRAM_SHAPES:
+        for kind, kern in kernels.items():
+            x = gram_rows(kind, gm, gd, SEED)
+            y = x if gn == gm else gram_rows(kind, gn, gd, SEED + 1)
+            for precision in PRECISIONS:
+                n0 = gram_ops.GRAM.launches
+                out = gram_ops.gram(x, y, kern, precision=precision)
+                torch.cuda.synchronize()
+                check(gram_ops.GRAM.launches == n0 + 1,
+                      "the gram wrapper launched no kernel")
+                plain = gram_plain(x, y, precision=precision,
+                                   **plain_kw(kind))
+                err, rel, tol, share = hold(
+                    out, plain, plain,
+                    f"gram {gm}x{gn} d={gd} {kind} {precision}")
+                worst["gram"] = max(worst["gram"], err)
+                del out, plain
+                say(f"[kernels] gram {gm}x{gn} d={gd} {kind:6s} "
+                    f"{precision:4s} max_abs={err:.3e} max_rel={rel:.3e} "
+                    f"tol={tol} tol/median_value={share:.2e}")
+
+    def menu_case(family, s, precision):
+        """(launch(cfg), plain, work) at the menu check's ragged shape:
+        rbf on toy rows, each kernel's work O(1) as above."""
+        kern = rbf(1.0 / MENU_D)
+        kw = dict(kind="rbf", gamma=kern.gamma)
+        a = torch.as_tensor(make_toy(SEED + 2, MENU_ROWS, d=MENU_D)[0],
+                            device=dev)
+        if family == "gram":
+            ops = gram_ops.prepare(a, a[:77], precision=precision)
+            plain = gram_plain(ops[0], ops[1], precision=precision, **kw)
+            return (lambda c: gram_ops.launch(*ops, kern, c)(), plain,
+                    plain)
+        if family == "fupdate":
+            delta = torch.as_tensor(rng.standard_normal(s)
+                                    .astype(np.float32), device=dev)
+            f = torch.as_tensor(rng.uniform(-1, 1, MENU_ROWS)
+                                .astype(np.float32), device=dev)
+            ops = fup.prepare(a, a[:s], delta, torch.zeros_like(f),
+                              precision=precision)
+            step = fupdate_plain(*ops, **kw).abs().max()
+            ops = fup.prepare(a, a[:s], delta / step, f,
+                              precision=precision)
+            plain = fupdate_plain(*ops, **kw)
+            return (lambda c: fup.launch(*ops, kern, c)(), plain,
+                    plain - ops[3])
+        dt = tile_dtype(precision)
+        q, t = fup.as_tile(a[:77], dt), fup.as_tile(a, dt)
+        g = torch.as_tensor(np.abs(rng.standard_normal(MENU_ROWS))
+                            .astype(np.float32), device=dev)
+        s_ = gram_plain(q, t, precision=precision, **kw) @ g
+        g, s_ = g / s_.max(), s_ / s_.max()       # 0 < s <= 1
+        r1, r2 = (float(torch.quantile(s_, p)) for p in (0.25, 0.75))
+        ops = (q, t, g, fup.row_norms(q), fup.row_norms(t))
+        plain = decision_plain(*ops, r1, r2, **kw)
+        return (lambda c: dec.launch(*ops, r1, r2, kern, c)(), plain,
+                plain + r1 * r2)
+
+    n_menu = 0
+    for family, entries in tiling.MENUS.items():
+        for precision in PRECISIONS:
+            for idx, entry in enumerate(entries):
+                s = MENU_S[entry[1]] if family == "fupdate" else None
+                cfg = tiling.config_of(entry, "explicit")
+                check(cfg in tiling.menu(family, s),
+                      f"{family} menu entry {entry} outside its class")
+                run, plain, work = menu_case(family, s, precision)
+                out = run(cfg)
+                base = run(tiling.default_config(family, s))
+                torch.cuda.synchronize()
+                what = f"{family} menu entry {idx} {entry} {precision}"
+                err, _, _, share = hold(out, plain, work, what)
+                check(torch.equal(out.view(torch.int32),
+                                  base.view(torch.int32)),
+                      f"{what}: not bitwise equal to the default entry")
+                worst[family] = max(worst[family], err)
+                n_menu += 1
+    say(f"[kernels] menus: {n_menu} launches (every entry of every family "
+        f"x {len(PRECISIONS)} precisions, {MENU_ROWS} rows, d={MENU_D}, "
+        f"rbf): each agrees with its plain version and is bitwise its "
+        f"class's default")
 
     # -- 3. the main path --------------------------------------------------
     spec = SlabSpec(nu1=0.5, nu2=0.05, eps=0.5, kernel=kernels["rbf"])
@@ -305,37 +443,69 @@ def main() -> int:
         f"{int(on_cpu.iters)}, rho1 {float(on_card.model.rho1):.6f} vs "
         f"{float(on_cpu.model.rho1):.6f}")
 
-    # -- 4. timing ----------------------------------------------------------
-    def time_ms(fn, iters=100, warmup=3):
-        """Mean device time of fn(): `iters` calls captured in one CUDA
-        graph, timed by CUDA events around its replay. Replaying leaves
-        out the host's launch cost, which is about as long as a hot-loop
-        fupdate and would otherwise be what a loop of launches times."""
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(warmup):
-                fn()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(iters):
-                fn()
-        graph.replay()
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / iters
+    # -- 4. the autotune path ----------------------------------------------
+    for kern_ in (fup.FUPDATE, dec.DECISION, gram_ops.GRAM):
+        kern_.launches = 0
+    t0 = time.perf_counter()
+    swept = autotune.sweep(
+        autotune.QUICK_CELLS + tuple(c for c in autotune.MAIN_CELLS
+                                     if c.family in ("fupdate", "gram")),
+        precisions=("f32",), repeats=3)
+    sweep_s = time.perf_counter() - t0
+    tune_launches = {"fupdate": fup.FUPDATE.launches,
+                     "decision": dec.DECISION.launches,
+                     "gram": gram_ops.GRAM.launches}
+    for w in swept["winners"]:
+        say(f"[autotune] winner {w['family']} m={w['m']} n={w['n']} "
+            f"d={w['d']} {w['precision']}: (BM, BN, TR, TC)=({w['block_m']}"
+            f", {w['block_n']}, {w['tr']}, {w['tc']}) best_us="
+            f"{1e6 * w['best_s']:.3f} {w['bound']}-bound")
+    say(f"[autotune] quick sweep: {len(swept['candidates'])} candidates, "
+        f"{len(swept['winners'])} cells, seconds={sweep_s:.2f}, "
+        f"launches={tune_launches}")
+    for family in ("gram", "fupdate", "decision"):
+        check(tune_launches[family] > 0, f"the sweep launched no {family}")
+    entries = autotune.winners_to_entries(swept)
+    tiling.validate_table({"entries": entries})   # valid table rows
+
+    # The committed table against none: the fit's launches differ only in
+    # rows per CTA, so the fits must be bitwise equal.
+    tuned_fits = {}
+    for label, table in (("committed", None), ("empty", {"entries": []})):
+        tiling.set_tuned_table(table)
+        fup.FUPDATE.last_config = None
+        res = repro_torch.fit(X_np, spec, strategy="auto", P=P, tol=TOL)
+        cfg = fup.FUPDATE.last_config
+        tuned_fits[label] = res
+        say(f"[autotune] fit f32 m={M} table={label}: fupdate (BM, BN, TR,"
+            f" TC)={cfg.entry} source={cfg.source} iters={int(res.iters)} "
+            f"rho=({float(res.model.rho1):.9f}, "
+            f"{float(res.model.rho2):.9f})")
+        if label == "committed":
+            check(cfg.source in ("table-exact", "table-nearest"),
+                  f"the fit's fupdate did not launch from the table: "
+                  f"{cfg}")
+        else:
+            check(cfg.source == "default", f"empty table launched {cfg}")
+    tiling.set_tuned_table(None)
+    a, b = tuned_fits["committed"], tuned_fits["empty"]
+    check(torch.equal(a.model.gamma.view(torch.int32),
+                      b.model.gamma.view(torch.int32))
+          and float(a.model.rho1) == float(b.model.rho1)
+          and float(a.model.rho2) == float(b.model.rho2)
+          and int(a.iters) == int(b.iters),
+          "the fit with the committed table is not bitwise the fit with "
+          "an empty table")
+    say("[autotune] the fit with the committed table is bitwise the fit "
+        "with an empty table (gamma, rho1, rho2, iters)")
+
+    # -- 5. timing ----------------------------------------------------------
+    time_ms = autotune.graph_ms    # device ms of one call, graph-replayed
 
     def bound(nbytes, flops, precision):
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = flops / PEAK_FLOPS[precision]
-        return (1e3 * max(t_bytes, t_ops),
-                "bytes" if t_bytes >= t_ops else "operations")
+        t = terms(flops, nbytes, 0.0, 1, precision)
+        return (1e3 * t.step_time_s,
+                "bytes" if t.memory_s >= t.compute_s else "operations")
 
     # A kernel's time is that of its launch on prepared operands
     # (fup.launch, dec.launch), built on the stream that captures it; the
@@ -376,6 +546,50 @@ def main() -> int:
                 f"bound_ms={b_ms:.5f} ({b_by}) "
                 f"bound_share={b_ms / ms:.3f}")
 
+    # fupdate on the hot loop at the default config too (the table's
+    # is timed above), and gram at full width, with its library call.
+    ops = fupdate_operands("rbf", M, 2 * P, "f32")
+    f_default_ms = time_ms(lambda: fup.launch(
+        *ops, kernels["rbf"], tiling.default_config("fupdate", 2 * P))())
+    f_cfg = fup.tiles(ops[0], 2 * P)
+    say(f"[timing] fupdate m={M} S={2 * P} d={D} rbf f32 table config "
+        f"{f_cfg.entry} ({f_cfg.source}) "
+        f"kernel_ms={timed[('fupdate', M, 2 * P, 'f32')][0]:.4f}; default "
+        f"config {tiling.default_config('fupdate', 2 * P).entry} "
+        f"kernel_ms={f_default_ms:.4f}")
+    for kind, precision in GRAM_TIMED:
+        x = torch.as_tensor(rows[kind], device=dev)
+        ops = gram_ops.prepare(x, x, precision=precision)
+        kern = kernels[kind]
+        cfg = gram_ops.tiles(ops[0], ops[1])
+        ms = time_ms(lambda: gram_ops.launch(*ops, kern)(), iters=20)
+        default_ms = time_ms(lambda: gram_ops.launch(
+            *ops, kern, tiling.default_config("gram"))(), iters=20)
+        plain_ms = time_ms(lambda: gram_plain(
+            ops[0], ops[1], precision=precision, **plain_kw(kind)), iters=10)
+        lib_ms, lib = None, "none (no one PyTorch call computes it)"
+        if kind == "linear" and precision == "f32":
+            lib_ms = time_ms(lambda: ops[0] @ ops[1].T, iters=20)
+            lib = "x @ y.T (TF32 off)"
+        elif kind == "linear":
+            try:    # bf16 operands, f32 output: one cuBLAS call, if any
+                torch.mm(ops[0], ops[1].T, out_dtype=torch.float32)
+                lib_ms = time_ms(lambda: torch.mm(
+                    ops[0], ops[1].T, out_dtype=torch.float32), iters=20)
+                lib = "torch.mm(x, y.T, out_dtype=float32)"
+            except (TypeError, RuntimeError) as e:
+                lib = f"none (torch.mm out_dtype: {type(e).__name__})"
+        es = ops[0].element_size()
+        nbytes = 2 * M * D * es + 2 * M * 4 + M * M * 4
+        b_ms, b_by = bound(nbytes, 2.0 * M * M * D, precision)
+        timed[("gram", kind, precision)] = (ms, plain_ms, b_ms, b_by, lib_ms)
+        say(f"[timing] gram {M}x{M} d={D} {kind} {precision:4s} config "
+            f"{cfg.entry} ({cfg.source}) kernel_ms={ms:.4f} default_config"
+            f"_ms={default_ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
+            f"{b_ms:.5f} ({b_by}) bound_share={b_ms / ms:.3f} library_ms="
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f}'} [{lib}]")
+        del ops
+
     scorer = sm.scorer()
     scorer.warmup()
     for bucket in BUCKETS:
@@ -392,7 +606,7 @@ def main() -> int:
     say(f"[timing] max_memory_allocated="
         f"{torch.cuda.max_memory_allocated()} bytes")
 
-    # -- 5. where a fit's time goes: a profiler window over one solve ------
+    # -- 6. where a fit's time goes: a profiler window over one solve ------
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -439,6 +653,7 @@ def main() -> int:
     f_ms, f_plain, f_b, f_by = timed[("fupdate", M, 2 * P, "f32")]
     d_ms, d_plain, d_b, d_by = timed[("decision", BUCKETS[-1], SUPPORT,
                                       "f32")]
+    g_ms, g_plain, g_b, g_by, g_lib = timed[("gram", "linear", "f32")]
     say(json.dumps({"kernels": [
         {"name": "fupdate", "route": "cuda",
          "source": "src/repro_torch/csrc/fupdate.cu",
@@ -454,6 +669,13 @@ def main() -> int:
          "ms": d_ms, "plain_ms": d_plain, "bound_ms": d_b, "bound_by": d_by,
          "library_ms": None, "pass": True,
          "shape": f"queries={BUCKETS[-1]} support={SUPPORT} d={D} rbf f32"},
+        {"name": "gram", "route": "cuda",
+         "source": "src/repro_torch/csrc/gram.cu",
+         "replaces": "src/repro/kernels/gram/kernel.py:27",
+         "launches": tune_launches["gram"], "max_abs_err": worst["gram"],
+         "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_b, "bound_by": g_by,
+         "library_ms": g_lib, "pass": True,
+         "shape": f"m=n={M} d={D} linear f32"},
     ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

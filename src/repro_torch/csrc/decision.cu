@@ -3,10 +3,10 @@
 //
 // Replaces the TPU kernel _decision_kernel / decision_pallas of
 // src/repro/kernels/decision/kernel.py (grid (NQ/TM, M/TN), support tiles
-// walked in order into a VMEM accumulator). Here one CTA owns 16 queries
-// and loops over the packed support rows in shared-memory chunks
-// (kernel_rows.cuh), keeping one f32 sum per query in registers and
-// applying the slab rule once at the end.
+// walked in order into a VMEM accumulator). Here one CTA owns BM queries
+// (16 by default; the menu below) and loops over the packed support rows
+// in shared-memory chunks (kernel_rows.cuh), keeping one f32 sum per
+// query in registers and applying the slab rule once at the end.
 //
 // What bounds it on an H100: every query meets every support row, 2*d
 // flops per pair against the support block read once per CTA from L2 —
@@ -20,12 +20,7 @@
 namespace repro {
 namespace {
 
-constexpr int BM = 16;  // queries per CTA
-constexpr int BN = 64;  // support rows per shared-memory chunk
-constexpr int TR = 1;
-constexpr int TC = 4;
-
-template <typename T>
+template <typename T, int BM, int BN, int TR, int TC>
 __global__ void __launch_bounds__((BM / TR) * (BN / TC))
     decision_kernel(const T* __restrict__ q, const T* __restrict__ t,
                     const float* __restrict__ gamma,
@@ -52,52 +47,69 @@ __global__ void __launch_bounds__((BM / TR) * (BN / TC))
   }
 }
 
-template <typename T>
-void launch(const void* q, const void* t, const void* gamma, const void* qn,
-            const void* tnorm, void* out, int nq, int nt, int d,
-            KernelParams p, float rho1, float rho2, cudaStream_t stream) {
-  const dim3 grid((nq + BM - 1) / BM);
+struct Args {
+  const void *q, *t, *gamma, *qn, *tnorm;
+  void* out;
+  int nq, nt, d;
+  KernelParams p;
+  float rho1, rho2;
+};
+
+template <typename T, int BM, int BN, int TR, int TC>
+void launch(const Args& a, cudaStream_t stream) {
+  const dim3 grid((a.nq + BM - 1) / BM);
   constexpr int threads = (BM / TR) * (BN / TC);
-  decision_kernel<T><<<grid, threads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(t),
-      static_cast<const float*>(gamma), static_cast<const float*>(qn),
-      static_cast<const float*>(tnorm), static_cast<float*>(out), nq, nt, d,
-      p, rho1, rho2);
+  decision_kernel<T, BM, BN, TR, TC><<<grid, threads, 0, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.t),
+      static_cast<const float*>(a.gamma), static_cast<const float*>(a.qn),
+      static_cast<const float*>(a.tnorm), static_cast<float*>(a.out), a.nq,
+      a.nt, a.d, a.p, a.rho1, a.rho2);
+}
+
+// The menu: launch index -> <BM, BN, TR, TC>, in the order of
+// MENUS["decision"] in kernels/tiling.py (tests read these lines). BN = 64
+// support rows per chunk and TC = 4 are fixed, so every entry sums each
+// query's s in the same order; entry 0 (16 queries per CTA) is the
+// default.
+template <typename T>
+int launch_menu(int cfg, const Args& a, cudaStream_t st) {
+  switch (cfg) {
+    case 0: launch<T, 16, 64, 1, 4>(a, st); break;
+    case 1: launch<T, 8, 64, 1, 4>(a, st); break;
+    case 2: launch<T, 32, 64, 2, 4>(a, st); break;
+    case 3: launch<T, 32, 64, 1, 4>(a, st); break;
+    case 4: launch<T, 64, 64, 4, 4>(a, st); break;
+    case 5: launch<T, 16, 64, 2, 4>(a, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 }  // namespace repro
 
 // q (nq, d) and t (nt, d) row-major in `dtype` (0 f32, 1 bf16, 2 f16);
-// gamma (nt,), qn (nq,), tnorm (nt,) and out (nq,) f32. Launches on
-// `stream`, which must belong to the caller's current device, and returns
-// cudaGetLastError().
+// gamma (nt,), qn (nq,), tnorm (nt,) and out (nq,) f32; `cfg` the index
+// of a menu entry. Launches on `stream`, which must belong to the
+// caller's current device, and returns cudaGetLastError()
+// (cudaErrorInvalidValue, launching nothing, for an unknown dtype or
+// menu index).
 extern "C" int decision_launch(const void* q, const void* t,
                                const void* gamma, const void* qn,
                                const void* tnorm, void* out, int nq, int nt,
                                int d, int dtype, int kind, float kgamma,
                                float coef0, int degree, float rho1,
-                               float rho2, void* stream) {
+                               float rho2, int cfg, void* stream) {
   using namespace repro;
-  const KernelParams p{kind, kgamma, coef0, degree};
+  const Args a{q, t, gamma, qn, tnorm, out, nq, nt, d,
+               KernelParams{kind, kgamma, coef0, degree}, rho1, rho2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kF32:
-      launch<float>(q, t, gamma, qn, tnorm, out, nq, nt, d, p, rho1, rho2,
-                    st);
-      break;
-    case kBF16:
-      launch<__nv_bfloat16>(q, t, gamma, qn, tnorm, out, nq, nt, d, p, rho1,
-                            rho2, st);
-      break;
-    case kF16:
-      launch<__half>(q, t, gamma, qn, tnorm, out, nq, nt, d, p, rho1, rho2,
-                     st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case kF32: return launch_menu<float>(cfg, a, st);
+    case kBF16: return launch_menu<__nv_bfloat16>(cfg, a, st);
+    case kF16: return launch_menu<__half>(cfg, a, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* decision_error_string(int err) {

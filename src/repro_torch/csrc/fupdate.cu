@@ -7,6 +7,10 @@
 // reconcile): at d = 128 in f32 that is 1 MiB, far above a CTA's shared
 // memory, so each CTA loops over it in chunks (kernel_rows.cuh).
 //
+// The launch shape comes from a menu of template instantiations (below);
+// the wrapper picks the entry through kernels/tiling.resolve_tiles (the
+// tuned table, else its class's default).
+//
 // What bounds it on an H100: on the solver's hot loop S = 2P = 16 or 32,
 // so the kernel does 2*S flops per element of X it reads — bytes-bound (X
 // is read once per call; 4 MiB at m = 8192, d = 128 in f32, half that in
@@ -43,66 +47,75 @@ __global__ void __launch_bounds__((BM / TR) * (BN / TC))
   }
 }
 
+struct Args {
+  const void *x, *xsel, *delta, *f, *xn, *seln;
+  void* out;
+  int m, s, d;
+  KernelParams p;
+};
+
 template <typename T, int BM, int BN, int TR, int TC>
-void launch(const void* x, const void* xsel, const void* delta,
-            const void* f, const void* xn, const void* seln, void* out,
-            int m, int s, int d, KernelParams p, cudaStream_t stream) {
-  const dim3 grid((m + BM - 1) / BM);
+void launch(const Args& a, cudaStream_t stream) {
+  const dim3 grid((a.m + BM - 1) / BM);
   constexpr int threads = (BM / TR) * (BN / TC);
   fupdate_kernel<T, BM, BN, TR, TC><<<grid, threads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(xsel),
-      static_cast<const float*>(delta), static_cast<const float*>(f),
-      static_cast<const float*>(xn), static_cast<const float*>(seln),
-      static_cast<float*>(out), m, s, d, p);
+      static_cast<const T*>(a.x), static_cast<const T*>(a.xsel),
+      static_cast<const float*>(a.delta), static_cast<const float*>(a.f),
+      static_cast<const float*>(a.xn), static_cast<const float*>(a.seln),
+      static_cast<float*>(a.out), a.m, a.s, a.d, a.p);
 }
 
+// The menu: launch index -> <BM, BN, TR, TC>, in the order of
+// MENUS["fupdate"] in kernels/tiling.py (tests read these lines). Two
+// classes by the selected block's size S, each with fixed BN and TC so
+// that every entry of a class sums each row in the same order: BN = 32
+// for the hot loop (S = 2P <= 32: one column chunk), BN = 64 above it
+// (the init pass and the warm reconcile, up to S = 2048). Entry 0
+// (64 rows per CTA) and entry 6 (32 rows per CTA, so that m = 2048 still
+// spreads over 64 CTAs) are each class's default.
 template <typename T>
-void launch_for_s(const void* x, const void* xsel, const void* delta,
-                  const void* f, const void* xn, const void* seln, void* out,
-                  int m, int s, int d, KernelParams p, cudaStream_t stream) {
-  if (s <= 32) {
-    // Hot loop (S = 2P <= 32): one 32-column chunk, 64 rows per CTA.
-    launch<T, 64, 32, 4, 2>(x, xsel, delta, f, xn, seln, out, m, s, d, p,
-                            stream);
-  } else {
-    // Init pass / reconcile: 64-column chunks, 32 rows per CTA so that
-    // m = 2048 still spreads over 64 CTAs.
-    launch<T, 32, 64, 2, 4>(x, xsel, delta, f, xn, seln, out, m, s, d, p,
-                            stream);
+int launch_menu(int cfg, const Args& a, cudaStream_t st) {
+  switch (cfg) {
+    case 0: launch<T, 64, 32, 4, 2>(a, st); break;
+    case 1: launch<T, 32, 32, 2, 2>(a, st); break;
+    case 2: launch<T, 32, 32, 4, 2>(a, st); break;
+    case 3: launch<T, 16, 32, 1, 2>(a, st); break;
+    case 4: launch<T, 128, 32, 8, 2>(a, st); break;
+    case 5: launch<T, 64, 32, 2, 2>(a, st); break;
+    case 6: launch<T, 32, 64, 2, 4>(a, st); break;
+    case 7: launch<T, 16, 64, 1, 4>(a, st); break;
+    case 8: launch<T, 16, 64, 2, 4>(a, st); break;
+    case 9: launch<T, 64, 64, 4, 4>(a, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 }  // namespace repro
 
 // x (m, d) and xsel (s, d) row-major in `dtype` (0 f32, 1 bf16, 2 f16);
-// delta (s,), f (m,), xn (m,), seln (s,) and out (m,) f32. Launches on
-// `stream`, which must belong to the caller's current device, and returns
-// cudaGetLastError().
+// delta (s,), f (m,), xn (m,), seln (s,) and out (m,) f32; `cfg` the
+// index of a menu entry. Launches on `stream`, which must belong to the
+// caller's current device, and returns cudaGetLastError()
+// (cudaErrorInvalidValue, launching nothing, for an unknown dtype or
+// menu index).
 extern "C" int fupdate_launch(const void* x, const void* xsel,
                               const void* delta, const void* f,
                               const void* xn, const void* seln, void* out,
                               int m, int s, int d, int dtype, int kind,
-                              float gamma, float coef0, int degree,
+                              float gamma, float coef0, int degree, int cfg,
                               void* stream) {
   using namespace repro;
-  const KernelParams p{kind, gamma, coef0, degree};
+  const Args a{x, xsel, delta, f, xn, seln, out, m, s, d,
+               KernelParams{kind, gamma, coef0, degree}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kF32:
-      launch_for_s<float>(x, xsel, delta, f, xn, seln, out, m, s, d, p, st);
-      break;
-    case kBF16:
-      launch_for_s<__nv_bfloat16>(x, xsel, delta, f, xn, seln, out, m, s, d,
-                                  p, st);
-      break;
-    case kF16:
-      launch_for_s<__half>(x, xsel, delta, f, xn, seln, out, m, s, d, p, st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case kF32: return launch_menu<float>(cfg, a, st);
+    case kBF16: return launch_menu<__nv_bfloat16>(cfg, a, st);
+    case kF16: return launch_menu<__half>(cfg, a, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* fupdate_error_string(int err) {

@@ -1,27 +1,37 @@
-// Shared device code of the fupdate and decision kernels.
+// Shared device code of the fupdate, decision and gram kernels.
 //
-// Both kernels compute, for every row r of a matrix A, the weighted row
-// sum
+// All three evaluate k(A[r], B[c]) for tiles of rows of two matrices,
+// where k is the linear, rbf or poly kernel on an f32 dot product (rbf
+// also reads the f32 squared norms of the rows). gram writes every value;
+// fupdate and decision take, for every row r of A, the weighted row sum
 //
 //     s[r] = sum_{c < N} w[c] * k(A[r], B[c])
 //
-// where k is the linear, rbf or poly kernel evaluated on an f32 dot
-// product (rbf also reads the f32 squared norms of the rows). fupdate
-// takes A = the training rows, B = the selected block, w = the dual step
-// and writes f + s; decision takes A = the queries, B = the packed
-// support rows, w = gamma and writes (s - rho1) * (rho2 - s).
+// fupdate with A = the training rows, B = the selected block, w = the
+// dual step, writing f + s; decision with A = the queries, B = the packed
+// support rows, w = gamma, writing (s - rho1) * (rho2 - s).
 //
-// Layout: one CTA owns BM rows of A, so its outputs belong to it alone:
-// no cross-CTA reduction and no atomics. It walks B in chunks of BN rows
-// and the features in chunks of DK; each chunk of A and B is staged in
-// shared memory as f32 (16-bit inputs are widened as they are loaded),
-// and each thread keeps a TR x TC register tile of dot products summed
-// by f32 FMA. After the last feature chunk the kernel epilogue runs on
-// the thread's tile, weighted by w, into TR per-row partials; the NTX
-// threads sharing a row add their partials with warp shuffles at the
-// end. Ragged edges are masked here: rows of A past M and features past
-// D load as 0, and columns past N are skipped in the epilogue, so they
-// add exactly nothing.
+// dot_tile: a CTA of (BM/TR) * (BN/TC) threads stages BM rows of A and BN
+// rows of B in DK-deep feature chunks in shared memory as f32 (16-bit
+// inputs are widened as they are loaded), and each thread keeps a TR x TC
+// register tile of dot products, each summed by f32 FMA over the features
+// in order. Thread (ty, tx) owns rows ty + i * NTY and columns
+// tx + j * NTX. Rows past M, columns past N and features past D load as
+// 0, so ragged edges need no padding.
+//
+// weighted_row_sums: one CTA owns BM rows of A, so its outputs belong to
+// it alone: no cross-CTA reduction and no atomics. It walks B in chunks of
+// BN rows; after each chunk's dot tile the epilogue runs on the thread's
+// tile, weighted by w, into TR per-row partials, skipping columns past N
+// (so they add exactly nothing); the NTX threads sharing a row add their
+// partials with warp shuffles at the end.
+//
+// Sum order: each dot product is one thread's sequential FMA chain over
+// the features, whatever BM, BN, TR, TC; a row sum's order depends on BN
+// and TC (which columns a thread adds, and the shuffle tree over NTX) but
+// not on BM or TR. So launches that differ only in BM and TR give bitwise
+// equal fupdate and decision outputs, and every gram launch gives bitwise
+// equal values (kernels/tiling.py keeps each family's menu to that).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -80,6 +90,63 @@ __device__ __forceinline__ float epilogue(float dot, float rn, float cn,
   return dot;
 }
 
+// acc[i][j] = dot(A[row0 + ty + i * NTY], B[col0 + tx + j * NTX]) over
+// the D features, 0 for rows or columns outside the matrices. Every
+// thread of the CTA must call it (it synchronises the CTA).
+template <typename T, int BM, int BN, int TR, int TC>
+__device__ __forceinline__ void dot_tile(const T* __restrict__ A,
+                                         const T* __restrict__ B, int M,
+                                         int N, int D, int row0, int col0,
+                                         float (&acc)[TR][TC]) {
+  constexpr int NTY = BM / TR;
+  constexpr int NTX = BN / TC;
+  constexpr int NT = NTY * NTX;
+  // +1 column of padding: the transposed stores below hit 32 banks.
+  __shared__ float As[DK][BM + 1];
+  __shared__ float Bs[DK][BN + 1];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % NTX;
+  const int ty = tid / NTX;
+
+#pragma unroll
+  for (int i = 0; i < TR; ++i)
+#pragma unroll
+    for (int j = 0; j < TC; ++j) acc[i][j] = 0.0f;
+
+  for (int k0 = 0; k0 < D; k0 += DK) {
+    for (int e = tid; e < BM * DK; e += NT) {
+      const int r = e / DK, k = e % DK;
+      const int gr = row0 + r, gk = k0 + k;
+      As[k][r] = (gr < M && gk < D)
+                     ? widen(A[static_cast<size_t>(gr) * D + gk])
+                     : 0.0f;
+    }
+    for (int e = tid; e < BN * DK; e += NT) {
+      const int c = e / DK, k = e % DK;
+      const int gc = col0 + c, gk = k0 + k;
+      Bs[k][c] = (gc < N && gk < D)
+                     ? widen(B[static_cast<size_t>(gc) * D + gk])
+                     : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < DK; ++k) {
+      float a[TR], b[TC];
+#pragma unroll
+      for (int i = 0; i < TR; ++i) a[i] = As[k][ty + i * NTY];
+#pragma unroll
+      for (int j = 0; j < TC; ++j) b[j] = Bs[k][tx + j * NTX];
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+#pragma unroll
+        for (int j = 0; j < TC; ++j)
+          acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+}
+
 // Per-thread partial sums for rows row0 + ty + i * NTY (i < TR); after
 // the call the thread with tx == 0 holds each of its rows' full sums.
 // Every thread of the CTA must call it (it synchronises the CTA and the
@@ -92,16 +159,12 @@ __device__ __forceinline__ void weighted_row_sums(
     const KernelParams& p, int row0, float (&part)[TR]) {
   constexpr int NTY = BM / TR;
   constexpr int NTX = BN / TC;
-  constexpr int NT = NTY * NTX;
   static_assert(NTX <= 32 && (32 % NTX) == 0,
                 "a row's threads must sit in one warp");
-  // +1 column of padding: the transposed stores below hit 32 banks.
-  __shared__ float As[DK][BM + 1];
-  __shared__ float Bs[DK][BN + 1];
+  static_assert((NTY * NTX) % 32 == 0, "whole warps only");
 
-  const int tid = threadIdx.x;
-  const int tx = tid % NTX;
-  const int ty = tid / NTX;
+  const int tx = threadIdx.x % NTX;
+  const int ty = threadIdx.x / NTX;
 
   float rn[TR];
 #pragma unroll
@@ -113,42 +176,7 @@ __device__ __forceinline__ void weighted_row_sums(
 
   for (int n0 = 0; n0 < N; n0 += BN) {
     float acc[TR][TC];
-#pragma unroll
-    for (int i = 0; i < TR; ++i)
-#pragma unroll
-      for (int j = 0; j < TC; ++j) acc[i][j] = 0.0f;
-
-    for (int k0 = 0; k0 < D; k0 += DK) {
-      for (int e = tid; e < BM * DK; e += NT) {
-        const int r = e / DK, k = e % DK;
-        const int gr = row0 + r, gk = k0 + k;
-        As[k][r] = (gr < M && gk < D)
-                       ? widen(A[static_cast<size_t>(gr) * D + gk])
-                       : 0.0f;
-      }
-      for (int e = tid; e < BN * DK; e += NT) {
-        const int c = e / DK, k = e % DK;
-        const int gc = n0 + c, gk = k0 + k;
-        Bs[k][c] = (gc < N && gk < D)
-                       ? widen(B[static_cast<size_t>(gc) * D + gk])
-                       : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < DK; ++k) {
-        float a[TR], b[TC];
-#pragma unroll
-        for (int i = 0; i < TR; ++i) a[i] = As[k][ty + i * NTY];
-#pragma unroll
-        for (int j = 0; j < TC; ++j) b[j] = Bs[k][tx + j * NTX];
-#pragma unroll
-        for (int i = 0; i < TR; ++i)
-#pragma unroll
-          for (int j = 0; j < TC; ++j)
-            acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
+    dot_tile<T, BM, BN, TR, TC>(A, B, M, N, D, row0, n0, acc);
 
 #pragma unroll
     for (int j = 0; j < TC; ++j) {

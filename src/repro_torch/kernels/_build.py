@@ -15,7 +15,9 @@ A ``Kernel`` is the binding of one C entry point: its ``argtypes`` are
 would be cut to 32 bits), ``c_int`` for ints and ``c_float`` for the
 kernel scalars; the entry returns ``cudaGetLastError()`` and ``launch``
 raises when it is not 0 — a refused launch never runs and reports
-nothing otherwise. ``Kernel.launches`` counts successful launches.
+nothing otherwise. ``Kernel.launches`` counts successful launches and
+``Kernel.last_config`` holds the tile config (``tiling.TileConfig``) of
+the last one.
 
 A ``Launch`` is one launch with its C arguments marshalled: the kernel
 wrappers build it from prepared operands and call it; calling it again
@@ -132,6 +134,7 @@ class Kernel:
         self.entry = entry
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.last_config = None
         self._fn = None
         self._err_str = None
         self._lock = threading.Lock()
@@ -160,17 +163,20 @@ class Kernel:
 
 @dataclass(frozen=True)
 class Launch:
-    """One launch of ``kernel`` with its C arguments ``args``, on the card
-    ``device`` whose stream they name, writing ``out``. Calling it launches
-    the kernel (counted) with that card current, then restores the
-    caller's current card, and returns ``out``."""
+    """One launch of ``kernel`` with its C arguments ``args`` (the menu
+    index of ``config`` among them), on the card ``device`` whose stream
+    they name, writing ``out``. Calling it launches the kernel (counted)
+    with that card current, then restores the caller's current card, and
+    returns ``out``."""
 
     kernel: Kernel
     device: int
     args: tuple
     out: object
+    config: object = None
 
     def __call__(self):
         with torch.cuda.device(self.device):
             self.kernel.launch(*self.args)
+        self.kernel.last_config = self.config
         return self.out

@@ -12,11 +12,17 @@ fallback from one to the other. ``DECISION.launches`` counts the
 kernel's launches from both wrappers. ``prepare_packed`` and ``launch``
 are ``decision_packed``'s two halves: the operands the kernel and its
 plain version both take, and the kernel's launch on them.
+
+``decision`` takes its launch shape from ``tiling.resolve_tiles``
+(``tiles``: the tuned table keyed on (support rows, d, precision,
+"cuda"), unless ``tm``/``tn`` are given); ``decision_packed`` stays off
+the table, as in the JAX package, and launches the default. Every menu
+entry gives bitwise the same output.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -25,32 +31,49 @@ from repro_torch.kernels._build import Kernel, Launch
 from repro_torch.kernels.decision.ref import decision_plain
 from repro_torch.kernels.fupdate.ops import (DTYPE_CODES, KIND_CODES,
                                              as_tile, row_norms)
-from repro_torch.kernels.precision import tile_dtype
-from repro_torch.kernels.tiling import LANE
+from repro_torch.kernels.precision import precision_of, tile_dtype
+from repro_torch.kernels.tiling import (DEFAULT_CONFIGS, LANE, TileConfig,
+                                        backend_name, menu_index,
+                                        resolve_tiles)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 DECISION = Kernel("decision", "decision_launch",
-                  [_P] * 6 + [_I] * 5 + [_F, _F, _I, _F, _F, _P])
+                  [_P] * 6 + [_I] * 5 + [_F, _F, _I, _F, _F, _I, _P])
 
 
-def launch(q, t, gamma_vec, qn, tnorm, rho1, rho2,
-           kernel: KernelFn) -> Launch:
+def tiles(q, t, *, tm: Optional[int] = None,
+          tn: Optional[int] = None) -> TileConfig:
+    """``decision``'s launch config for prepared queries q and support
+    rows t (``tiling.resolve_tiles``)."""
+    return resolve_tiles("decision", m=t.shape[0], d=q.shape[1],
+                         n=q.shape[0], precision=precision_of(q.dtype),
+                         backend=backend_name(q), block_m=tm, block_n=tn)
+
+
+def launch(q, t, gamma_vec, qn, tnorm, rho1, rho2, kernel: KernelFn,
+           cfg: Optional[TileConfig] = None) -> Launch:
     """The kernel's launch on prepared CUDA operands (contiguous, q/t in
     one tile dtype, the rest f32), into a new (nq,) f32 output, on the
-    current stream of q's card."""
+    current stream of q's card, with tile config ``cfg`` (default: the
+    default config, ``decision_packed``'s)."""
     dev = q.device
     nq, d = q.shape
     out = torch.empty((nq,), dtype=torch.float32, device=dev)
+    if cfg is None:
+        cfg = DEFAULT_CONFIGS["decision"]
     return Launch(DECISION, dev.index, (
         q.data_ptr(), t.data_ptr(), gamma_vec.data_ptr(), qn.data_ptr(),
         tnorm.data_ptr(), out.data_ptr(), nq, t.shape[0], d,
         DTYPE_CODES[q.dtype], KIND_CODES[kernel.name], float(kernel.gamma),
         float(kernel.coef0), int(kernel.degree), float(rho1), float(rho2),
-        torch.cuda.current_stream(dev).cuda_stream), out)
+        menu_index("decision", cfg),
+        torch.cuda.current_stream(dev).cuda_stream), out, cfg)
 
 
-def _run(q, t, gamma_vec, qn, tnorm, rho1, rho2, kernel: KernelFn):
-    """Plain version on the CPU, the kernel on CUDA."""
+def _run(q, t, gamma_vec, qn, tnorm, rho1, rho2, kernel: KernelFn,
+         cfg: Optional[TileConfig] = None):
+    """Plain version on the CPU, the kernel on CUDA (with ``cfg``, see
+    ``launch``)."""
     rho1, rho2 = float(rho1), float(rho2)
     dev = q.device
     if any(a.device != dev for a in (t, gamma_vec, qn, tnorm)):
@@ -63,23 +86,29 @@ def _run(q, t, gamma_vec, qn, tnorm, rho1, rho2, kernel: KernelFn):
         raise ValueError(f"decision runs on cpu or cuda, not {dev.type}")
     if q.shape[0] == 0:
         return torch.empty((0,), dtype=torch.float32, device=dev)
-    return launch(q, t, gamma_vec, qn, tnorm, rho1, rho2, kernel)()
+    return launch(q, t, gamma_vec, qn, tnorm, rho1, rho2, kernel, cfg)()
 
 
 def decision(q, t, gamma_vec, rho1, rho2, kernel: KernelFn, *,
+             tm: Optional[int] = None, tn: Optional[int] = None,
              precision: str = "f32") -> torch.Tensor:
     """Slab decision values for queries q (nq, d) against the support set
     (t (nt, d), gamma_vec (nt,)); any shapes (the kernel masks ragged
-    edges). Returns (nq,) f32 ``(s - rho1) * (rho2 - s)``."""
+    edges). ``tm``/``tn`` (queries per CTA, support rows per chunk) opt
+    out of the tuned table; ``None`` resolves from it. Returns (nq,) f32
+    ``(s - rho1) * (rho2 - s)``."""
     dt = tile_dtype(precision)
     q = as_tile(q, dt)
     t = as_tile(t, dt)
     if q.shape[1] != t.shape[1] or gamma_vec.shape != (t.shape[0],):
         raise ValueError(f"decision shapes: q {tuple(q.shape)}, t "
                          f"{tuple(t.shape)}, gamma {tuple(gamma_vec.shape)}")
+    cfg = None
+    if q.device.type == "cuda" or tm is not None or tn is not None:
+        cfg = tiles(q, t, tm=tm, tn=tn)
     return _run(q, t, gamma_vec.to(torch.float32).contiguous(),
                 row_norms(q).contiguous(), row_norms(t).contiguous(),
-                rho1, rho2, kernel)
+                rho1, rho2, kernel, cfg)
 
 
 def prepare_packed(q_pad, t_pad, gamma_pad, t_norms, *, tm: int = 256,

@@ -64,6 +64,15 @@ def tile_dtype(precision: str) -> torch.dtype:
     return _TILE_DTYPES[check_precision(precision)]
 
 
+def precision_of(dtype: torch.dtype) -> str:
+    """The precision whose tile dtype is ``dtype`` (of prepared rows)."""
+    for name, dt in _TILE_DTYPES.items():
+        if dt == dtype:
+            return name
+    raise ValueError(f"no precision streams {dtype}; expected one of "
+                     f"{tuple(_TILE_DTYPES.values())}")
+
+
 def round_to_tile(a: torch.Tensor, precision: str) -> torch.Tensor:
     """f32 -> tile dtype round-trip, back in f32 (round to nearest even,
     as the JAX package rounds). No-op cast for "f32"."""

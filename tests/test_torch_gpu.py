@@ -1,4 +1,5 @@
-"""The port's CUDA kernels held against their plain versions, on the card.
+"""The port's CUDA kernels held against their plain versions, on the card
+(and every menu entry against its default, bitwise).
 
     python -m pytest -m gpu tests/test_torch_gpu.py
 
@@ -8,6 +9,8 @@ imports nothing of JAX: the machine with the card has no JAX. Kernel and
 plain version see the same operands, so they differ by the f32 summation
 order only and are compared at the f32 tolerance of ``TOLERANCES``.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +25,9 @@ from repro_torch.kernels.decision import ops as tdec
 from repro_torch.kernels.decision.ref import decision_plain
 from repro_torch.kernels.fupdate import ops as tfup
 from repro_torch.kernels.fupdate.ref import fupdate_plain
+from repro_torch.kernels.gram import ops as tgram
+from repro_torch.kernels.gram.ref import gram_plain
+from repro_torch.kernels import tiling as ttil
 from repro_torch.serve.model_cache import ModelCache, pack_model
 
 pytestmark = pytest.mark.gpu
@@ -136,3 +142,130 @@ def test_fit_and_serve_on_the_card_match_the_cpu(cuda, precision):
     s = sm.score(q)
     ref = sm.model.decision_function(_t(q, cuda)).cpu().numpy()
     np.testing.assert_allclose(s, ref, **tprec.truth_tolerance("f32", ref))
+
+
+# -- gram, the menus and the tuned table -------------------------------------
+
+@pytest.mark.parametrize("precision", tprec.PRECISIONS)
+@pytest.mark.parametrize("k", KERNELS, ids=KIDS)
+@pytest.mark.parametrize("m,n,d", [(130, 77, 129), (300, 257, 16)])
+def test_gram_kernel_matches_plain(cuda, k, precision, m, n, d):
+    tk = _kern(k)
+    rng = np.random.default_rng(10)
+    x = _t(rng.standard_normal((m, d)) / np.sqrt(d), cuda)
+    y = _t(rng.standard_normal((n, d)) / np.sqrt(d), cuda)
+    n0 = tgram.GRAM.launches
+    out = tgram.gram(x, y, tk, precision=precision)
+    torch.cuda.synchronize()
+    assert tgram.GRAM.launches == n0 + 1 and out.shape == (m, n)
+    plain = gram_plain(x, y, kind=k[0], gamma=k[1], coef0=k[2], degree=k[3],
+                       precision=precision)
+    _close(out, plain)
+
+
+def _menu_cases():
+    """(family, S or None, menu index) for every menu entry: fupdate's at
+    an S of their class."""
+    cases = []
+    for family, entries in ttil.MENUS.items():
+        for i, (_, bn, _, _) in enumerate(entries):
+            s = None if family != "fupdate" else (20 if bn == 32 else 77)
+            cases.append((family, s, i))
+    return cases
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("family,s,idx", _menu_cases(),
+                         ids=[f"{f}-{i}" for f, _, i in _menu_cases()])
+def test_every_menu_entry_is_bitwise_the_default(cuda, family, s, idx,
+                                                 precision):
+    """Each menu entry, launched at a ragged shape, agrees with the plain
+    version and is bitwise equal to its class's default entry."""
+    cfg = ttil.config_of(ttil.MENUS[family][idx], "explicit")
+    tk = _kern(KERNELS[1])
+    rng = np.random.default_rng(11)
+    a = _t(rng.standard_normal((203, 45)) / np.sqrt(45), cuda)
+    if family == "gram":
+        ops = tgram.prepare(a, a[:77], precision=precision)
+
+        def run(c):
+            return tgram.launch(*ops, tk, c)()
+        plain = gram_plain(ops[0], ops[1], kind="rbf", gamma=tk.gamma,
+                           precision=precision)
+    elif family == "fupdate":
+        ops = tfup.prepare(a, a[:s], _t(rng.standard_normal(s), cuda),
+                           _t(rng.standard_normal(203), cuda),
+                           precision=precision)
+
+        def run(c):
+            return tfup.launch(*ops, tk, c)()
+        plain = fupdate_plain(*ops, kind="rbf", gamma=tk.gamma)
+    else:
+        dt = tprec.tile_dtype(precision)
+        q, t = tfup.as_tile(a[:77], dt), tfup.as_tile(a, dt)
+        ops = (q, t, _t(np.abs(rng.standard_normal(203)), cuda),
+               tfup.row_norms(q), tfup.row_norms(t))
+
+        def run(c):
+            return tdec.launch(*ops, 0.2, 0.8, tk, c)()
+        plain = decision_plain(*ops, 0.2, 0.8, kind="rbf", gamma=tk.gamma)
+    assert cfg in ttil.menu(family, s)
+    out, base = run(cfg), run(ttil.default_config(family, s))
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), base.view(torch.int32))
+    _close(out, plain)
+
+
+def test_off_menu_launch_index_is_refused(cuda):
+    x = _t(np.ones((40, 8)), cuda)
+    ops = tgram.prepare(x, x)
+    good = tgram.launch(*ops, _kern(KERNELS[0]))
+    bad = dataclasses.replace(
+        good, args=good.args[:-2] + (len(ttil.MENUS["gram"]),)
+        + good.args[-1:])
+    n0 = tgram.GRAM.launches
+    with pytest.raises(RuntimeError, match="gram_launch failed"):
+        bad()
+    assert tgram.GRAM.launches == n0
+
+
+def test_table_steers_the_fupdate_launch(cuda, monkeypatch):
+    """A table row for the launch's key picks its entry; the output is
+    bitwise that of the default launch."""
+    rng = np.random.default_rng(12)
+    x = _t(rng.standard_normal((700, 24)), cuda)
+    args = (x, x[:16], _t(rng.standard_normal(16) * 0.1, cuda),
+            _t(rng.standard_normal(700), cuda), _kern(KERNELS[1]))
+    row = dict(family="fupdate", m=700, d=24, precision="f32",
+               backend="cuda", block_m=16, block_n=32, block_k=32, tr=1,
+               tc=2, depth=1)
+    try:
+        ttil.set_tuned_table({"entries": [row]})
+        tuned = tfup.fupdate(*args)
+        assert tfup.FUPDATE.last_config == ttil.TileConfig(
+            16, 32, 32, 1, 2, 1, "table-exact")
+        monkeypatch.setenv("REPRO_NO_AUTOTUNE", "1")
+        base = tfup.fupdate(*args)
+        assert tfup.FUPDATE.last_config == ttil.DEFAULT_CONFIGS["fupdate"]
+    finally:
+        ttil.set_tuned_table(None)
+    assert torch.equal(tuned.view(torch.int32), base.view(torch.int32))
+
+
+def test_sweep_times_a_cell_and_its_winners_make_a_table(cuda, tmp_path):
+    from repro_torch.kernels import autotune as tat
+    cells = (tat.Cell("gram", 256, 256, 8), tat.Cell("fupdate", 300, 16, 8))
+    res = tat.sweep(cells, precisions=("f32",), repeats=1)
+    assert res["backend"] == "cuda" and len(res["winners"]) == 2
+    assert len(res["candidates"]) == sum(
+        len(tat.candidates(c, precision="f32")) for c in cells)
+    for row in res["candidates"]:
+        assert row["time_s"] > 0 and row["bound"] in ("memory", "compute")
+    tat.write_table(tat.winners_to_entries(res), tmp_path / "t.json")
+    try:
+        ttil.set_tuned_table(str(tmp_path / "t.json"))
+        cfg = ttil.resolve_tiles("gram", m=256, d=8, precision="f32",
+                                 backend="cuda")
+        assert cfg.source == "table-exact"
+    finally:
+        ttil.set_tuned_table(None)

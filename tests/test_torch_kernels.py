@@ -252,7 +252,7 @@ def test_wrappers_refuse_other_devices():
 
 def test_build_names_and_library_paths():
     from repro_torch.kernels import _build
-    assert _build.sources() == ["decision", "fupdate"]
+    assert _build.sources() == ["decision", "fupdate", "gram"]
     a, b = _build.library_path("fupdate"), _build.library_path("decision")
     assert a.parent == _build.BUILD_DIR and a != b
     assert a.name.startswith("fupdate-") and a.suffix == ".so"
@@ -287,10 +287,13 @@ def _stub_stream(monkeypatch):
                         lambda dev=None: types.SimpleNamespace(cuda_stream=7))
 
 
-@pytest.mark.parametrize("family", ["fupdate", "decision"])
+@pytest.mark.parametrize("family", ["fupdate", "decision", "gram"])
 def test_launch_arguments_match_the_c_signature(monkeypatch, family):
     """The prepared launch marshals one argument per declared C parameter,
-    each of the declared ctypes type, the stream last."""
+    each of the declared ctypes type, the stream last and the menu index
+    of its config before it."""
+    from repro_torch.kernels import tiling
+    from repro_torch.kernels.gram import ops as tgram
     import ctypes
     _stub_stream(monkeypatch)
     _, tk = _kern_pair(KERNELS[1])
@@ -299,12 +302,17 @@ def test_launch_arguments_match_the_c_signature(monkeypatch, family):
         ops = tfup.prepare(_t(X), _t(X[:3]), _t(delta), _t(f),
                            precision="bf16")
         launch = tfup.launch(*ops, tk)
-    else:
+    elif family == "decision":
         ops = tdec.prepare_packed(torch.zeros((64, 128)),
                                   torch.zeros((512, 128)),
                                   torch.ones((512, 1)), torch.ones((512, 1)),
                                   tm=64, tn=512, precision="bf16")
         launch = tdec.launch(*ops, 0.1, 0.9, tk)
+    else:
+        ops = tgram.prepare(_t(X), _t(X[:7]), precision="bf16")
+        launch = tgram.launch(*ops, tk)
+    assert launch.config == tiling.default_config(family, 3)
+    assert launch.args[-2] == tiling.menu_index(family, launch.config)
     assert len(launch.args) == len(launch.kernel.argtypes)
     for arg, ctype in zip(launch.args, launch.kernel.argtypes):
         ctype(arg)              # raises TypeError on a mismatched type
