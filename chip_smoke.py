@@ -11,26 +11,32 @@ without printing the result line:
               lines and hold the autotuner's register estimate against
               them;
 2. kernels  — call each kernel's wrapper at the main path's shapes (gram:
-              the 8192 x 8192 matrix of the toy rows, and a ragged shape)
-              and hold it against its plain PyTorch version on the card;
-              launch every menu entry of every family at a small ragged
-              shape, against its plain version and bitwise against its
-              class's default entry;
+              the 8192 x 8192 matrix of the toy rows, a ragged shape and
+              one whose rows are no multiple of a tile) and hold it
+              against its plain PyTorch version on the card; launch every
+              menu entry of every family at a small ragged shape, in each
+              precision its class takes, against its plain version and
+              bitwise against its class's default entry;
 3. main     — ``fit`` (f32 and bf16) then ``serve(...).score`` on the toy
               set at m = 8192, d = 128, with the kernels' launch counts
               set to 0 just before and read just after;
 4. autotune — the autotuner's path, with the counts set to 0 just before
               and read just after: a quick sweep on the card over
-              ``QUICK_CELLS`` and the main path's fupdate and gram cells
-              in f32, its winners and seconds; then the f32 fit with the
-              committed tile table and with an empty one, which must be
-              bitwise equal;
+              ``QUICK_CELLS`` and the main path's fupdate and gram cells,
+              in f32 (gram's SIMT class) and then bf16 (its wgmma class),
+              its winners and seconds; then the f32 fit with the committed
+              tile table and with an empty one, which must be bitwise
+              equal;
 5. timing   — device times of each kernel and its plain version (CUDA
-              events around a CUDA graph of repeated calls) beside the
+              events around a CUDA graph of repeated calls), each with the
+              menu entry it launched and where that came from, beside the
               least time the card could take (its bound) and, for gram
               linear, the one PyTorch call that computes the same
-              (``x @ y.T``); the scorer's latency per bucket on the host's
-              clock;
+              (``x @ y.T``; ``torch.mm(..., out_dtype=float32)`` for 16-bit
+              rows); what sets the wgmma gram's pace (its time at d = 64,
+              128, 256, the output fixed) and a one-CTA fupdate (the floor
+              of a launch in a graph); the scorer's latency per bucket on
+              the host's clock;
 6. trace    — a torch.profiler window over PROFILE_ITERS iterations of
               the f32 fit: the device's busy and idle share from its own
               events, the top kernels by device time and the top
@@ -64,13 +70,17 @@ INIT_M = 2048             # the fused init pass: S = m <= BLOCK
 FUPDATE_SHAPES = ((M, 16), (M, 2 * P), (INIT_M, INIT_M))
 SUPPORT = 4096            # packed support rows the decision kernel meets
 PROFILE_ITERS = 100       # solver iterations inside the profiler window
-# gram: the kernel matrix of the main path's rows, and a ragged shape.
-GRAM_SHAPES = ((M, M, D), (130, 77, 129))
+# gram: the kernel matrix of the main path's rows, a ragged shape and one
+# whose rows are no multiple of a tile.
+GRAM_SHAPES = ((M, M, D), (130, 77, 129), (M + 1, 300, D))
 MENU_ROWS, MENU_D = 203, 45   # the menu check's ragged shape
 # fupdate's S per class in the menu check: the hot loop's and a wide one.
 MENU_S = {32: 20, 64: 77}
-GRAM_TIMED = (("linear", "f32"), ("linear", "bf16"), ("rbf", "f32"),
-              ("rbf", "bf16"))
+GRAM_TIMED = (("linear", "f32"), ("linear", "bf16"), ("linear", "f16"),
+              ("rbf", "f32"), ("rbf", "bf16"), ("rbf", "f16"))
+# gram's feature widths at a fixed output: whether the output or the
+# inputs set the wgmma kernel's pace.
+GRAM_PACE_D = (64, 128, 256)
 
 
 class SmokeFailure(RuntimeError):
@@ -135,10 +145,11 @@ def main() -> int:
     regs = autotune.ptxas_registers(ln for b in built.values()
                                     for ln in b.ptxas)
     if regs:
-        n_inst = len(PRECISIONS) * sum(len(v) for v in tiling.MENUS.values())
+        n_inst = sum(len(tiling.precisions_of(f, tiling.config_of(e)))
+                     for f, menu in tiling.MENUS.items() for e in menu)
         check(len(regs) == n_inst, f"ptxas named {len(regs)} kernel "
               f"instantiations, the menus {n_inst}")
-        est = {k: autotune.register_estimate(tiling.config_of(k[2]))
+        est = {k: autotune.register_estimate(k[0], tiling.config_of(k[2]))
                for k in regs}
         low = [(k, used, est[k]) for k, used in sorted(regs.items())
                if used > est[k]]
@@ -208,7 +219,12 @@ def main() -> int:
         step = fupdate_plain(*ops, **plain_kw(kind)).abs().max()
         return fup.prepare(x, xsel, delta / step, f, precision=precision)
 
-    worst = {"fupdate": 0.0, "decision": 0.0, "gram": 0.0}
+    worst = {"fupdate": 0.0, "decision": 0.0, "gram": 0.0, "gram_bf16": 0.0}
+
+    def worst_key(family, precision):
+        """gram's f32 (SIMT) and 16-bit (wgmma) classes are two rows."""
+        return family + ("_bf16" if family == "gram" and precision != "f32"
+                         else "")
     for (m, s) in FUPDATE_SHAPES:
         for kind, kern in kernels.items():
             for precision in PRECISIONS:
@@ -300,7 +316,8 @@ def main() -> int:
                 err, rel, tol, share = hold(
                     out, plain, plain,
                     f"gram {gm}x{gn} d={gd} {kind} {precision}")
-                worst["gram"] = max(worst["gram"], err)
+                key = worst_key("gram", precision)
+                worst[key] = max(worst[key], err)
                 del out, plain
                 say(f"[kernels] gram {gm}x{gn} d={gd} {kind:6s} "
                     f"{precision:4s} max_abs={err:.3e} max_rel={rel:.3e} "
@@ -345,25 +362,26 @@ def main() -> int:
 
     n_menu = 0
     for family, entries in tiling.MENUS.items():
-        for precision in PRECISIONS:
-            for idx, entry in enumerate(entries):
+        for idx, entry in enumerate(entries):
+            cfg = tiling.config_of(entry, "explicit")
+            for precision in tiling.precisions_of(family, cfg):
                 s = MENU_S[entry[1]] if family == "fupdate" else None
-                cfg = tiling.config_of(entry, "explicit")
-                check(cfg in tiling.menu(family, s),
+                check(cfg in tiling.menu(family, s, precision),
                       f"{family} menu entry {entry} outside its class")
                 run, plain, work = menu_case(family, s, precision)
                 out = run(cfg)
-                base = run(tiling.default_config(family, s))
+                base = run(tiling.default_config(family, s, precision))
                 torch.cuda.synchronize()
                 what = f"{family} menu entry {idx} {entry} {precision}"
                 err, _, _, share = hold(out, plain, work, what)
                 check(torch.equal(out.view(torch.int32),
                                   base.view(torch.int32)),
                       f"{what}: not bitwise equal to the default entry")
-                worst[family] = max(worst[family], err)
+                key = worst_key(family, precision)
+                worst[key] = max(worst[key], err)
                 n_menu += 1
     say(f"[kernels] menus: {n_menu} launches (every entry of every family "
-        f"x {len(PRECISIONS)} precisions, {MENU_ROWS} rows, d={MENU_D}, "
+        f"in each precision of its class, {MENU_ROWS} rows, d={MENU_D}, "
         f"rbf): each agrees with its plain version and is bitwise its "
         f"class's default")
 
@@ -446,26 +464,30 @@ def main() -> int:
     # -- 4. the autotune path ----------------------------------------------
     for kern_ in (fup.FUPDATE, dec.DECISION, gram_ops.GRAM):
         kern_.launches = 0
+    cells = autotune.QUICK_CELLS + tuple(
+        c for c in autotune.MAIN_CELLS if c.family in ("fupdate", "gram"))
     t0 = time.perf_counter()
-    swept = autotune.sweep(
-        autotune.QUICK_CELLS + tuple(c for c in autotune.MAIN_CELLS
-                                     if c.family in ("fupdate", "gram")),
-        precisions=("f32",), repeats=3)
+    swept = autotune.sweep(cells, precisions=("f32",), repeats=3)
+    gram_f32_launches = gram_ops.GRAM.launches      # the SIMT class's
+    swept16 = autotune.sweep(cells, precisions=("bf16",), repeats=3)
     sweep_s = time.perf_counter() - t0
     tune_launches = {"fupdate": fup.FUPDATE.launches,
                      "decision": dec.DECISION.launches,
-                     "gram": gram_ops.GRAM.launches}
-    for w in swept["winners"]:
+                     "gram": gram_f32_launches,
+                     "gram_bf16": gram_ops.GRAM.launches - gram_f32_launches}
+    for w in swept["winners"] + swept16["winners"]:
         say(f"[autotune] winner {w['family']} m={w['m']} n={w['n']} "
-            f"d={w['d']} {w['precision']}: (BM, BN, TR, TC)=({w['block_m']}"
-            f", {w['block_n']}, {w['tr']}, {w['tc']}) best_us="
-            f"{1e6 * w['best_s']:.3f} {w['bound']}-bound")
-    say(f"[autotune] quick sweep: {len(swept['candidates'])} candidates, "
-        f"{len(swept['winners'])} cells, seconds={sweep_s:.2f}, "
-        f"launches={tune_launches}")
-    for family in ("gram", "fupdate", "decision"):
+            f"d={w['d']} {w['precision']}: (BM, BN, BK, TR, TC, DEPTH)="
+            f"{tiling.row_config(w).entry}"
+            f" best_us={1e6 * w['best_s']:.3f} {w['bound']}-bound")
+    n_cand = len(swept["candidates"]) + len(swept16["candidates"])
+    say(f"[autotune] quick sweep: {n_cand} candidates, "
+        f"{len(swept['winners']) + len(swept16['winners'])} cells, "
+        f"seconds={sweep_s:.2f}, launches={tune_launches}")
+    for family in tune_launches:
         check(tune_launches[family] > 0, f"the sweep launched no {family}")
-    entries = autotune.winners_to_entries(swept)
+    entries = autotune.winners_to_entries(swept) \
+        + autotune.winners_to_entries(swept16)
     tiling.validate_table({"entries": entries})   # valid table rows
 
     # The committed table against none: the fit's launches differ only in
@@ -477,8 +499,9 @@ def main() -> int:
         res = repro_torch.fit(X_np, spec, strategy="auto", P=P, tol=TOL)
         cfg = fup.FUPDATE.last_config
         tuned_fits[label] = res
-        say(f"[autotune] fit f32 m={M} table={label}: fupdate (BM, BN, TR,"
-            f" TC)={cfg.entry} source={cfg.source} iters={int(res.iters)} "
+        say(f"[autotune] fit f32 m={M} table={label}: fupdate (BM, BN, BK,"
+            f" TR, TC, DEPTH)={cfg.entry} source={cfg.source} "
+            f"iters={int(res.iters)} "
             f"rho=({float(res.model.rho1):.9f}, "
             f"{float(res.model.rho2):.9f})")
         if label == "committed":
@@ -514,6 +537,7 @@ def main() -> int:
     for (m, s) in FUPDATE_SHAPES:
         for precision in PRECISIONS:
             ops = fupdate_operands("rbf", m, s, precision)
+            cfg = fup.tiles(ops[0], s)
             ms = time_ms(lambda: fup.launch(*ops, kernels["rbf"])())
             plain_ms = time_ms(lambda: fupdate_plain(*ops, **plain_kw("rbf")))
             es = ops[0].element_size()
@@ -522,6 +546,7 @@ def main() -> int:
             b_ms, b_by = bound(nbytes, flops, precision)
             timed[("fupdate", m, s, precision)] = (ms, plain_ms, b_ms, b_by)
             say(f"[timing] fupdate m={m} S={s} d={D} rbf {precision:4s} "
+                f"config {cfg.entry} ({cfg.source}) "
                 f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                 f"bound_ms={b_ms:.5f} ({b_by}) "
                 f"bound_share={b_ms / ms:.3f}")
@@ -530,6 +555,7 @@ def main() -> int:
         rho1, rho2 = float(smp.model.rho1), float(smp.model.rho2)
         for bucket in BUCKETS:
             ops = decision_operands("rbf", smp, bucket, precision)
+            cfg = dec.launch(*ops, rho1, rho2, kernels["rbf"]).config
             ms = time_ms(lambda: dec.launch(*ops, rho1, rho2,
                                             kernels["rbf"])(), iters=30)
             plain_ms = time_ms(lambda: decision_plain(
@@ -542,29 +568,39 @@ def main() -> int:
             timed[("decision", bucket, nt, precision)] = (ms, plain_ms, b_ms,
                                                           b_by)
             say(f"[timing] decision bucket={bucket} support={nt} d={dp} rbf "
-                f"{precision:4s} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"{precision:4s} config {cfg.entry} ({cfg.source}) "
+                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                 f"bound_ms={b_ms:.5f} ({b_by}) "
                 f"bound_share={b_ms / ms:.3f}")
 
     # fupdate on the hot loop at the default config too (the table's
-    # is timed above), and gram at full width, with its library call.
-    ops = fupdate_operands("rbf", M, 2 * P, "f32")
-    f_default_ms = time_ms(lambda: fup.launch(
-        *ops, kernels["rbf"], tiling.default_config("fupdate", 2 * P))())
-    f_cfg = fup.tiles(ops[0], 2 * P)
-    say(f"[timing] fupdate m={M} S={2 * P} d={D} rbf f32 table config "
-        f"{f_cfg.entry} ({f_cfg.source}) "
-        f"kernel_ms={timed[('fupdate', M, 2 * P, 'f32')][0]:.4f}; default "
-        f"config {tiling.default_config('fupdate', 2 * P).entry} "
-        f"kernel_ms={f_default_ms:.4f}")
+    # is timed above: the default is the one-stage tile, the table's the
+    # pipelined entry the sweep chose), and on one CTA (m = 64: what a
+    # launch costs in a graph beyond its work).
+    for precision in ("f32", "bf16"):
+        ops = fupdate_operands("rbf", M, 2 * P, precision)
+        f_default_ms = time_ms(lambda: fup.launch(
+            *ops, kernels["rbf"], tiling.default_config("fupdate", 2 * P))())
+        f_cfg = fup.tiles(ops[0], 2 * P)
+        one = fupdate_operands("rbf", 64, 2 * P, precision)
+        f_one_ms = time_ms(lambda: fup.launch(
+            *one, kernels["rbf"], f_cfg)())
+        say(f"[timing] fupdate m={M} S={2 * P} d={D} rbf {precision} table "
+            f"config {f_cfg.entry} ({f_cfg.source}) kernel_ms="
+            f"{timed[('fupdate', M, 2 * P, precision)][0]:.4f}; default "
+            f"config {tiling.default_config('fupdate', 2 * P).entry} "
+            f"kernel_ms={f_default_ms:.4f}; one CTA (m=64) kernel_ms="
+            f"{f_one_ms:.4f}")
+    # gram at full width, with its library call.
     for kind, precision in GRAM_TIMED:
         x = torch.as_tensor(rows[kind], device=dev)
         ops = gram_ops.prepare(x, x, precision=precision)
         kern = kernels[kind]
         cfg = gram_ops.tiles(ops[0], ops[1])
+        dflt = tiling.default_config("gram", precision=precision)
         ms = time_ms(lambda: gram_ops.launch(*ops, kern)(), iters=20)
-        default_ms = time_ms(lambda: gram_ops.launch(
-            *ops, kern, tiling.default_config("gram"))(), iters=20)
+        default_ms = time_ms(lambda: gram_ops.launch(*ops, kern, dflt)(),
+                             iters=20)
         plain_ms = time_ms(lambda: gram_plain(
             ops[0], ops[1], precision=precision, **plain_kw(kind)), iters=10)
         lib_ms, lib = None, "none (no one PyTorch call computes it)"
@@ -572,7 +608,7 @@ def main() -> int:
             lib_ms = time_ms(lambda: ops[0] @ ops[1].T, iters=20)
             lib = "x @ y.T (TF32 off)"
         elif kind == "linear":
-            try:    # bf16 operands, f32 output: one cuBLAS call, if any
+            try:    # 16-bit operands, f32 output: one cuBLAS call, if any
                 torch.mm(ops[0], ops[1].T, out_dtype=torch.float32)
                 lib_ms = time_ms(lambda: torch.mm(
                     ops[0], ops[1].T, out_dtype=torch.float32), iters=20)
@@ -584,11 +620,34 @@ def main() -> int:
         b_ms, b_by = bound(nbytes, 2.0 * M * M * D, precision)
         timed[("gram", kind, precision)] = (ms, plain_ms, b_ms, b_by, lib_ms)
         say(f"[timing] gram {M}x{M} d={D} {kind} {precision:4s} config "
-            f"{cfg.entry} ({cfg.source}) kernel_ms={ms:.4f} default_config"
-            f"_ms={default_ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
-            f"{b_ms:.5f} ({b_by}) bound_share={b_ms / ms:.3f} library_ms="
-            f"{'none' if lib_ms is None else f'{lib_ms:.4f}'} [{lib}]")
+            f"{cfg.entry} ({cfg.source}) kernel_ms={ms:.4f} default_config "
+            f"{dflt.entry} ms={default_ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={b_ms:.5f} ({b_by}) bound_share={b_ms / ms:.3f} "
+            f"library_ms={'none' if lib_ms is None else f'{lib_ms:.4f}'} "
+            f"[{lib}]")
         del ops
+    # What sets the wgmma kernel's pace: the same output (M x M f32) from
+    # d features. Were the inputs (loads, wgmma) its bound, its time would
+    # grow with d; the output's bytes do not.
+    pace = []
+    for gd in GRAM_PACE_D:
+        rows_d = torch.randn(M, gd, device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(SEED))
+        ops = gram_ops.prepare(rows_d, rows_d, precision="bf16")
+        pace.append((gd, time_ms(lambda: gram_ops.launch(
+            *ops, kernels["linear"])(), iters=20)))
+        del ops
+    say("[timing] gram bf16 linear at a fixed output, by feature width: "
+        + ", ".join(f"d={gd} kernel_ms={ms:.4f}" for gd, ms in pace)
+        + f" (output {M * M * 4 / 1e6:.0f} MB at "
+        + ", ".join(f"{M * M * 4 / ms / 1e9:.3f}" for _, ms in pace)
+        + " TB/s)")
+    fill_out = torch.empty((M, M), device=dev)
+    fill_ms = time_ms(lambda: fill_out.fill_(1.0), iters=20)
+    say(f"[timing] the card's write rate: fill_ of the {M}x{M} f32 output "
+        f"ms={fill_ms:.4f} ({M * M * 4 / fill_ms / 1e9:.3f} TB/s)")
+    del fill_out
 
     scorer = sm.scorer()
     scorer.warmup()
@@ -654,6 +713,7 @@ def main() -> int:
     d_ms, d_plain, d_b, d_by = timed[("decision", BUCKETS[-1], SUPPORT,
                                       "f32")]
     g_ms, g_plain, g_b, g_by, g_lib = timed[("gram", "linear", "f32")]
+    h_ms, h_plain, h_b, h_by, h_lib = timed[("gram", "linear", "bf16")]
     say(json.dumps({"kernels": [
         {"name": "fupdate", "route": "cuda",
          "source": "src/repro_torch/csrc/fupdate.cu",
@@ -675,7 +735,14 @@ def main() -> int:
          "launches": tune_launches["gram"], "max_abs_err": worst["gram"],
          "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_b, "bound_by": g_by,
          "library_ms": g_lib, "pass": True,
-         "shape": f"m=n={M} d={D} linear f32"},
+         "shape": f"m=n={M} d={D} linear f32 (SIMT class)"},
+        {"name": "gram_bf16", "route": "cuda",
+         "source": "src/repro_torch/csrc/gram.cu",
+         "replaces": "src/repro/kernels/gram/kernel.py:27",
+         "launches": tune_launches["gram_bf16"],
+         "max_abs_err": worst["gram_bf16"], "ms": h_ms, "plain_ms": h_plain,
+         "bound_ms": h_b, "bound_by": h_by, "library_ms": h_lib,
+         "pass": True, "shape": f"m=n={M} d={D} linear bf16 (wgmma class)"},
     ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,7 @@
 namespace repro {
 namespace {
 
-template <typename T, int BM, int BN, int TR, int TC>
+template <typename T, int BM, int BN, int BK, int TR, int TC, int DEPTH>
 __global__ void __launch_bounds__((BM / TR) * (BN / TC))
     decision_kernel(const T* __restrict__ q, const T* __restrict__ t,
                     const float* __restrict__ gamma,
@@ -28,6 +28,7 @@ __global__ void __launch_bounds__((BM / TR) * (BN / TC))
                     const float* __restrict__ tnorm, float* __restrict__ out,
                     int nq, int nt, int d, KernelParams p, float rho1,
                     float rho2) {
+  static_assert(BK == DK && DEPTH == 1, "dot_tile stages DK, one stage");
   constexpr int NTY = BM / TR;
   constexpr int NTX = BN / TC;
   const int row0 = blockIdx.x * BM;
@@ -55,18 +56,20 @@ struct Args {
   float rho1, rho2;
 };
 
-template <typename T, int BM, int BN, int TR, int TC>
-void launch(const Args& a, cudaStream_t stream) {
+template <typename T, int BM, int BN, int BK, int TR, int TC, int DEPTH>
+int launch_tile(const Args& a, cudaStream_t stream) {
   const dim3 grid((a.nq + BM - 1) / BM);
   constexpr int threads = (BM / TR) * (BN / TC);
-  decision_kernel<T, BM, BN, TR, TC><<<grid, threads, 0, stream>>>(
+  decision_kernel<T, BM, BN, BK, TR, TC, DEPTH><<<grid, threads, 0,
+                                                  stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.t),
       static_cast<const float*>(a.gamma), static_cast<const float*>(a.qn),
       static_cast<const float*>(a.tnorm), static_cast<float*>(a.out), a.nq,
       a.nt, a.d, a.p, a.rho1, a.rho2);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// The menu: launch index -> <BM, BN, TR, TC>, in the order of
+// The menu: launch index -> <BM, BN, BK, TR, TC, DEPTH>, in the order of
 // MENUS["decision"] in kernels/tiling.py (tests read these lines). BN = 64
 // support rows per chunk and TC = 4 are fixed, so every entry sums each
 // query's s in the same order; entry 0 (16 queries per CTA) is the
@@ -74,15 +77,14 @@ void launch(const Args& a, cudaStream_t stream) {
 template <typename T>
 int launch_menu(int cfg, const Args& a, cudaStream_t st) {
   switch (cfg) {
-    case 0: launch<T, 16, 64, 1, 4>(a, st); break;
-    case 1: launch<T, 8, 64, 1, 4>(a, st); break;
-    case 2: launch<T, 32, 64, 2, 4>(a, st); break;
-    case 3: launch<T, 32, 64, 1, 4>(a, st); break;
-    case 4: launch<T, 64, 64, 4, 4>(a, st); break;
-    case 5: launch<T, 16, 64, 2, 4>(a, st); break;
+    case 0: return launch_tile<T, 16, 64, 32, 1, 4, 1>(a, st);
+    case 1: return launch_tile<T, 8, 64, 32, 1, 4, 1>(a, st);
+    case 2: return launch_tile<T, 32, 64, 32, 2, 4, 1>(a, st);
+    case 3: return launch_tile<T, 32, 64, 32, 1, 4, 1>(a, st);
+    case 4: return launch_tile<T, 64, 64, 32, 4, 4, 1>(a, st);
+    case 5: return launch_tile<T, 16, 64, 32, 2, 4, 1>(a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -13,25 +13,31 @@
 //
 // dot_tile: a CTA of (BM/TR) * (BN/TC) threads stages BM rows of A and BN
 // rows of B in DK-deep feature chunks in shared memory as f32 (16-bit
-// inputs are widened as they are loaded), and each thread keeps a TR x TC
-// register tile of dot products, each summed by f32 FMA over the features
-// in order. Thread (ty, tx) owns rows ty + i * NTY and columns
-// tx + j * NTX. Rows past M, columns past N and features past D load as
-// 0, so ragged edges need no padding.
+// inputs are widened as they are loaded), one stage, and each thread
+// keeps a TR x TC register tile of dot products, each summed by f32 FMA
+// over the features in order. Thread (ty, tx) owns rows ty + i * NTY and
+// columns tx + j * NTX. Rows past M, columns past N and features past D
+// load as 0, so ragged edges need no padding. It is the first design's
+// tile: the
+// decision kernel, fupdate's wide class and the f32 gram default run on
+// it; the redesigned kernels (gram.cu's SIMT and wgmma classes,
+// fupdate.cu's pipelined narrow entries) stage their own operands.
 //
 // weighted_row_sums: one CTA owns BM rows of A, so its outputs belong to
 // it alone: no cross-CTA reduction and no atomics. It walks B in chunks of
 // BN rows; after each chunk's dot tile the epilogue runs on the thread's
-// tile, weighted by w, into TR per-row partials, skipping columns past N
-// (so they add exactly nothing); the NTX threads sharing a row add their
-// partials with warp shuffles at the end.
+// tile, weighted by w, into TR per-row partials (add_weighted), skipping
+// columns past N (so they add exactly nothing); the NTX threads sharing a
+// row add their partials with warp shuffles at the end (reduce_row).
 //
 // Sum order: each dot product is one thread's sequential FMA chain over
-// the features, whatever BM, BN, TR, TC; a row sum's order depends on BN
-// and TC (which columns a thread adds, and the shuffle tree over NTX) but
-// not on BM or TR. So launches that differ only in BM and TR give bitwise
-// equal fupdate and decision outputs, and every gram launch gives bitwise
-// equal values (kernels/tiling.py keeps each family's menu to that).
+// the features, whatever BM, BN, TR, TC or the staging; a row sum's order
+// depends on BN and TC (which columns a thread adds, and the shuffle tree
+// over NTX) but not on BM, TR, the feature-chunk depth or the number of
+// stages. So fupdate and decision launches that differ only in those
+// give bitwise equal outputs, and so do all f32 gram launches (the
+// bf16/f16 gram launches run wgmma, whose sums are the tensor cores';
+// kernels/tiling.py keeps each class's menu to that).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,8 +49,26 @@ namespace repro {
 enum Kind { kLinear = 0, kRbf = 1, kPoly = 2 };
 enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
-// Feature-chunk depth staged in shared memory per step.
+// Feature-chunk depth dot_tile stages in shared memory per step (and
+// the pipelined fupdate entries' chunk).
 constexpr int DK = 32;
+
+// Dynamic shared memory a CTA may take on an H100 (227 KB).
+constexpr int kMaxSmem = 232448;
+
+// Opt `kernel` in to `bytes` of dynamic shared memory, once per card:
+// `done` is the calling launcher's own record (one per instantiation), so
+// the first launch sets it, before any launch a CUDA graph captures.
+template <typename K>
+int allow_smem(K kernel, int bytes, bool (&done)[64]) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (bytes <= 48 * 1024 || dev >= 64 || done[dev]) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) done[dev] = true;
+  return static_cast<int>(e);
+}
 
 struct KernelParams {
   int kind;
@@ -77,16 +101,26 @@ __device__ __forceinline__ float int_pow(float x, int n) {
 
 // The kernel value from an f32 dot product, with the reference's rounding
 // steps kept (no FMA contraction): rbf is exp(-g * max(rn + cn - 2 dot, 0)),
-// poly (g * dot + c0) ** degree.
-__device__ __forceinline__ float epilogue(float dot, float rn, float cn,
-                                          const KernelParams& p) {
-  if (p.kind == kRbf) {
+// poly (g * dot + c0) ** degree. kernel_value fixes the kind at compile
+// time, for loops that dispatch once outside; epilogue dispatches on
+// p.kind for each value. Both do the same arithmetic.
+template <int KIND>
+__device__ __forceinline__ float kernel_value(float dot, float rn, float cn,
+                                              const KernelParams& p) {
+  if (KIND == kRbf) {
     const float sq = __fsub_rn(__fadd_rn(rn, cn), __fmul_rn(2.0f, dot));
     return expf(__fmul_rn(-p.gamma, fmaxf(sq, 0.0f)));
   }
-  if (p.kind == kPoly) {
+  if (KIND == kPoly) {
     return int_pow(__fadd_rn(__fmul_rn(p.gamma, dot), p.coef0), p.degree);
   }
+  return dot;
+}
+
+__device__ __forceinline__ float epilogue(float dot, float rn, float cn,
+                                          const KernelParams& p) {
+  if (p.kind == kRbf) return kernel_value<kRbf>(dot, rn, cn, p);
+  if (p.kind == kPoly) return kernel_value<kPoly>(dot, rn, cn, p);
   return dot;
 }
 
@@ -147,6 +181,37 @@ __device__ __forceinline__ void dot_tile(const T* __restrict__ A,
   }
 }
 
+// part[i] += w[c] * k(acc[i][j]) for the thread's columns c = n0 + tx +
+// j * NTX below N (rows' norms rn, columns' norms b_norm), in j order.
+template <int TR, int TC, int NTX>
+__device__ __forceinline__ void add_weighted(
+    const float (&acc)[TR][TC], const float (&rn)[TR],
+    const float* __restrict__ b_norm, const float* __restrict__ w, int N,
+    int n0, int tx, const KernelParams& p, float (&part)[TR]) {
+#pragma unroll
+  for (int j = 0; j < TC; ++j) {
+    const int c = n0 + tx + j * NTX;
+    if (c < N) {
+      const float cn = b_norm[c];
+      const float wc = w[c];
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+        part[i] = fmaf(epilogue(acc[i][j], rn[i], cn, p), wc, part[i]);
+    }
+  }
+}
+
+// The NTX threads of a row (in one warp) add their partials; after it
+// every one of them holds the row's sum.
+template <int TR, int NTX>
+__device__ __forceinline__ void reduce_row(float (&part)[TR]) {
+#pragma unroll
+  for (int i = 0; i < TR; ++i)
+#pragma unroll
+    for (int off = NTX / 2; off > 0; off >>= 1)
+      part[i] += __shfl_xor_sync(0xffffffffu, part[i], off);
+}
+
 // Per-thread partial sums for rows row0 + ty + i * NTY (i < TR); after
 // the call the thread with tx == 0 holds each of its rows' full sums.
 // Every thread of the CTA must call it (it synchronises the CTA and the
@@ -177,25 +242,9 @@ __device__ __forceinline__ void weighted_row_sums(
   for (int n0 = 0; n0 < N; n0 += BN) {
     float acc[TR][TC];
     dot_tile<T, BM, BN, TR, TC>(A, B, M, N, D, row0, n0, acc);
-
-#pragma unroll
-    for (int j = 0; j < TC; ++j) {
-      const int c = n0 + tx + j * NTX;
-      if (c < N) {
-        const float cn = b_norm[c];
-        const float wc = w[c];
-#pragma unroll
-        for (int i = 0; i < TR; ++i)
-          part[i] = fmaf(epilogue(acc[i][j], rn[i], cn, p), wc, part[i]);
-      }
-    }
+    add_weighted<TR, TC, NTX>(acc, rn, b_norm, w, N, n0, tx, p, part);
   }
-
-#pragma unroll
-  for (int i = 0; i < TR; ++i)
-#pragma unroll
-    for (int off = NTX / 2; off > 0; off >>= 1)
-      part[i] += __shfl_xor_sync(0xffffffffu, part[i], off);
+  reduce_row<TR, NTX>(part);
 }
 
 }  // namespace repro

@@ -15,15 +15,17 @@ tile ``tr``/``tc``) and backend key ``"cuda"``.
 The moving parts:
 
 * :func:`candidates` — the menu entries a cell's launch may take
-  (``tiling.menu``: for fupdate those of the selected block's class),
-  kept if :func:`feasible` on a Hopper SM: static shared memory
-  ``(BM + 1 + BN + 1) * DK * 4`` bytes (the +1 columns are the kernels'
-  bank padding) at most 48 KiB, ``(BM/TR) * (BN/TC)`` threads a multiple
-  of 32 and at most 1024, a row's ``BN/TC`` threads inside one warp for
-  the row-sum kernels, and :func:`register_estimate` (from ``TR * TC``)
-  within 255 a thread and 65536 a CTA. ``chip_smoke.py`` holds the
-  estimate against the counts ``ptxas -v`` prints when the kernels are
-  built (:func:`ptxas_registers`).
+  (``tiling.menu``: for fupdate those of the selected block's class, for
+  gram those of the precision's), kept if :func:`feasible` on a Hopper
+  SM: static shared memory (:func:`smem_bytes`) at most 48 KiB and
+  static plus dynamic at most 227 KiB (the ring of the pipelined and
+  wgmma kernels is dynamic: the launchers opt in with
+  ``cudaFuncSetAttribute``), :func:`threads` a multiple of 32 and at
+  most 1024, a row's ``BN/TC`` threads inside one warp for the row-sum
+  kernels, and :func:`register_estimate` within 255 a thread and 65536
+  a CTA. ``chip_smoke.py`` holds the estimate against the counts
+  ``ptxas -v`` prints when the kernels are built
+  (:func:`ptxas_registers`).
 * :func:`cost_model` — the logical FLOPs (as the JAX package counts
   them) and the bytes the CUDA grid streams from device memory: no 128
   pad, the second operand read once per CTA (for gram, each operand once
@@ -53,7 +55,8 @@ import sys
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Callable, Dict, Iterable, List, Optional, Sequence
+from typing import (Callable, Dict, Iterable, List, Optional, Sequence,
+                    Tuple)
 
 import torch
 
@@ -63,11 +66,13 @@ from repro_torch.kernels.fupdate import ops as fup
 from repro_torch.kernels.gram import ops as gram_ops
 from repro_torch.kernels.precision import check_precision, tile_dtype
 from repro_torch.kernels.tiling import (TUNED_TABLE_PATH, TileConfig,
-                                        clear_caches, menu, validate_table)
+                                        clear_caches, kernel_of, menu,
+                                        validate_table)
 from repro_torch.utils.roofline import terms
 
 # Hopper feasibility model (per CTA; H100 SXM).
 SMEM_STATIC_BYTES = 48 * 1024      # static shared memory a CTA may declare
+SMEM_BYTES = 232448                # static + dynamic (227 KiB)
 MAX_THREADS = 1024
 MAX_REGS_PER_THREAD = 255
 REGS_PER_SM = 65536
@@ -125,36 +130,74 @@ def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def threads(cfg: TileConfig) -> int:
-    return (cfg.block_m // cfg.tr) * (cfg.block_n // cfg.tc)
+def threads(family: str, cfg: TileConfig) -> int:
+    """Threads of one CTA: (BM/TR) * (BN/TC), plus the producer
+    warpgroup of a wgmma entry."""
+    nt = (cfg.block_m // cfg.tr) * (cfg.block_n // cfg.tc)
+    return nt + (128 if kernel_of(family, cfg) == "wgmma" else 0)
 
 
-def smem_bytes(cfg: TileConfig) -> int:
-    """Static shared memory of one CTA: the two staged f32 chunks, each
-    with its +1 column of bank padding, per stage."""
-    return (cfg.block_m + 1 + cfg.block_n + 1) * cfg.block_k * 4 * cfg.depth
+def smem_bytes(family: str, cfg: TileConfig,
+               precision: str = "f32") -> Tuple[int, int]:
+    """(static, dynamic) shared memory of one CTA, by kernel: the tile's
+    two f32 chunks with their +1 columns of bank padding; the SIMT
+    kernel's two stages with +4 columns; the pipelined fupdate's ring of
+    DEPTH raw chunks, rows padded by 16 bytes; the wgmma ring of DEPTH
+    16-bit (BM + BN) x BK stages, four 64 x 64 f32 output chunks, two
+    tiles' BN column norms, 1024 bytes of alignment slack and two 8-byte
+    barriers a stage."""
+    bm, bn, bk, depth = cfg.block_m, cfg.block_n, cfg.block_k, cfg.depth
+    kind = kernel_of(family, cfg)
+    if kind == "tile":
+        return (bm + 1 + bn + 1) * bk * 4 * depth, 0
+    if kind == "simt":
+        return depth * bk * (bm + 4 + bn + 4) * 4, 0
+    if kind == "wgmma":
+        return 0, (depth * (bm + bn) * bk * 2 + 4 * 64 * 64 * 4 + 2 * bn * 4
+                   + 1024 + 16 * depth)
+    es = torch.empty((), dtype=tile_dtype(precision)).element_size()
+    return 0, depth * (bm + bn) * (bk * es + 16)
 
 
-def register_estimate(cfg: TileConfig) -> int:
-    """Registers a thread needs: the TR x TC accumulators, the TR + TC
-    operands of one FMA step, TR row norms and TR partial sums, and a
-    fixed allowance for addresses, loop counters and the epilogue."""
-    return cfg.tr * cfg.tc + 3 * cfg.tr + cfg.tc + 48
+def register_estimate(family: str, cfg: TileConfig) -> int:
+    """Registers a thread needs, by kernel: the TR x TC accumulators and
+    a fixed allowance for addresses, loop counters and the epilogue, plus
+    the operands of one step — the tile's TR + TC and its TR row norms
+    and partial sums; the SIMT kernel's two float4s of rows and of
+    columns and its prefetched float4s; the pipelined fupdate's 16-byte
+    reads of TR rows and TC columns (8 values each in 16 bits) and its
+    staging addresses. A wgmma consumer holds its BN/2 accumulators
+    (TR x TC) and the epilogue's few. Capped at what the kernels'
+    ``__launch_bounds__`` leave a thread of a full CTA (ptxas fits the
+    kernel to that); above 255 the kernel cannot run."""
+    acc = cfg.tr * cfg.tc
+    kind = kernel_of(family, cfg)
+    if kind == "wgmma":
+        regs = acc + 56
+    elif kind == "simt":
+        regs = acc + 4 * (cfg.tr + cfg.tc) + 48
+    elif kind == "pipe":
+        regs = acc + 8 * (cfg.tr + cfg.tc) + 96
+    else:
+        regs = acc + 3 * cfg.tr + cfg.tc + 48
+    return min(regs, REGS_PER_SM // threads(family, cfg) // 8 * 8)
 
 
-def feasible(family: str, cfg: TileConfig) -> bool:
-    """Whether ``cfg`` can launch on a Hopper SM (module docstring)."""
+def feasible(family: str, cfg: TileConfig, precision: str = "f32") -> bool:
+    """Whether ``cfg`` can launch on a Hopper SM with rows of
+    ``precision`` (module docstring)."""
     if cfg.block_m % cfg.tr or cfg.block_n % cfg.tc:
         return False
-    nt = threads(cfg)
+    nt = threads(family, cfg)
     if nt % 32 or nt > MAX_THREADS:
         return False
     ntx = cfg.block_n // cfg.tc
     if family != "gram" and (ntx > 32 or 32 % ntx):
         return False            # a row's threads must sit in one warp
-    if smem_bytes(cfg) > SMEM_STATIC_BYTES:
+    static, dynamic = smem_bytes(family, cfg, precision)
+    if static > SMEM_STATIC_BYTES or static + dynamic > SMEM_BYTES:
         return False
-    regs = register_estimate(cfg)
+    regs = register_estimate(family, cfg)
     return regs <= MAX_REGS_PER_THREAD and regs * nt <= REGS_PER_SM
 
 
@@ -168,8 +211,8 @@ def candidates(cell: Cell, *, precision: str) -> List[dict]:
     """The feasible configs for a cell: the menu entries its launch may
     take (``tiling.menu``) that pass :func:`feasible`."""
     check_precision(precision)
-    return [_config_dict(c) for c in menu(cell.family, cell.n)
-            if feasible(cell.family, c)]
+    return [_config_dict(c) for c in menu(cell.family, cell.n, precision)
+            if feasible(cell.family, c, precision)]
 
 
 def cost_model(cell: Cell, *, block_m: int, block_n: int,
@@ -415,24 +458,24 @@ def write_table(entries: List[dict], path=TUNED_TABLE_PATH, *,
 # the register estimate against ptxas
 # ---------------------------------------------------------------------------
 
-_ENTRY_RE = re.compile(r"(gram|fupdate|decision)_kernelI(f|13__nv_bfloat16|"
-                       r"6__half)Li(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E")
+_ENTRY_RE = re.compile(r"(gram|fupdate|decision)(?:_simt|_wgmma|_pipe)?"
+                       r"_kernelI(f|13__nv_bfloat16|6__half)((?:Li\d+E){6})")
 _REGS_RE = re.compile(r"Used (\d+) registers")
 _DTYPES = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
 
 
 def ptxas_registers(lines: Iterable[str]) -> Dict[tuple, int]:
-    """{(family, dtype, (BM, BN, TR, TC)): registers} from the ``ptxas -v``
-    lines of a build (``_build.Built.ptxas``): each "Compiling entry
-    function" line names a kernel instantiation, and the next "Used N
-    registers" line is its count."""
+    """{(family, dtype, (BM, BN, BK, TR, TC, DEPTH)): registers} from the
+    ``ptxas -v`` lines of a build (``_build.Built.ptxas``): each
+    "Compiling entry function" line names a kernel instantiation, and the
+    next "Used N registers" line is its count."""
     out: Dict[tuple, int] = {}
     key = None
     for line in lines:
         m = _ENTRY_RE.search(line)
         if m:
             key = (m.group(1), _DTYPES[m.group(2)],
-                   tuple(int(v) for v in m.group(3, 4, 5, 6)))
+                   tuple(int(v) for v in re.findall(r"\d+", m.group(3))))
             continue
         r = _REGS_RE.search(line)
         if r and key is not None:

@@ -164,19 +164,21 @@ def test_gram_kernel_matches_plain(cuda, k, precision, m, n, d):
 
 
 def _menu_cases():
-    """(family, S or None, menu index) for every menu entry: fupdate's at
-    an S of their class."""
+    """(family, S or None, menu index, precision) for every menu entry in
+    each precision its class takes: fupdate's at an S of their class."""
     cases = []
     for family, entries in ttil.MENUS.items():
-        for i, (_, bn, _, _) in enumerate(entries):
-            s = None if family != "fupdate" else (20 if bn == 32 else 77)
-            cases.append((family, s, i))
+        for i, entry in enumerate(entries):
+            s = None if family != "fupdate" else (20 if entry[1] == 32
+                                                  else 77)
+            for precision in ttil.precisions_of(family,
+                                                ttil.config_of(entry)):
+                cases.append((family, s, i, precision))
     return cases
 
 
-@pytest.mark.parametrize("precision", ["f32", "bf16"])
-@pytest.mark.parametrize("family,s,idx", _menu_cases(),
-                         ids=[f"{f}-{i}" for f, _, i in _menu_cases()])
+@pytest.mark.parametrize("family,s,idx,precision", _menu_cases(),
+                         ids=[f"{f}-{i}-{p}" for f, _, i, p in _menu_cases()])
 def test_every_menu_entry_is_bitwise_the_default(cuda, family, s, idx,
                                                  precision):
     """Each menu entry, launched at a ragged shape, agrees with the plain
@@ -209,8 +211,8 @@ def test_every_menu_entry_is_bitwise_the_default(cuda, family, s, idx,
         def run(c):
             return tdec.launch(*ops, 0.2, 0.8, tk, c)()
         plain = decision_plain(*ops, 0.2, 0.8, kind="rbf", gamma=tk.gamma)
-    assert cfg in ttil.menu(family, s)
-    out, base = run(cfg), run(ttil.default_config(family, s))
+    assert cfg in ttil.menu(family, s, precision)
+    out, base = run(cfg), run(ttil.default_config(family, s, precision))
     torch.cuda.synchronize()
     assert torch.equal(out.view(torch.int32), base.view(torch.int32))
     _close(out, plain)
@@ -238,12 +240,12 @@ def test_table_steers_the_fupdate_launch(cuda, monkeypatch):
             _t(rng.standard_normal(700), cuda), _kern(KERNELS[1]))
     row = dict(family="fupdate", m=700, d=24, precision="f32",
                backend="cuda", block_m=16, block_n=32, block_k=32, tr=1,
-               tc=2, depth=1)
+               tc=2, depth=4)
     try:
         ttil.set_tuned_table({"entries": [row]})
         tuned = tfup.fupdate(*args)
         assert tfup.FUPDATE.last_config == ttil.TileConfig(
-            16, 32, 32, 1, 2, 1, "table-exact")
+            16, 32, 32, 1, 2, 4, "table-exact")
         monkeypatch.setenv("REPRO_NO_AUTOTUNE", "1")
         base = tfup.fupdate(*args)
         assert tfup.FUPDATE.last_config == ttil.DEFAULT_CONFIGS["fupdate"]
@@ -269,3 +271,82 @@ def test_sweep_times_a_cell_and_its_winners_make_a_table(cuda, tmp_path):
         assert cfg.source == "table-exact"
     finally:
         ttil.set_tuned_table(None)
+
+
+# -- the redesigned classes at the main path's and ragged shapes ---------------
+
+def _bitwise(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("precision", tprec.PRECISIONS)
+@pytest.mark.parametrize("m,n,d", [(8192, 8192, 128), (130, 77, 129),
+                                   (203, 77, 45), (8193, 300, 128)])
+def test_gram_class_entries_match_plain_and_their_default(cuda, precision,
+                                                         m, n, d):
+    """Every entry of the precision's gram class (SIMT for f32, wgmma for
+    bf16/f16) agrees with the plain version, rbf, and is bitwise the
+    class's default; the wrapper's own launch is of that class."""
+    rng = np.random.default_rng(13)
+    x = _t(rng.standard_normal((m, d)) / np.sqrt(d), cuda)
+    y = _t(rng.standard_normal((n, d)) / np.sqrt(d), cuda)
+    tk = tkf.rbf(1.0 / d)
+    ops = tgram.prepare(x, y, precision=precision)
+    plain = gram_plain(x, y, kind="rbf", gamma=tk.gamma, precision=precision)
+    base = tgram.launch(*ops, tk, ttil.default_config(
+        "gram", precision=precision))()
+    for cfg in ttil.menu("gram", precision=precision):
+        out = tgram.launch(*ops, tk, cfg)()
+        torch.cuda.synchronize()
+        assert _bitwise(out, base), cfg
+        del out
+    _close(base, plain)
+    tgram.gram(x, y, tk, precision=precision)
+    kind = ttil.kernel_of("gram", tgram.GRAM.last_config)
+    assert (kind == "wgmma") == (precision != "f32")
+
+
+@pytest.mark.parametrize("precision", tprec.PRECISIONS)
+def test_gram_empty_operands(cuda, precision):
+    x = torch.ones((5, 16), device=cuda)
+    n0 = tgram.GRAM.launches
+    for a, b in ((x[:0], x), (x, x[:0]), (x[:0], x[:0])):
+        out = tgram.gram(a, b, tkf.linear(), precision=precision)
+        assert out.shape == (a.shape[0], b.shape[0])
+        assert out.device.type == "cuda"
+    assert tgram.GRAM.launches == n0
+
+
+@pytest.mark.parametrize("precision", tprec.PRECISIONS)
+@pytest.mark.parametrize("m,s,d", [(8192, 32, 128), (8192, 16, 128),
+                                   (203, 20, 45), (130, 32, 129)])
+def test_narrow_fupdate_entries_match_plain_and_their_default(
+        cuda, precision, m, s, d):
+    """Every entry of fupdate's narrow class, the pipelined ones among
+    them, agrees with the plain version and is bitwise its default (PR
+    12's tile): the sums keep their order."""
+    rng = np.random.default_rng(14)
+    x = _t(rng.standard_normal((m, d)) / np.sqrt(d), cuda)
+    tk = tkf.rbf(1.0 / d)
+    ops = tfup.prepare(x, x[:s], _t(rng.standard_normal(s) * 0.1, cuda),
+                       _t(rng.standard_normal(m), cuda), precision=precision)
+    plain = fupdate_plain(*ops, kind="rbf", gamma=tk.gamma)
+    base = tfup.launch(*ops, tk, ttil.default_config("fupdate", s))()
+    pipes = 0
+    for cfg in ttil.menu("fupdate", s):
+        out = tfup.launch(*ops, tk, cfg)()
+        torch.cuda.synchronize()
+        assert _bitwise(out, base), cfg
+        pipes += ttil.kernel_of("fupdate", cfg) == "pipe"
+    assert pipes > 0
+    _close(base, plain)
+
+
+@pytest.mark.parametrize("precision", tprec.PRECISIONS)
+def test_fupdate_empty_rows(cuda, precision):
+    x = torch.ones((4, 16), device=cuda)
+    n0 = tfup.FUPDATE.launches
+    out = tfup.fupdate(x[:0], x, torch.zeros(4, device=cuda),
+                       torch.zeros(0, device=cuda), tkf.rbf(0.5),
+                       precision=precision)
+    assert out.shape == (0,) and tfup.FUPDATE.launches == n0

@@ -23,6 +23,7 @@ from repro.kernels.gram.ref import gram_ref as j_gram_ref
 from repro.kernels.precision import PRECISIONS, truth_tolerance
 import repro_torch.core.kernel_fn as tkf
 import repro_torch.kernels as tkernels
+from repro_torch.core.kernel_fn import apply_epilogue
 from repro_torch.kernels.gram import ops as tgram
 from repro_torch.kernels.gram.ref import gram_plain
 
@@ -113,3 +114,56 @@ def test_gram_plain_rbf_clamps_and_matches_cross():
         assert torch.equal(gram_plain(x, x, kind=kind, gamma=kern.gamma,
                                       coef0=kern.coef0, degree=kern.degree),
                            kern.cross(x, x))
+
+
+@pytest.mark.parametrize("precision", ["bf16", "f16"])
+@pytest.mark.parametrize("k", KERNELS, ids=KIDS)
+@pytest.mark.parametrize("d", [45, 129])
+def test_feature_pad_for_tma_changes_no_value(k, precision, d):
+    """prepare lays 16-bit rows out for TMA: features zero-padded to a
+    multiple of 8 after rounding, norms of the unpadded rows. The plain
+    version of the padded operands is bitwise that of the unpadded ones:
+    for linear and poly as they are; for rbf with the norms prepare took
+    before padding (gram_plain's own torch.sum over 48 or 136 features
+    may sum in another order than over 45 or 129)."""
+    X, Y = _rows(4, 203, 77, d)
+    x, y = torch.as_tensor(X), torch.as_tensor(Y)
+    xp, yp, xn, yn = tgram.prepare(x, y, precision=precision)
+    dp = -(-d // tgram.TMA_FEATURES) * tgram.TMA_FEATURES
+    assert xp.shape == (203, dp) and yp.shape == (77, dp)
+    assert xp.data_ptr() % 16 == 0 and yp.data_ptr() % 16 == 0
+    assert not xp[:, d:].any() and not yp[:, d:].any()
+    x16, y16 = tfup_rounded(x, precision), tfup_rounded(y, precision)
+    assert torch.equal(xp[:, :d], x16) and torch.equal(yp[:, :d], y16)
+    assert torch.equal(xn, torch.sum(x16.float() ** 2, dim=-1))
+    kw = _kw(k)
+    plain = gram_plain(x, y, precision=precision, **kw)
+    if k[0] == "rbf":
+        xf, yf = xp.float(), yp.float()
+        padded = apply_epilogue(xf @ yf.T, xn[:, None], yn[None, :], **kw)
+    else:
+        padded = gram_plain(xp, yp, precision=precision, **kw)
+    assert torch.equal(padded, plain)
+    # The wrapper's CPU path is the plain version of the caller's rows.
+    assert torch.equal(tgram.gram(x, y, tkf.KernelFn(name=k[0], gamma=k[1],
+                                                     coef0=k[2],
+                                                     degree=k[3]),
+                                  precision=precision), plain)
+
+
+def test_tma_rows_copy_a_misaligned_base_and_leave_f32_alone():
+    base = torch.zeros(1 + 40 * 16, dtype=torch.bfloat16)
+    rows = base[1:].view(40, 16)            # 2 bytes past an aligned base
+    assert rows.data_ptr() % 16 != 0
+    laid = tgram.tma_rows(rows)
+    assert laid.data_ptr() % 16 == 0 and torch.equal(laid, rows)
+    aligned = torch.ones((8, 24), dtype=torch.bfloat16)
+    assert tgram.tma_rows(aligned) is aligned   # nothing to do
+    x = torch.ones((5, 45))
+    xp, yp, _, _ = tgram.prepare(x, x, precision="f32")
+    assert xp.shape == (5, 45) and yp.shape == (5, 45)   # f32: no pad
+
+
+def tfup_rounded(a, precision):
+    from repro_torch.kernels.precision import tile_dtype
+    return a.to(tile_dtype(precision))

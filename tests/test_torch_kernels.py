@@ -311,7 +311,7 @@ def test_launch_arguments_match_the_c_signature(monkeypatch, family):
     else:
         ops = tgram.prepare(_t(X), _t(X[:7]), precision="bf16")
         launch = tgram.launch(*ops, tk)
-    assert launch.config == tiling.default_config(family, 3)
+    assert launch.config == tiling.default_config(family, 3, "bf16")
     assert launch.args[-2] == tiling.menu_index(family, launch.config)
     assert len(launch.args) == len(launch.kernel.argtypes)
     for arg, ctype in zip(launch.args, launch.kernel.argtypes):
