@@ -12,11 +12,15 @@ without printing the result line:
               them;
 2. kernels  — call each kernel's wrapper at the main path's shapes (gram:
               the 8192 x 8192 matrix of the toy rows, a ragged shape and
-              one whose rows are no multiple of a tile) and hold it
-              against its plain PyTorch version on the card; launch every
-              menu entry of every family at a small ragged shape, in each
-              precision its class takes, against its plain version and
-              bitwise against its class's default entry;
+              one whose rows are no multiple of a tile; decision: every
+              bucket against 4096 packed support rows, with the entry
+              the bucket picks) and hold it against its plain PyTorch
+              version on the card; relaunch decision on the same inputs
+              (bitwise equal: its split sums are added in a fixed
+              order); launch every menu entry of every family at a small
+              ragged shape, in each precision its class takes, against
+              its plain version and bitwise against its class's default
+              entry;
 3. main     — ``fit`` (f32 and bf16) then ``serve(...).score`` on the toy
               set at m = 8192, d = 128, with the kernels' launch counts
               set to 0 just before and read just after;
@@ -35,8 +39,13 @@ without printing the result line:
               (``x @ y.T``; ``torch.mm(..., out_dtype=float32)`` for 16-bit
               rows); what sets the wgmma gram's pace (its time at d = 64,
               128, 256, the output fixed) and a one-CTA fupdate (the floor
-              of a launch in a graph); the scorer's latency per bucket on
-              the host's clock;
+              of a launch in a graph); decision at every bucket and
+              precision against SUPPORT rows and against the served
+              model's, beside its plain version, its bound and its rbf
+              exp floor, and at the top bucket with the linear kernel
+              (no exp) beside rbf; the scorer's latency per bucket on the
+              host's clock, and its host share (latency minus the
+              kernel's time at the bucket);
 6. trace    — a torch.profiler window over PROFILE_ITERS iterations of
               the f32 fit: the device's busy and idle share from its own
               events, the top kernels by device time and the top
@@ -81,6 +90,10 @@ GRAM_TIMED = (("linear", "f32"), ("linear", "bf16"), ("linear", "f16"),
 # gram's feature widths at a fixed output: whether the output or the
 # inputs set the wgmma kernel's pace.
 GRAM_PACE_D = (64, 128, 256)
+# The rbf decision's exp floor: one expf a query-support pair on the SFUs,
+# 16 a clock on each of the H100's 132 SMs, at 1.83 GHz (the clock of
+# the card's published peak rates).
+SFU_EXPS_PER_S = 132 * 16 * 1.83e9
 
 
 class SmokeFailure(RuntimeError):
@@ -121,7 +134,7 @@ def main() -> int:
     from repro_torch.kernels.gram import ops as gram_ops
     from repro_torch.kernels.gram.ref import gram_plain
     from repro_torch.kernels.precision import (PRECISIONS, TOLERANCES,
-                                               tile_dtype, truth_tolerance)
+                                               truth_tolerance)
     from repro_torch.utils.roofline import terms
     from repro_torch.serve import BUCKETS, pack_model
     from repro_torch.api import resolve_device
@@ -288,10 +301,21 @@ def main() -> int:
                     out, plain, plain + rho1 * rho2,
                     f"decision bucket={bucket} {kind} {precision}")
                 worst["decision"] = max(worst["decision"], err)
+                cfg = dec.DECISION.last_config
+                check(cfg == tiling.packed_decision_config(bucket,
+                                                           precision),
+                      f"decision bucket={bucket} {precision} launched {cfg}")
+                again = dec.launch(*ops, rho1, rho2, kern, cfg)()
+                torch.cuda.synchronize()
+                check(torch.equal(out.view(torch.int32),
+                                  again.view(torch.int32)),
+                      f"decision bucket={bucket} {kind} {precision}: two "
+                      f"launches on the same inputs differ")
                 say(f"[kernels] decision bucket={bucket} support="
                     f"{sm.t_pad.shape[0]} d={D} {kind:6s} {precision:4s} "
-                    f"max_abs={err:.3e} max_rel={rel:.3e} tol={tol} "
-                    f"tol/median_work={share:.2e}")
+                    f"entry {cfg.entry} max_abs={err:.3e} max_rel={rel:.3e} "
+                    f"tol={tol} tol/median_work={share:.2e} "
+                    f"relaunch=bitwise")
 
     def gram_rows(kind, m, d, seed):
         """Toy rows, unit-length for linear and poly (as above)."""
@@ -348,14 +372,14 @@ def main() -> int:
             plain = fupdate_plain(*ops, **kw)
             return (lambda c: fup.launch(*ops, kern, c)(), plain,
                     plain - ops[3])
-        dt = tile_dtype(precision)
-        q, t = fup.as_tile(a[:77], dt), fup.as_tile(a, dt)
+        # Ragged for both classes: 203 support rows (no multiple of
+        # SW = 64 or 32), d = 45 (16-bit rows padded to 48 for TMA).
         g = torch.as_tensor(np.abs(rng.standard_normal(MENU_ROWS))
                             .astype(np.float32), device=dev)
-        s_ = gram_plain(q, t, precision=precision, **kw) @ g
+        s_ = gram_plain(a[:77], a, precision=precision, **kw) @ g
         g, s_ = g / s_.max(), s_ / s_.max()       # 0 < s <= 1
         r1, r2 = (float(torch.quantile(s_, p)) for p in (0.25, 0.75))
-        ops = (q, t, g, fup.row_norms(q), fup.row_norms(t))
+        ops = dec.prepare(a[:77], a, g, precision=precision)
         plain = decision_plain(*ops, r1, r2, **kw)
         return (lambda c: dec.launch(*ops, r1, r2, kern, c)(), plain,
                 plain + r1 * r2)
@@ -550,28 +574,52 @@ def main() -> int:
                 f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                 f"bound_ms={b_ms:.5f} ({b_by}) "
                 f"bound_share={b_ms / ms:.3f}")
+    # decision: against SUPPORT check rows and against the served model
+    # (the f32 fit's support rows, packed in each precision), at every
+    # bucket, with the entry the bucket picks, as the scorer launches it.
+    served = {p: sm if p == "f32" else pack_model(sm.model, precision=p)
+              for p in PRECISIONS}
+    n_dec, n_dec_faster = 0, 0
     for precision in PRECISIONS:
-        smp = support_model("rbf", precision)
-        rho1, rho2 = float(smp.model.rho1), float(smp.model.rho2)
-        for bucket in BUCKETS:
-            ops = decision_operands("rbf", smp, bucket, precision)
-            cfg = dec.launch(*ops, rho1, rho2, kernels["rbf"]).config
-            ms = time_ms(lambda: dec.launch(*ops, rho1, rho2,
-                                            kernels["rbf"])(), iters=30)
-            plain_ms = time_ms(lambda: decision_plain(
-                *ops, rho1, rho2, **plain_kw("rbf")), iters=30)
-            es = ops[0].element_size()
-            nt, dp = ops[1].shape
-            nbytes = (bucket + nt) * dp * es + 4 * (2 * nt + 2 * bucket)
-            flops = 2 * bucket * nt * dp + 2 * bucket * nt
-            b_ms, b_by = bound(nbytes, flops, precision)
-            timed[("decision", bucket, nt, precision)] = (ms, plain_ms, b_ms,
-                                                          b_by)
-            say(f"[timing] decision bucket={bucket} support={nt} d={dp} rbf "
-                f"{precision:4s} config {cfg.entry} ({cfg.source}) "
-                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                f"bound_ms={b_ms:.5f} ({b_by}) "
-                f"bound_share={b_ms / ms:.3f}")
+        for smp in (support_model("rbf", precision), served[precision]):
+            rho1, rho2 = float(smp.model.rho1), float(smp.model.rho2)
+            for bucket in BUCKETS:
+                ops = decision_operands("rbf", smp, bucket, precision)
+                cfg = tiling.packed_decision_config(bucket, precision)
+                ms = time_ms(lambda: dec.launch(*ops, rho1, rho2,
+                                                kernels["rbf"], cfg)(),
+                             iters=30)
+                plain_ms = time_ms(lambda: decision_plain(
+                    *ops, rho1, rho2, **plain_kw("rbf")), iters=30)
+                es = ops[0].element_size()
+                nt, dp = ops[1].shape
+                nbytes = (bucket + nt) * dp * es + 4 * (2 * nt + 2 * bucket)
+                flops = 2 * bucket * nt * dp + 2 * bucket * nt
+                b_ms, b_by = bound(nbytes, flops, precision)
+                exp_ms = 1e3 * bucket * nt / SFU_EXPS_PER_S
+                timed[("decision", bucket, nt, precision)] = (
+                    ms, plain_ms, b_ms, b_by)
+                n_dec += 1
+                n_dec_faster += ms <= plain_ms
+                say(f"[timing] decision bucket={bucket} support={nt} "
+                    f"(n_sv={smp.n_sv}) d={dp} rbf {precision:4s} config "
+                    f"{cfg.entry} ({cfg.source}) kernel_ms={ms:.4f} "
+                    f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({b_by}) "
+                    f"exp_floor_ms={exp_ms:.5f} bound_share={b_ms / ms:.3f}")
+    say(f"[timing] decision no slower than its plain version in "
+        f"{n_dec_faster} of {n_dec} (bucket, support, precision) cells")
+    # What the kernel value costs: the same launches with the linear
+    # kernel (no exp, one FMA a pair) beside rbf.
+    for precision in ("f32", "bf16"):
+        ops = decision_operands("rbf", support_model("rbf", precision),
+                                BUCKETS[-1], precision)
+        cfg = tiling.packed_decision_config(BUCKETS[-1], precision)
+        pace = {k: time_ms(lambda: dec.launch(*ops, 0.0, 1.0, kernels[k],
+                                              cfg)(), iters=30)
+                for k in ("rbf", "linear")}
+        say(f"[timing] decision bucket={BUCKETS[-1]} support={SUPPORT} "
+            f"{precision} by kernel: rbf kernel_ms={pace['rbf']:.4f} linear "
+            f"kernel_ms={pace['linear']:.4f}")
 
     # fupdate on the hot loop at the default config too (the table's
     # is timed above: the default is the one-stage tile, the table's the
@@ -659,9 +707,14 @@ def main() -> int:
             scorer.score(q)
             lat.append(time.perf_counter() - t0)
         lat.sort()
+        p50 = 1e3 * lat[len(lat) // 2]
+        # The host's share: what the request costs beyond the kernel's
+        # device time at its bucket (query pad, copies, q norms, launch).
+        k_ms = timed[("decision", bucket, sm.t_pad.shape[0], "f32")][0]
         say(f"[timing] serve score bucket={bucket} (numpy in/out, n_sv="
-            f"{sm.n_sv}) p50_ms={1e3 * lat[len(lat) // 2]:.4f} "
-            f"min_ms={1e3 * lat[0]:.4f}")
+            f"{sm.n_sv}) p50_ms={p50:.4f} min_ms={1e3 * lat[0]:.4f} "
+            f"kernel_ms={k_ms:.4f} host_ms={p50 - k_ms:.4f} "
+            f"host_share={(p50 - k_ms) / p50:.3f}")
     say(f"[timing] max_memory_allocated="
         f"{torch.cuda.max_memory_allocated()} bytes")
 

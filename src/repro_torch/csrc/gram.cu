@@ -45,12 +45,10 @@
 //   a multiple of 8 (TMA's 16-byte row stride) with zeros, which add
 //   exactly nothing. Each output is the tensor cores' sum over k16 steps
 //   in feature order, whatever BN or DEPTH.
-#include <cuda.h>   // CUtensorMap (the encoder is found at run time)
-
 #include <cstdint>
 #include <type_traits>
 
-#include "kernel_rows.cuh"
+#include "hopper.cuh"   // TMA, mbarriers, wgmma (includes kernel_rows.cuh)
 
 namespace repro {
 namespace {
@@ -110,55 +108,9 @@ int launch_tile(const Args& a, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// f32, the pipelined SIMT tile
+// f32, the pipelined SIMT tile (staged by kernel_rows.cuh's fetch_chunk and
+// stash_chunk)
 // ---------------------------------------------------------------------------
-
-// Rows [base, base + R) x features [k0, k0 + BK) of src (rows x d) as
-// float4s, L a thread, 0 outside the matrix; `vec`: d % 4 == 0 and src
-// 16-byte aligned, so a float4 is wholly inside or outside.
-template <int BK, int L, int NT>
-__device__ __forceinline__ void fetch_chunk(const float* __restrict__ src,
-                                            int rows, int d, int base,
-                                            int k0, bool vec,
-                                            float4 (&r)[L]) {
-  constexpr int Q = BK / 4;   // float4s in a row of the chunk
-#pragma unroll
-  for (int l = 0; l < L; ++l) {
-    const int u = threadIdx.x + l * NT;
-    const int gr = base + u / Q;
-    const int gk = k0 + (u % Q) * 4;
-    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (gr < rows) {
-      const float* s = src + static_cast<size_t>(gr) * d + gk;
-      if (vec) {
-        if (gk < d) v = __ldg(reinterpret_cast<const float4*>(s));
-      } else {
-        if (gk < d) v.x = __ldg(s);
-        if (gk + 1 < d) v.y = __ldg(s + 1);
-        if (gk + 2 < d) v.z = __ldg(s + 2);
-        if (gk + 3 < d) v.w = __ldg(s + 3);
-      }
-    }
-    r[l] = v;
-  }
-}
-
-// The fetched float4s, transposed into dst[k][row].
-template <int BK, int L, int NT, int LD>
-__device__ __forceinline__ void stash_chunk(float (*dst)[LD],
-                                            const float4 (&r)[L]) {
-  constexpr int Q = BK / 4;
-#pragma unroll
-  for (int l = 0; l < L; ++l) {
-    const int u = threadIdx.x + l * NT;
-    const int row = u / Q;
-    const int k = (u % Q) * 4;
-    dst[k][row] = r[l].x;
-    dst[k + 1][row] = r[l].y;
-    dst[k + 2][row] = r[l].z;
-    dst[k + 3][row] = r[l].w;
-  }
-}
 
 // Thread (ty, tx) owns rows ty*4 + i and BM/2 + ty*4 + i (i < 4) and the
 // same pattern of columns, so its operands and its outputs are float4s.
@@ -276,211 +228,8 @@ int launch_simt(const Args& a, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 / f16: wgmma fed by TMA
+// bf16 / f16: wgmma fed by TMA (the building blocks: hopper.cuh)
 // ---------------------------------------------------------------------------
-
-constexpr int kWarpGroup = 128;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Returns once the phase of parity `parity` of `bar` has completed. A
-// wait that outlasts 2^24 tries (seconds; a real one takes microseconds)
-// traps, so a broken ring fails the launch instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0, tries = 0;
-  do {
-    if (++tries == (1u << 24)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// A 2-D TMA tile load of the box at (c0 = feature, c1 = row) into dst,
-// completing its bytes on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-
-// A 2-D TMA tile store of the box at src to (c0 = column, c1 = row), in
-// the thread's bulk group; rows and columns outside the matrix are not
-// written.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          const void* src, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// Until at most N of the thread's bulk groups still read shared memory.
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-}
-
-// Until all of the thread's bulk groups are complete.
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// The generic-proxy writes to shared memory before it, seen by TMA.
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// A barrier of the 128 threads of one warpgroup (ids 1, 2: 0 is
-// __syncthreads's).
-__device__ __forceinline__ void warpgroup_sync(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-
-// wgmma's descriptor of a K-major tile written by TMA with 128-byte
-// swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t smem_desc(const void* ptr) {
-  const uint64_t addr = smem_u32(ptr);
-  return ((addr & 0x3FFFF) >> 4)             // start address, 16-byte units
-         | (uint64_t{1} << 16)               // leading offset (unused here)
-         | (uint64_t{1024 >> 4} << 32)       // stride offset: 8 rows
-         | (uint64_t{1} << 62);              // 128-byte swizzle
-}
-
-// The accumulator operands of wgmma m64nNk16 (N / 2 f32 a thread).
-#define REPRO_REGS128 \
-  "{" "%0," "%1," "%2," "%3," "%4," "%5," "%6," "%7," "%8," "%9," "%10," "%11," \
-  "%12," "%13," "%14," "%15," "%16," "%17," "%18," "%19," "%20," "%21," "%22," "%23," \
-  "%24," "%25," "%26," "%27," "%28," "%29," "%30," "%31," "%32," "%33," "%34," "%35," \
-  "%36," "%37," "%38," "%39," "%40," "%41," "%42," "%43," "%44," "%45," "%46," "%47," \
-  "%48," "%49," "%50," "%51," "%52," "%53," "%54," "%55," "%56," "%57," "%58," "%59," \
-  "%60," "%61," "%62," "%63" "}"
-#define REPRO_ACC128 \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
-  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
-  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
-  "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
-  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
-  "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
-  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
-  "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
-  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), \
-  "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
-  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-#define REPRO_REGS256 \
-  "{" "%0," "%1," "%2," "%3," "%4," "%5," "%6," "%7," "%8," "%9," "%10," "%11," \
-  "%12," "%13," "%14," "%15," "%16," "%17," "%18," "%19," "%20," "%21," "%22," "%23," \
-  "%24," "%25," "%26," "%27," "%28," "%29," "%30," "%31," "%32," "%33," "%34," "%35," \
-  "%36," "%37," "%38," "%39," "%40," "%41," "%42," "%43," "%44," "%45," "%46," "%47," \
-  "%48," "%49," "%50," "%51," "%52," "%53," "%54," "%55," "%56," "%57," "%58," "%59," \
-  "%60," "%61," "%62," "%63," "%64," "%65," "%66," "%67," "%68," "%69," "%70," "%71," \
-  "%72," "%73," "%74," "%75," "%76," "%77," "%78," "%79," "%80," "%81," "%82," "%83," \
-  "%84," "%85," "%86," "%87," "%88," "%89," "%90," "%91," "%92," "%93," "%94," "%95," \
-  "%96," "%97," "%98," "%99," "%100," "%101," "%102," "%103," "%104," "%105," "%106," "%107," \
-  "%108," "%109," "%110," "%111," "%112," "%113," "%114," "%115," "%116," "%117," "%118," "%119," \
-  "%120," "%121," "%122," "%123," "%124," "%125," "%126," "%127" "}"
-#define REPRO_ACC256 \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
-  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
-  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
-  "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
-  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
-  "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
-  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
-  "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
-  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), \
-  "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
-  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), \
-  "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
-  "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), \
-  "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), \
-  "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), \
-  "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), \
-  "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), \
-  "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), \
-  "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), \
-  "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
-  "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), \
-  "+f"(d[126]), "+f"(d[127])
-
-// d (N / 2 f32 a thread) += A (64 x 16, descriptor da) B^T (N x 16, db),
-// both K-major in shared memory.
-template <typename T, int N>
-struct Wgmma;
-
-// scale-d is the predicate p, set: d += A B^T (the accumulators start at 0).
-#define REPRO_WGMMA(N, TY, REGS, ACC, IA, IB, IS)                           \
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #IS ", 0;\n"          \
-               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY \
-               " " REGS ", %" #IA ", %" #IB ", p, 1, 1, 0, 0;\n}\n"       \
-               : ACC                                                        \
-               : "l"(da), "l"(db), "r"(1))
-
-template <>
-struct Wgmma<__nv_bfloat16, 128> {
-  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da,
-                                             uint64_t db) {
-    REPRO_WGMMA(128, "bf16", REPRO_REGS128, REPRO_ACC128, 64, 65, 66);
-  }
-};
-template <>
-struct Wgmma<__half, 128> {
-  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da,
-                                             uint64_t db) {
-    REPRO_WGMMA(128, "f16", REPRO_REGS128, REPRO_ACC128, 64, 65, 66);
-  }
-};
-template <>
-struct Wgmma<__nv_bfloat16, 256> {
-  static __device__ __forceinline__ void mma(float (&d)[128], uint64_t da,
-                                             uint64_t db) {
-    REPRO_WGMMA(256, "bf16", REPRO_REGS256, REPRO_ACC256, 128, 129, 130);
-  }
-};
-template <>
-struct Wgmma<__half, 256> {
-  static __device__ __forceinline__ void mma(float (&d)[128], uint64_t da,
-                                             uint64_t db) {
-    REPRO_WGMMA(256, "f16", REPRO_REGS256, REPRO_ACC256, 128, 129, 130);
-  }
-};
 
 // The output goes out through shared memory in chunks of 64 rows (one
 // consumer warpgroup's) x 64 f32 columns: two TMA boxes of 32 columns (one
@@ -699,55 +448,6 @@ __global__ void __launch_bounds__(3 * kWarpGroup, 1)
     }
   }
   if (tma_out && t == 0) bulk_wait_all();     // before the CTA's memory goes
-}
-
-// cuTensorMapEncodeTiled, looked up in libcuda at run time (no -lcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(ptr)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// The TMA map of a row-major (rows, cols) matrix of `type` (`size`
-// bytes an element), in boxes of `box_rows` x `box_cols` (128 bytes),
-// 128-byte swizzle; loads fill outside the matrix with zeros, stores
-// leave it alone.
-int encode_map(CUtensorMap* map, CUtensorMapDataType type, int size,
-               const void* base, int rows, int cols, int box_rows,
-               int box_cols) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * size};
-  const cuuint32_t boxes[2] = {static_cast<cuuint32_t>(box_cols),
-                               static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t steps[2] = {1, 1};
-  const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims,
-                        strides, boxes, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T, int BM, int BN, int BK, int TR, int TC, int DEPTH>

@@ -18,10 +18,11 @@
 // over the features in order. Thread (ty, tx) owns rows ty + i * NTY and
 // columns tx + j * NTX. Rows past M, columns past N and features past D
 // load as 0, so ragged edges need no padding. It is the first design's
-// tile: the
-// decision kernel, fupdate's wide class and the f32 gram default run on
-// it; the redesigned kernels (gram.cu's SIMT and wgmma classes,
-// fupdate.cu's pipelined narrow entries) stage their own operands.
+// tile: fupdate's wide class and the f32 gram default run on it; the
+// redesigned kernels (gram.cu's and decision.cu's SIMT and wgmma
+// classes, fupdate.cu's pipelined narrow entries) stage their own
+// operands (the SIMT classes by fetch_chunk / stash_chunk below, the
+// wgmma classes by TMA, hopper.cuh).
 //
 // weighted_row_sums: one CTA owns BM rows of A, so its outputs belong to
 // it alone: no cross-CTA reduction and no atomics. It walks B in chunks of
@@ -34,10 +35,11 @@
 // the features, whatever BM, BN, TR, TC or the staging; a row sum's order
 // depends on BN and TC (which columns a thread adds, and the shuffle tree
 // over NTX) but not on BM, TR, the feature-chunk depth or the number of
-// stages. So fupdate and decision launches that differ only in those
-// give bitwise equal outputs, and so do all f32 gram launches (the
-// bf16/f16 gram launches run wgmma, whose sums are the tensor cores';
-// kernels/tiling.py keeps each class's menu to that).
+// stages. So fupdate launches that differ only in those give bitwise
+// equal outputs, and so do all f32 gram launches (the bf16/f16 gram
+// launches run wgmma, whose sums are the tensor cores'; decision.cu
+// states its own classes' orders; kernels/tiling.py keeps each class's
+// menu to that).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -245,6 +247,57 @@ __device__ __forceinline__ void weighted_row_sums(
     add_weighted<TR, TC, NTX>(acc, rn, b_norm, w, N, n0, tx, p, part);
   }
   reduce_row<TR, NTX>(part);
+}
+
+// The pipelined SIMT tiles' staging (gram.cu's f32 class, decision.cu's
+// f32 class): one BK-deep chunk of rows fetched as float4s into
+// registers, then transposed into shared memory.
+
+// Rows [base, base + R) x features [k0, k0 + BK) of src (rows x d) as
+// float4s, L a thread, 0 outside the matrix; `vec`: d % 4 == 0 and src
+// 16-byte aligned, so a float4 is wholly inside or outside.
+template <int BK, int L, int NT>
+__device__ __forceinline__ void fetch_chunk(const float* __restrict__ src,
+                                            int rows, int d, int base,
+                                            int k0, bool vec,
+                                            float4 (&r)[L]) {
+  constexpr int Q = BK / 4;   // float4s in a row of the chunk
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    const int u = threadIdx.x + l * NT;
+    const int gr = base + u / Q;
+    const int gk = k0 + (u % Q) * 4;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (gr < rows) {
+      const float* s = src + static_cast<size_t>(gr) * d + gk;
+      if (vec) {
+        if (gk < d) v = __ldg(reinterpret_cast<const float4*>(s));
+      } else {
+        if (gk < d) v.x = __ldg(s);
+        if (gk + 1 < d) v.y = __ldg(s + 1);
+        if (gk + 2 < d) v.z = __ldg(s + 2);
+        if (gk + 3 < d) v.w = __ldg(s + 3);
+      }
+    }
+    r[l] = v;
+  }
+}
+
+// The fetched float4s, transposed into dst[k][row].
+template <int BK, int L, int NT, int LD>
+__device__ __forceinline__ void stash_chunk(float (*dst)[LD],
+                                            const float4 (&r)[L]) {
+  constexpr int Q = BK / 4;
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    const int u = threadIdx.x + l * NT;
+    const int row = u / Q;
+    const int k = (u % Q) * 4;
+    dst[k][row] = r[l].x;
+    dst[k + 1][row] = r[l].y;
+    dst[k + 2][row] = r[l].z;
+    dst[k + 3][row] = r[l].w;
+  }
 }
 
 }  // namespace repro

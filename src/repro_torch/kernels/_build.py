@@ -165,15 +165,17 @@ class Kernel:
 class Launch:
     """One launch of ``kernel`` with its C arguments ``args`` (the menu
     index of ``config`` among them), on the card ``device`` whose stream
-    they name, writing ``out``. Calling it launches the kernel (counted)
-    with that card current, then restores the caller's current card, and
-    returns ``out``."""
+    they name, writing ``out`` (and ``scratch``, a workspace the launch
+    keeps alive). Calling it launches the kernel (counted) with that card
+    current, then restores the caller's current card, and returns
+    ``out``."""
 
     kernel: Kernel
     device: int
     args: tuple
     out: object
     config: object = None
+    scratch: object = None
 
     def __call__(self):
         with torch.cuda.device(self.device):

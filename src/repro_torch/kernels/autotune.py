@@ -1,7 +1,8 @@
 """Tile-config autotuner for the three CUDA kernel families, on the card.
 
     python -m repro_torch.kernels.autotune --quick|--full \\
-        [--precisions f32,bf16] [--repeats 3] [--json PATH] [--update-table]
+        [--precisions f32,bf16] [--families gram,fupdate,decision] \\
+        [--repeats 3] [--json PATH] [--update-table]
 
 Sweeps the menu entries (``tiling.MENUS``) of each (family, shape,
 precision) cell, times each feasible candidate on the card, classifies it
@@ -29,7 +30,9 @@ The moving parts:
 * :func:`cost_model` — the logical FLOPs (as the JAX package counts
   them) and the bytes the CUDA grid streams from device memory: no 128
   pad, the second operand read once per CTA (for gram, each operand once
-  per tile of the other). Re-reads of an operand small enough for the
+  per tile of the other; for decision, the support rows once per query
+  tile, the queries once per CTA and the split partials written and read
+  once). Re-reads of an operand small enough for the
   50 MB L2 are served there, so for those the count is an upper bound on
   the HBM traffic; it is what the tile sizes trade off.
 * :func:`classify` — "memory" (bytes-bound) or "compute" from those two
@@ -65,9 +68,10 @@ from repro_torch.kernels.decision import ops as dec
 from repro_torch.kernels.fupdate import ops as fup
 from repro_torch.kernels.gram import ops as gram_ops
 from repro_torch.kernels.precision import check_precision, tile_dtype
-from repro_torch.kernels.tiling import (TUNED_TABLE_PATH, TileConfig,
-                                        clear_caches, kernel_of, menu,
-                                        validate_table)
+from repro_torch.kernels.tiling import (FAMILIES, TUNED_TABLE_PATH,
+                                        TileConfig, clear_caches,
+                                        decision_grid, decision_splits,
+                                        kernel_of, menu, validate_table)
 from repro_torch.utils.roofline import terms
 
 # Hopper feasibility model (per CTA; H100 SXM).
@@ -76,6 +80,9 @@ SMEM_BYTES = 232448                # static + dynamic (227 KiB)
 MAX_THREADS = 1024
 MAX_REGS_PER_THREAD = 255
 REGS_PER_SM = 65536
+
+# SMs of an H100 SXM (the decision launcher reads the card's own count).
+H100_SMS = 132
 
 # Launches in each timed graph of the sweep.
 SWEEP_ITERS = 20
@@ -131,32 +138,51 @@ def _ceil_div(a: int, b: int) -> int:
 
 
 def threads(family: str, cfg: TileConfig) -> int:
-    """Threads of one CTA: (BM/TR) * (BN/TC), plus the producer
-    warpgroup of a wgmma entry."""
-    nt = (cfg.block_m // cfg.tr) * (cfg.block_n // cfg.tc)
-    return nt + (128 if kernel_of(family, cfg) == "wgmma" else 0)
+    """Threads of one CTA: (BM/TR) * (BN/TC); for a wgmma entry its
+    BM / 64 consumer warpgroups and its producer, a warpgroup for gram,
+    one warp for decision."""
+    if kernel_of(family, cfg) != "wgmma":
+        return (cfg.block_m // cfg.tr) * (cfg.block_n // cfg.tc)
+    return cfg.block_m // 64 * 128 + (32 if family == "decision" else 128)
 
 
-def smem_bytes(family: str, cfg: TileConfig,
-               precision: str = "f32") -> Tuple[int, int]:
+def smem_bytes(family: str, cfg: TileConfig, precision: str = "f32",
+               d: int = 128) -> Tuple[int, int]:
     """(static, dynamic) shared memory of one CTA, by kernel: the tile's
     two f32 chunks with their +1 columns of bank padding; the SIMT
-    kernel's two stages with +4 columns; the pipelined fupdate's ring of
-    DEPTH raw chunks, rows padded by 16 bytes; the wgmma ring of DEPTH
+    kernels' two stages with +4 columns; the pipelined fupdate's ring of
+    DEPTH raw chunks, rows padded by 16 bytes; gram's wgmma ring of DEPTH
     16-bit (BM + BN) x BK stages, four 64 x 64 f32 output chunks, two
     tiles' BN column norms, 1024 bytes of alignment slack and two 8-byte
-    barriers a stage."""
+    barriers a stage; decision's resident BM x d query tile (whole BK
+    blocks), its ring of DEPTH (4 TC) x BK stages, the slack and
+    2 DEPTH + 1 barriers."""
     bm, bn, bk, depth = cfg.block_m, cfg.block_n, cfg.block_k, cfg.depth
     kind = kernel_of(family, cfg)
     if kind == "tile":
         return (bm + 1 + bn + 1) * bk * 4 * depth, 0
     if kind == "simt":
         return depth * bk * (bm + 4 + bn + 4) * 4, 0
+    if kind == "wgmma" and family == "decision":
+        return 0, (_ceil_div(d, bk) * bm * bk * 2
+                   + depth * 4 * cfg.tc * bk * 2 + 1024 + 8 * (2 * depth + 1))
     if kind == "wgmma":
         return 0, (depth * (bm + bn) * bk * 2 + 4 * 64 * 64 * 4 + 2 * bn * 4
                    + 1024 + 16 * depth)
     es = torch.empty((), dtype=tile_dtype(precision)).element_size()
     return 0, depth * (bm + bn) * (bk * es + 16)
+
+
+def ctas_per_sm(family: str, cfg: TileConfig, precision: str = "f32",
+                d: int = 128) -> int:
+    """CTAs of ``cfg`` an H100 SM holds at once by its threads (2048),
+    registers (:func:`register_estimate`) and shared memory (228 KiB, 1
+    KiB of it reserved a CTA); at most 32."""
+    nt = threads(family, cfg)
+    static, dynamic = smem_bytes(family, cfg, precision, d)
+    regs = register_estimate(family, cfg) * nt
+    return max(1, min(32, 2048 // nt, REGS_PER_SM // regs,
+                      (228 * 1024) // (static + dynamic + 1024)))
 
 
 def register_estimate(family: str, cfg: TileConfig) -> int:
@@ -183,18 +209,20 @@ def register_estimate(family: str, cfg: TileConfig) -> int:
     return min(regs, REGS_PER_SM // threads(family, cfg) // 8 * 8)
 
 
-def feasible(family: str, cfg: TileConfig, precision: str = "f32") -> bool:
+def feasible(family: str, cfg: TileConfig, precision: str = "f32",
+             d: int = 128) -> bool:
     """Whether ``cfg`` can launch on a Hopper SM with rows of
-    ``precision`` (module docstring)."""
+    ``precision`` and ``d`` features (module docstring)."""
     if cfg.block_m % cfg.tr or cfg.block_n % cfg.tc:
         return False
     nt = threads(family, cfg)
     if nt % 32 or nt > MAX_THREADS:
         return False
     ntx = cfg.block_n // cfg.tc
-    if family != "gram" and (ntx > 32 or 32 % ntx):
+    if family != "gram" and kernel_of(family, cfg) != "wgmma" \
+            and (ntx > 32 or 32 % ntx):
         return False            # a row's threads must sit in one warp
-    static, dynamic = smem_bytes(family, cfg, precision)
+    static, dynamic = smem_bytes(family, cfg, precision, d)
     if static > SMEM_STATIC_BYTES or static + dynamic > SMEM_BYTES:
         return False
     regs = register_estimate(family, cfg)
@@ -212,17 +240,20 @@ def candidates(cell: Cell, *, precision: str) -> List[dict]:
     take (``tiling.menu``) that pass :func:`feasible`."""
     check_precision(precision)
     return [_config_dict(c) for c in menu(cell.family, cell.n, precision)
-            if feasible(cell.family, c, precision)]
+            if feasible(cell.family, c, precision, cell.d)]
 
 
 def cost_model(cell: Cell, *, block_m: int, block_n: int,
-               block_k: Optional[int] = None, precision: str) -> tuple:
+               block_k: Optional[int] = None, precision: str,
+               tc: int = 8) -> tuple:
     """(flops, hbm_bytes) for one candidate.
 
     FLOPs count the logical work, as the JAX package counts it; the
     bytes count what the grid requests from device memory, ragged tiles
     only their live rows (``block_k`` is the chunk depth; each CTA reads
-    every feature once, so it does not enter).
+    every feature once, so it does not enter, except that it tells a
+    decision wgmma entry, whose chunk of 4 ``tc`` support rows sets its
+    grid).
     """
     es = torch.empty((), dtype=tile_dtype(precision)).element_size()
     if cell.family == "gram":
@@ -243,12 +274,20 @@ def cost_model(cell: Cell, *, block_m: int, block_n: int,
                + gm * 2.0 * s * 4.0)                 # delta + sel norms
     elif cell.family == "decision":
         msv, nq, d = cell.m, cell.n, cell.d
-        gq = _ceil_div(nq, block_m)
+        cfg = TileConfig(block_m, block_n, block_k or 0, 2, tc, 4)
+        splits = decision_splits(msv, cfg)
+        # A CTA reads its query tile once: a SIMT CTA takes one split, a
+        # wgmma CTA a run of them (tiling.decision_grid).
+        gq, q_reads = decision_grid(nq, msv, cfg, H100_SMS,
+                                    ctas_per_sm("decision", cfg, precision,
+                                                d))
         flops = 2.0 * nq * msv * d + 2.0 * nq * msv
-        hbm = (nq * d * es                           # q, once
+        hbm = (nq * d * es * q_reads                 # q, per CTA
                + msv * d * es * gq                   # t, per query tile
                + 2.0 * msv * 4.0 * gq                # gamma + norms
-               + 2.0 * nq * 4.0)                     # q norms + output
+               + nq * 4.0 * q_reads                  # q norms
+               + 2.0 * splits * nq * 4.0             # partials, out and in
+               + nq * 4.0)                           # output
     else:
         raise ValueError(f"unknown family {cell.family!r}")
     return flops, hbm
@@ -314,11 +353,8 @@ def _make_runner(cell: Cell, precision: str,
                           normal(cell.m), precision=precision)
         return lambda cfg: fup.launch(*ops, kern, cfg)()
     if cell.family == "decision":
-        dt = tile_dtype(precision)
-        t = fup.as_tile(normal(cell.m, cell.d), dt)
-        q = fup.as_tile(normal(cell.n, cell.d), dt)
-        ops = (q, t, normal(cell.m) * 0.05, fup.row_norms(q),
-               fup.row_norms(t))
+        ops = dec.prepare(normal(cell.n, cell.d), normal(cell.m, cell.d),
+                          normal(cell.m) * 0.05, precision=precision)
         return lambda cfg: dec.launch(*ops, 0.2, 0.8, kern, cfg)()
     raise ValueError(f"unknown family {cell.family!r}")
 
@@ -357,7 +393,8 @@ def sweep(cells: Optional[Iterable[Cell]] = None, *, mode: str = "quick",
                                   cfg["depth"], "explicit")
                 flops, hbm = cost_model(
                     cell, block_m=cfg["block_m"], block_n=cfg["block_n"],
-                    block_k=cfg["block_k"], precision=precision)
+                    block_k=cfg["block_k"], precision=precision,
+                    tc=cfg["tc"])
                 t = 1e-3 * graph_ms(lambda: run(tile), iters=SWEEP_ITERS,
                                     repeats=repeats)
                 row = {"name": _candidate_name(cell, cfg),
@@ -502,6 +539,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                            "main path's shapes")
     ap.add_argument("--precisions", default="f32",
                     help="comma-separated, e.g. f32,bf16")
+    ap.add_argument("--families", default=",".join(FAMILIES),
+                    help="comma-separated kernel families whose cells "
+                         "are swept, e.g. decision")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--json", default=str(DEFAULT_JSON),
                     help="where the BENCH document goes")
@@ -510,8 +550,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = ap.parse_args(argv)
 
     t0 = time.perf_counter()
-    result = sweep(mode="full" if args.full else "quick",
-                   precisions=args.precisions.split(","),
+    mode = "full" if args.full else "quick"
+    families = set(args.families.split(","))
+    cells = [c for c in (FULL_CELLS if args.full else QUICK_CELLS)
+             if c.family in families]
+    result = sweep(cells, mode=mode, precisions=args.precisions.split(","),
                    repeats=args.repeats, progress=print)
     result["seconds"] = time.perf_counter() - t0
     out = Path(args.json)

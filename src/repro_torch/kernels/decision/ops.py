@@ -9,15 +9,26 @@ dtype once, at model-pack time.
 The device of the tensors picks the path: CPU tensors get the plain
 version (``ref.decision_plain``), CUDA tensors the kernel; there is no
 fallback from one to the other. ``DECISION.launches`` counts the
-kernel's launches from both wrappers. ``prepare_packed`` and ``launch``
-are ``decision_packed``'s two halves: the operands the kernel and its
-plain version both take, and the kernel's launch on them.
+kernel's launches from both wrappers. ``prepare`` / ``prepare_packed``
+and ``launch`` are each wrapper's two halves: the operands the kernel and
+its plain version both take, and the kernel's launch on them.
+
+The kernel splits the support rows over CTAs and adds each query's
+partial sums in split order (``csrc/decision.cu``): ``launch`` allocates
+the (splits, queries) f32 workspace beside the output
+(``tiling.decision_splits``). The precision picks the class (f32 SIMT,
+bf16/f16 wgmma fed by TMA). TMA needs 16-byte aligned rows, so
+``prepare`` lays 16-bit rows on the card out as ``gram``'s wrapper does:
+features zero-padded to a multiple of 8 after rounding and after taking
+the norms (``gram.ops.tma_rows``); the packed operands have 128 features
+already.
 
 ``decision`` takes its launch shape from ``tiling.resolve_tiles``
 (``tiles``: the tuned table keyed on (support rows, d, precision,
 "cuda"), unless ``tm``/``tn`` are given); ``decision_packed`` stays off
-the table, as in the JAX package, and launches the default. Every menu
-entry gives bitwise the same output.
+the table, as in the JAX package, and launches the entry the bucket
+picks (``tiling.packed_decision_config``). Every entry of a class gives
+bitwise the same output.
 """
 from __future__ import annotations
 
@@ -31,14 +42,35 @@ from repro_torch.kernels._build import Kernel, Launch
 from repro_torch.kernels.decision.ref import decision_plain
 from repro_torch.kernels.fupdate.ops import (DTYPE_CODES, KIND_CODES,
                                              as_tile, row_norms)
+from repro_torch.kernels.gram.ops import tma_rows
 from repro_torch.kernels.precision import precision_of, tile_dtype
-from repro_torch.kernels.tiling import (DEFAULT_CONFIGS, LANE, TileConfig,
-                                        backend_name, menu_index,
+from repro_torch.kernels.tiling import (LANE, TileConfig, backend_name,
+                                        decision_splits, default_config,
+                                        menu_index, packed_decision_config,
                                         resolve_tiles)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 DECISION = Kernel("decision", "decision_launch",
-                  [_P] * 6 + [_I] * 5 + [_F, _F, _I, _F, _F, _I, _P])
+                  [_P] * 7 + [_I] * 5 + [_F, _F, _I, _F, _F, _I, _P])
+
+
+def prepare(q, t, gamma_vec, *, precision: str = "f32"
+            ) -> Tuple[torch.Tensor, ...]:
+    """``decision``'s operands ``(q, t, gamma_vec, qn, tnorm)``: the rows
+    in the tile dtype, contiguous, with the f32 squared norms of the
+    rounded, unpadded rows; 16-bit rows on the card laid out for TMA
+    (``tma_rows``)."""
+    dt = tile_dtype(precision)
+    q = as_tile(q, dt)
+    t = as_tile(t, dt)
+    if q.ndim != 2 or t.ndim != 2 or q.shape[1] != t.shape[1] \
+            or gamma_vec.shape != (t.shape[0],):
+        raise ValueError(f"decision shapes: q {tuple(q.shape)}, t "
+                         f"{tuple(t.shape)}, gamma {tuple(gamma_vec.shape)}")
+    qn, tn = row_norms(q).contiguous(), row_norms(t).contiguous()
+    if dt != torch.float32 and q.device.type == "cuda":
+        q, t = tma_rows(q), tma_rows(t)
+    return q, t, gamma_vec.to(torch.float32).contiguous(), qn, tn
 
 
 def tiles(q, t, *, tm: Optional[int] = None,
@@ -52,28 +84,32 @@ def tiles(q, t, *, tm: Optional[int] = None,
 
 def launch(q, t, gamma_vec, qn, tnorm, rho1, rho2, kernel: KernelFn,
            cfg: Optional[TileConfig] = None) -> Launch:
-    """The kernel's launch on prepared CUDA operands (contiguous, q/t in
-    one tile dtype, the rest f32), into a new (nq,) f32 output, on the
-    current stream of q's card, with tile config ``cfg`` (default: the
-    default config, ``decision_packed``'s)."""
+    """The kernel's launch on prepared CUDA operands (``prepare`` or
+    ``prepare_packed``), into a new (nq,) f32 output and a new
+    (splits, nq) f32 workspace, on the current stream of q's card, with
+    tile config ``cfg`` (default: the default of the rows' class)."""
     dev = q.device
     nq, d = q.shape
-    out = torch.empty((nq,), dtype=torch.float32, device=dev)
+    nt = t.shape[0]
     if cfg is None:
-        cfg = DEFAULT_CONFIGS["decision"]
+        cfg = default_config("decision", precision=precision_of(q.dtype))
+    out = torch.empty((nq,), dtype=torch.float32, device=dev)
+    ws = torch.empty((decision_splits(nt, cfg), nq), dtype=torch.float32,
+                     device=dev)
     return Launch(DECISION, dev.index, (
         q.data_ptr(), t.data_ptr(), gamma_vec.data_ptr(), qn.data_ptr(),
-        tnorm.data_ptr(), out.data_ptr(), nq, t.shape[0], d,
+        tnorm.data_ptr(), ws.data_ptr(), out.data_ptr(), nq, nt, d,
         DTYPE_CODES[q.dtype], KIND_CODES[kernel.name], float(kernel.gamma),
         float(kernel.coef0), int(kernel.degree), float(rho1), float(rho2),
         menu_index("decision", cfg),
-        torch.cuda.current_stream(dev).cuda_stream), out, cfg)
+        torch.cuda.current_stream(dev).cuda_stream), out, cfg, ws)
 
 
 def _run(q, t, gamma_vec, qn, tnorm, rho1, rho2, kernel: KernelFn,
          cfg: Optional[TileConfig] = None):
     """Plain version on the CPU, the kernel on CUDA (with ``cfg``, see
-    ``launch``)."""
+    ``launch``; the plain version takes no padded features, and on the
+    CPU ``prepare`` pads none)."""
     rho1, rho2 = float(rho1), float(rho2)
     dev = q.device
     if any(a.device != dev for a in (t, gamma_vec, qn, tnorm)):
@@ -94,21 +130,14 @@ def decision(q, t, gamma_vec, rho1, rho2, kernel: KernelFn, *,
              precision: str = "f32") -> torch.Tensor:
     """Slab decision values for queries q (nq, d) against the support set
     (t (nt, d), gamma_vec (nt,)); any shapes (the kernel masks ragged
-    edges). ``tm``/``tn`` (queries per CTA, support rows per chunk) opt
+    edges). ``tm``/``tn`` (queries per CTA, support rows per split) opt
     out of the tuned table; ``None`` resolves from it. Returns (nq,) f32
     ``(s - rho1) * (rho2 - s)``."""
-    dt = tile_dtype(precision)
-    q = as_tile(q, dt)
-    t = as_tile(t, dt)
-    if q.shape[1] != t.shape[1] or gamma_vec.shape != (t.shape[0],):
-        raise ValueError(f"decision shapes: q {tuple(q.shape)}, t "
-                         f"{tuple(t.shape)}, gamma {tuple(gamma_vec.shape)}")
+    ops = prepare(q, t, gamma_vec, precision=precision)
     cfg = None
-    if q.device.type == "cuda" or tm is not None or tn is not None:
-        cfg = tiles(q, t, tm=tm, tn=tn)
-    return _run(q, t, gamma_vec.to(torch.float32).contiguous(),
-                row_norms(q).contiguous(), row_norms(t).contiguous(),
-                rho1, rho2, kernel, cfg)
+    if ops[0].device.type == "cuda" or tm is not None or tn is not None:
+        cfg = tiles(ops[0], ops[1], tm=tm, tn=tn)
+    return _run(*ops, rho1, rho2, kernel, cfg)
 
 
 def prepare_packed(q_pad, t_pad, gamma_pad, t_norms, *, tm: int = 256,
@@ -142,8 +171,12 @@ def decision_packed(q_pad, t_pad, gamma_pad, t_norms, rho1, rho2,
     padded/precomputed once at pack time (gamma is zero on padding rows,
     so they add exactly nothing), and the query block arrives padded to a
     bucket shape. Returns all ``q_pad.shape[0]`` values; the caller
-    slices its live rows. ``tm``/``tn`` are the pack geometry.
+    slices its live rows. ``tm``/``tn`` are the pack geometry; the launch's
+    entry is the one ``tiling.packed_decision_config`` picks for the
+    bucket (the kernel masks ragged edges, so its query tile need not be
+    ``tm``).
     """
-    return _run(*prepare_packed(q_pad, t_pad, gamma_pad, t_norms, tm=tm,
-                                tn=tn, precision=precision),
-                rho1, rho2, kernel)
+    ops = prepare_packed(q_pad, t_pad, gamma_pad, t_norms, tm=tm, tn=tn,
+                         precision=precision)
+    return _run(*ops, rho1, rho2, kernel,
+                packed_decision_config(ops[0].shape[0], precision))

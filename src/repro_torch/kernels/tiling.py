@@ -14,23 +14,34 @@ on the card; the CPU tests also read the ``case`` lines). A
 ``block_k`` = BK, ``tr``, ``tc``, ``depth``) and :func:`kernel_of` names
 the kernel it instantiates (the ``launch_<kernel>`` of its case line):
 "tile", the one-stage dot tile at ``BK = DK``; "pipe", fupdate's
-pipelined entries (``DEPTH`` cp.async stages); "simt", gram's pipelined
-f32 tile (two stages); "wgmma", gram's tensor-core kernel
-(``BK = WGMMA_K``, bf16/f16 only).
+pipelined entries (``DEPTH`` cp.async stages); "simt", gram's and
+decision's pipelined f32 tiles (two stages); "wgmma", gram's and
+decision's tensor-core kernels (``BK = WGMMA_K``, bf16/f16 only).
 
 **Classes and the bitwise rule.** A launch may only take the menu
 entries of its class (:func:`menu`), whose first entry is the class's
 default, and every entry of a class gives bitwise the same output:
 
-* ``fupdate`` and ``decision``: a row sum's order depends on BN and TC
-  (which columns a thread adds, and the warp-shuffle tree over BN / TC
-  threads), never on BM, TR, BK or the staging; each dot product is one
-  thread's sequential FMA chain over the features
-  (``csrc/kernel_rows.cuh``). So a class fixes BN and TC. ``fupdate`` has
-  two classes by the selected block's size S: BN = 32 for S <= 32 (the
-  solver's hot loop; the pipelined entries are this class's) and BN = 64
-  above (the init pass and the warm reconcile), each with its own
-  default. A tuned fit is then bitwise a default one.
+* ``fupdate``: a row sum's order depends on BN and TC (which columns a
+  thread adds, and the warp-shuffle tree over BN / TC threads), never on
+  BM, TR, BK or the staging; each dot product is one thread's sequential
+  FMA chain over the features (``csrc/kernel_rows.cuh``). So a class
+  fixes BN and TC. ``fupdate`` has two classes by the selected block's
+  size S: BN = 32 for S <= 32 (the solver's hot loop; the pipelined
+  entries are this class's) and BN = 64 above (the init pass and the
+  warm reconcile), each with its own default. A tuned fit is then
+  bitwise a default one.
+* ``decision``: the support rows are split over CTAs in splits of
+  SW = BN rows, each split's partial per query written to a workspace
+  and the partials added in split order (:func:`decision_splits`). The
+  class is the rows' type, as for gram: f32 launches take the SIMT
+  entries (SW = 64, eight columns a thread, a shuffle tree over eight
+  threads), bf16/f16 launches the wgmma entries (SW = 32, the fragment's
+  columns, a shuffle tree over the quad). Entries of a class vary BM,
+  TR, the ring's depth, the number of consumer warpgroups (BM / 64) and,
+  for wgmma, the support rows one wgmma covers (NW = 4 * TC, whole
+  splits), which leave every sum's order alone. The packed serving path
+  chooses its entry by the bucket (:func:`packed_decision_config`).
 * ``gram``: the class is the rows' type. f32 launches take the SIMT
   entries ("tile", "simt"), each output one thread's FMA chain over the
   features in order, whatever the tile; bf16/f16 launches take the wgmma
@@ -106,7 +117,8 @@ FUPDATE_NARROW_MAX_S = 32
 @dataclass(frozen=True)
 class TileConfig:
     """One launch shape: a menu entry, and how it was chosen (``source``:
-    "default", "explicit", "table-exact" or "table-nearest")."""
+    "default", "explicit", "table-exact", "table-nearest" or, for the
+    packed decision path, "bucket")."""
 
     block_m: int
     block_n: int
@@ -134,9 +146,11 @@ MENUS = {
                 (16, 32, 32, 1, 2, 4),
                 (32, 64, 32, 2, 4, 1), (16, 64, 32, 1, 4, 1),     # S > 32
                 (16, 64, 32, 2, 4, 1), (64, 64, 32, 4, 4, 1)),
-    "decision": ((16, 64, 32, 1, 4, 1), (8, 64, 32, 1, 4, 1),
-                 (32, 64, 32, 2, 4, 1), (32, 64, 32, 1, 4, 1),
-                 (64, 64, 32, 4, 4, 1), (16, 64, 32, 2, 4, 1)),
+    "decision": ((128, 64, 8, 8, 8, 2), (64, 64, 8, 4, 8, 2),     # f32
+                 (32, 64, 8, 4, 8, 2), (16, 64, 8, 4, 8, 2),
+                 (128, 32, 64, 2, 8, 4), (64, 32, 64, 2, 8, 4),   # wgmma
+                 (128, 32, 64, 2, 16, 4), (128, 32, 64, 2, 32, 4),
+                 (128, 32, 64, 2, 32, 2)),
 }
 FAMILIES = tuple(MENUS)
 
@@ -149,9 +163,10 @@ def config_of(entry, source: str = "default") -> TileConfig:
 DEFAULT_CONFIGS = {
     "gram": config_of(MENUS["gram"][0]),              # f32
     "fupdate": config_of(MENUS["fupdate"][0]),        # S <= 32
-    "decision": config_of(MENUS["decision"][0]),
+    "decision": config_of(MENUS["decision"][0]),      # f32
 }
 GRAM_WGMMA_DEFAULT = config_of(MENUS["gram"][2])       # bf16, f16
+DECISION_WGMMA_DEFAULT = config_of(MENUS["decision"][4])  # bf16, f16
 FUPDATE_WIDE_DEFAULT = config_of(MENUS["fupdate"][5])  # S > 32
 
 
@@ -162,13 +177,18 @@ def kernel_of(family: str, cfg: TileConfig) -> str:
         return "wgmma"
     if cfg.depth == 1:
         return "tile"
-    return "simt" if family == "gram" else "pipe"
+    return "pipe" if family == "fupdate" else "simt"
+
+
+# The families whose class is the rows' type (f32 SIMT, 16-bit wgmma).
+_BY_PRECISION = ("gram", "decision")
 
 
 def precisions_of(family: str, cfg: TileConfig) -> Tuple[str, ...]:
-    """The tile precisions the source compiles an entry for: gram's wgmma
-    entries bf16/f16, its SIMT entries f32, every other entry all."""
-    if family != "gram":
+    """The tile precisions the source compiles an entry for: gram's and
+    decision's wgmma entries bf16/f16, their SIMT entries f32, every
+    fupdate entry all."""
+    if family not in _BY_PRECISION:
         return PRECISIONS
     return (("bf16", "f16") if kernel_of(family, cfg) == "wgmma"
             else ("f32",))
@@ -176,9 +196,13 @@ def precisions_of(family: str, cfg: TileConfig) -> Tuple[str, ...]:
 
 def _class_key(family: str, cfg: TileConfig) -> tuple:
     """What a class fixes (the module docstring's bitwise rule): the kind
-    of kernel for gram, BN and TC for the row-sum kernels."""
+    of kernel for gram; the kind, SW = BN and (SIMT) TC for decision; BN
+    and TC for fupdate."""
     if family == "gram":
         return (kernel_of(family, cfg) == "wgmma",)
+    if family == "decision":
+        wgmma = kernel_of(family, cfg) == "wgmma"
+        return (wgmma, cfg.block_n, None if wgmma else cfg.tc)
     return (cfg.block_n, cfg.tc)
 
 
@@ -191,21 +215,24 @@ def _check_family(family: str) -> None:
 def default_config(family: str, n: Optional[int] = None,
                    precision: Optional[str] = None) -> TileConfig:
     """The launch with no table: ``n`` is the selected block's size S for
-    fupdate (its class), ``precision`` the rows' for gram (its class; f32
-    when ``None``); neither is read for the other families."""
+    fupdate (its class), ``precision`` the rows' for gram and decision
+    (their class; f32 when ``None``); neither is read for the other
+    families."""
     _check_family(family)
     if family == "fupdate" and n is not None and n > FUPDATE_NARROW_MAX_S:
         return FUPDATE_WIDE_DEFAULT
-    if family == "gram" and precision is not None \
+    if family in _BY_PRECISION and precision is not None \
             and check_precision(precision) != "f32":
-        return GRAM_WGMMA_DEFAULT
+        return (GRAM_WGMMA_DEFAULT if family == "gram"
+                else DECISION_WGMMA_DEFAULT)
     return DEFAULT_CONFIGS[family]
 
 
 def menu(family: str, n: Optional[int] = None,
          precision: Optional[str] = None) -> Tuple[TileConfig, ...]:
     """The menu entries a launch of ``family`` (with S = ``n`` for
-    fupdate, rows of ``precision`` for gram) may take: its class's."""
+    fupdate, rows of ``precision`` for gram and decision) may take: its
+    class's."""
     return _class_menu(family, default_config(family, n, precision))
 
 
@@ -223,6 +250,57 @@ def menu_index(family: str, cfg: TileConfig) -> int:
         raise ValueError(f"{cfg} is not on the {family} menu "
                          f"(csrc/{family}.cu): {MENUS[family]}")
     return MENUS[family].index(cfg.entry)
+
+
+# The packed decision launch's entry by bucket (the largest bucket it
+# serves, None: any), per class, the fastest on an H100 (PERF.md)
+# among those that fill the card's 132 SMs against the served model's
+# 8192 support rows (at 64 queries, f32: 2 query tiles x 128 splits of
+# 64 rows; 16 bits: 1 x 256 chunks of 32 rows); larger buckets take
+# larger query tiles (and 16 bits wider wgmma chunks), which read each
+# support row fewer times.
+_PACKED_DECISION = {
+    "f32": ((64, (32, 64, 8, 4, 8, 2)), (None, (128, 64, 8, 8, 8, 2))),
+    "wgmma": ((64, (64, 32, 64, 2, 8, 4)), (256, (128, 32, 64, 2, 8, 4)),
+              (None, (128, 32, 64, 2, 32, 4))),
+}
+
+
+def packed_decision_config(bucket: int, precision: str) -> TileConfig:
+    """The entry ``decision_packed`` launches for a padded query block of
+    ``bucket`` rows in ``precision``: one of the precision's class (so
+    every bucket gives bitwise the same value for a query), chosen for
+    speed by the bucket alone. The tuned table is not read."""
+    precision = check_precision(precision)
+    rule = _PACKED_DECISION["f32" if precision == "f32" else "wgmma"]
+    entry = next(e for top, e in rule if top is None or bucket <= top)
+    return TileConfig(*entry, source="bucket")
+
+
+def decision_splits(nt: int, cfg: TileConfig) -> int:
+    """The support splits of a decision launch over ``nt`` support rows:
+    ceil(nt / SW), SW = the entry's BN. The workspace is
+    (splits, queries) f32."""
+    return -(-int(nt) // cfg.block_n)
+
+
+def decision_grid(nq: int, nt: int, cfg: TileConfig, sms: int = 132,
+                  per_sm: int = 4) -> Tuple[int, int]:
+    """(query tiles, split groups) of a decision launch's grid, as
+    ``csrc/decision.cu``'s launchers lay it out on a card of ``sms`` SMs:
+    a SIMT CTA takes one split; the wgmma launcher gives each CTA a run
+    of chunks of NW = 4 * TC support rows, with as many CTAs as the SMs
+    hold at once (``per_sm`` a SM; the launcher asks the runtime), so
+    that a CTA loads its query tile once for its run."""
+    qtiles = -(-int(nq) // cfg.block_m)
+    if cfg.block_k != WGMMA_K:
+        return qtiles, decision_splits(nt, cfg)
+    chunks = -(-int(nt) // (4 * cfg.tc))
+    if chunks == 0:
+        return qtiles, 0
+    groups = min(-(-per_sm * sms // qtiles), chunks)
+    per_cta = -(-chunks // groups)
+    return qtiles, -(-chunks // per_cta)
 
 
 def _pad_to(a: torch.Tensor, mult: int, axis: int) -> torch.Tensor:
@@ -395,7 +473,8 @@ def resolve_tiles(family: str, *, m: int, d: int, precision: str,
     rows) and the feature dim; ``n`` is fupdate's selected block size S
     and ``precision`` the rows' (their classes). ``block_*`` are the
     wrapper's explicit kwargs — any of them being set wins over the
-    table. See the module docstring for the full precedence.
+    table. See the module docstring for the full precedence (the packed
+    decision path does not come here: :func:`packed_decision_config`).
     """
     default = default_config(family, n, precision)
     if block_m is not None or block_n is not None or block_k is not None:
@@ -409,7 +488,8 @@ def resolve_tiles(family: str, *, m: int, d: int, precision: str,
                 f"no {family} menu entry (csrc/{family}.cu) has block "
                 f"sizes (m, n, k) = {want}"
                 + (f" for S = {n}" if family == "fupdate" else "")
-                + (f" for {precision} rows" if family == "gram" else "")
+                + (f" for {precision} rows" if family in _BY_PRECISION
+                   else "")
                 + f"; the launch may take {[c.entry for c in cls]}")
         same_tile = [c for c in fits if (c.tr, c.tc, c.depth)
                      == (default.tr, default.tc, default.depth)]

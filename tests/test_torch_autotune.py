@@ -62,7 +62,7 @@ def test_menus_match_the_cuda_sources(family):
     """Every ``case`` line of the source, in order, is the menu entry of
     its index and launches the kernel ``tiling.kernel_of`` names; gram's
     wgmma lines sit in the 16-bit switch and its SIMT lines in the f32
-    one."""
+    one, and so do decision's."""
     src = (CSRC / f"{family}.cu").read_text()
     n_case = len(re.findall(r"^\s*case \d+:", src, re.M))
     cases = re.findall(r"^\s*case (\d+): return launch_(\w+)<T, (\d+), "
@@ -74,7 +74,7 @@ def test_menus_match_the_cuda_sources(family):
     assert entries == ttil.MENUS[family]
     for (_, kind, *_), entry in zip(cases, entries):
         assert kind == ttil.kernel_of(family, ttil.config_of(entry))
-    if family == "gram":
+    if family in ("gram", "decision"):
         f32_part, b16_part = src.split("int launch_16bit(")
         assert all(k != "wgmma" for _, k, *_ in re.findall(
             r"case (\d+): return launch_(\w+)<", f32_part))
@@ -131,6 +131,93 @@ def test_gram_class_follows_the_precision(precision, kinds):
                                           "tr", "tc", "depth")})))
     hit = ttil.resolve_tiles("gram", **kw)
     assert hit.entry == other.entry and hit.source == "table-exact"
+
+
+@pytest.mark.parametrize("precision,kind,sw", [
+    ("f32", "simt", 64), ("bf16", "wgmma", 32), ("f16", "wgmma", 32)])
+def test_decision_class_follows_the_precision(precision, kind, sw):
+    """decision's f32 launches take the SIMT class (SW = 64 support rows a
+    split), bf16/f16 ones the wgmma class (SW = 32); the classes share
+    no entry, cover the menu, and vary only what leaves the sum order
+    alone (BM, TR, the ring's depth, a wgmma's width)."""
+    cls = ttil.menu("decision", precision=precision)
+    assert {ttil.kernel_of("decision", c) for c in cls} == {kind}
+    assert {(c.block_n, c.block_k) for c in cls} == {(sw, cls[0].block_k)}
+    if kind == "simt":      # eight columns a thread
+        assert {c.tc for c in cls} == {8}
+    else:                   # a wgmma covers whole splits
+        assert all(4 * c.tc % sw == 0 for c in cls)
+        assert len({c.tc for c in cls}) > 1
+    assert all(precision in ttil.precisions_of("decision", c) for c in cls)
+    assert ttil.default_config("decision", precision=precision).entry \
+        == cls[0].entry
+    f32, b16 = (ttil.menu("decision", precision=p) for p in ("f32", "bf16"))
+    assert not {c.entry for c in f32} & {c.entry for c in b16}
+    assert len(f32) + len(b16) == len(ttil.MENUS["decision"])
+    ttil.set_tuned_table({"entries": []})
+    cfg = ttil.resolve_tiles("decision", m=8192, d=128, n=4096,
+                             precision=precision, backend="cuda")
+    assert ttil.kernel_of("decision", cfg) == kind
+    other = cls[1]
+    assert ttil.resolve_tiles("decision", m=8192, d=128, n=4096,
+                              precision=precision, backend="cuda",
+                              block_m=other.block_m).block_m \
+        == other.block_m
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("bucket", [64, 256, 1024, 4096])
+def test_packed_decision_rule_picks_an_entry_of_the_class(bucket,
+                                                          precision):
+    """The packed path's entry is one of the precision's class at every
+    bucket (so a query's value does not depend on its bucket), and at
+    the smallest bucket against the served model's 8192 support rows its
+    grid puts a CTA on each of the H100's 132 SMs."""
+    cfg = ttil.packed_decision_config(bucket, precision)
+    assert cfg.source == "bucket"
+    assert cfg.entry in {c.entry for c in ttil.menu(
+        "decision", precision=precision)}
+    qtiles, groups = ttil.decision_grid(bucket, 8192, cfg)
+    assert qtiles * groups >= tat.H100_SMS
+    if bucket >= 1024:
+        assert cfg.block_m == 128       # the largest query tile
+    small = ttil.packed_decision_config(64, precision)
+    assert small.block_m <= cfg.block_m
+
+
+@pytest.mark.parametrize("precision,splits", [("f32", 128), ("bf16", 256),
+                                              ("f16", 256)])
+@pytest.mark.parametrize("bucket", [64, 4096])
+def test_decision_workspace_for_the_served_shapes(monkeypatch, precision,
+                                                  splits, bucket):
+    """The launch's workspace is (splits, queries) f32 with
+    splits = ceil(support rows / SW), for the served model's 8192 packed
+    support rows; ragged counts round up, and no support row means no
+    split."""
+    import types
+    from repro_torch.kernels.decision import ops as tdec
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=7))
+    ops = tdec.prepare_packed(torch.zeros((bucket, 128)),
+                              torch.zeros((8192, 128)),
+                              torch.ones((8192, 1)), torch.ones((8192, 1)),
+                              tm=min(bucket, 256), tn=512,
+                              precision=precision)
+    cfg = ttil.packed_decision_config(bucket, precision)
+    launch = tdec.launch(*ops, 0.1, 0.9, tkf.rbf(0.5), cfg)
+    assert tuple(launch.scratch.shape) == (splits, bucket)
+    assert launch.scratch.dtype == torch.float32
+    assert launch.scratch.data_ptr() in launch.args
+    assert ttil.decision_splits(8192, cfg) == splits
+    sw = cfg.block_n
+    assert ttil.decision_splits(8192 + 1, cfg) == splits + 1
+    assert ttil.decision_splits(sw - 1, cfg) == 1
+    assert ttil.decision_splits(0, cfg) == 0
+    qtiles, groups = ttil.decision_grid(bucket, 8192, cfg)
+    assert qtiles == -(-bucket // cfg.block_m)
+    assert groups <= splits
+    if ttil.kernel_of("decision", cfg) == "wgmma":     # runs of chunks
+        assert groups <= 8192 // (4 * cfg.tc)
 
 
 def test_new_narrow_fupdate_entries_lie_in_the_narrow_class():
@@ -398,13 +485,16 @@ def test_set_tuned_table_steers_the_next_call():
     ("fupdate", 32, "f32", (64, 32, 32, 4, 2, 1)),   # ... and at P = 16
     ("fupdate", 33, "f32", (32, 64, 32, 2, 4, 1)),
     ("fupdate", 2048, "f32", (32, 64, 32, 2, 4, 1)),  # the init pass
-    ("decision", 4096, "f32", (16, 64, 32, 1, 4, 1)),
+    ("decision", 4096, "f32", (128, 64, 8, 8, 8, 2)),   # SIMT
+    ("decision", 4096, "bf16", (128, 32, 64, 2, 8, 4)),  # wgmma
+    ("decision", 4096, "f16", (128, 32, 64, 2, 8, 4)),
 ])
 def test_empty_table_gives_the_fixed_launches(family, n, precision, entry):
     """With no table row every launch is its class's default: the one its
     source fixed before the table (fupdate: <64, 32, 4, 2> up to S = 32,
-    <32, 64, 2, 4> above; decision: <16, 64, 1, 4>; f32 gram
-    <64, 64, 4, 4>), and for 16-bit gram the wgmma default."""
+    <32, 64, 2, 4> above; f32 gram <64, 64, 4, 4>), and for 16-bit gram
+    the wgmma default; decision's split classes' first entries (the f32
+    SIMT tile, the 16-bit wgmma kernel)."""
     ttil.set_tuned_table({"entries": []})
     cfg = ttil.resolve_tiles(family, m=8192, d=128, n=n, precision=precision,
                              backend="cuda")
@@ -469,6 +559,32 @@ def test_cost_model_counts_the_streamed_bytes():
     assert fb == 1000 * 33 * 4 + 20 * 33 * 4 * 16 + 12 * 1000 + 16 * 160
 
 
+def test_cost_model_counts_the_split_decision_bytes():
+    # f32 SIMT at 4096 queries x 4096 support, BM = 128, SW = 64: the
+    # support rows once per query tile, the queries once per split, the
+    # partials written and read once.
+    c = tat.Cell("decision", 4096, 4096, 128)
+    flops, hbm = tat.cost_model(c, block_m=128, block_n=64, block_k=8,
+                                precision="f32")
+    assert flops == 2.0 * 4096 * 4096 * 128 + 2.0 * 4096 * 4096
+    gq, splits = 32, 64
+    assert hbm == (4096 * 128 * 4 * splits + 4096 * 128 * 4 * gq
+                   + 2 * 4096 * 4 * gq + 4096 * 4 * splits
+                   + 2 * splits * 4096 * 4 + 4096 * 4)
+    # wgmma, SW = 32: a CTA reads its query tile once for its run of
+    # splits, so the queries are read far fewer than 128 times.
+    _, hbm16 = tat.cost_model(c, block_m=128, block_n=32, block_k=64,
+                              precision="bf16")
+    wg = ttil.TileConfig(128, 32, 64, 2, 8, 4)
+    qtiles, groups = ttil.decision_grid(
+        4096, 4096, wg, tat.H100_SMS, tat.ctas_per_sm("decision", wg,
+                                                      "bf16"))
+    assert qtiles == 32 and 1 < groups < 128
+    assert hbm16 == (4096 * 128 * 2 * groups + 4096 * 128 * 2 * qtiles
+                     + 2 * 4096 * 4 * qtiles + 4096 * 4 * groups
+                     + 2 * 128 * 4096 * 4 + 4096 * 4)
+
+
 def test_classify_on_the_h100_roofline():
     # gram 8192^2 x 128 in f32: 64 x 64 tiles re-read each operand 128
     # times (1.3 GB requested, above the 0.256 ms of operations); 128 x 128
@@ -513,7 +629,12 @@ def test_register_estimate_covers_ptxas_and_the_launch_bounds():
              ("fupdate", (32, 32, 32, 2, 2, 4)): 64,
              ("gram", (128, 128, 8, 8, 8, 2)): 122,
              ("gram", (128, 256, 64, 2, 64, 3)): 168,
-             ("gram", (128, 128, 64, 2, 32, 4)): 114}
+             ("gram", (128, 128, 64, 2, 32, 4)): 114,
+             ("decision", (128, 64, 8, 8, 8, 2)): 155,
+             ("decision", (16, 64, 8, 4, 8, 2)): 96,
+             ("decision", (128, 32, 64, 2, 8, 4)): 51,
+             ("decision", (128, 32, 64, 2, 16, 4)): 63,
+             ("decision", (128, 32, 64, 2, 32, 4)): 95}
     for (family, entry), used in ptxas.items():
         assert tat.register_estimate(family, ttil.config_of(entry)) >= used
     for family, entries in ttil.MENUS.items():

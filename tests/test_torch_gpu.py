@@ -203,10 +203,8 @@ def test_every_menu_entry_is_bitwise_the_default(cuda, family, s, idx,
             return tfup.launch(*ops, tk, c)()
         plain = fupdate_plain(*ops, kind="rbf", gamma=tk.gamma)
     else:
-        dt = tprec.tile_dtype(precision)
-        q, t = tfup.as_tile(a[:77], dt), tfup.as_tile(a, dt)
-        ops = (q, t, _t(np.abs(rng.standard_normal(203)), cuda),
-               tfup.row_norms(q), tfup.row_norms(t))
+        ops = tdec.prepare(a[:77], a, _t(np.abs(rng.standard_normal(203)),
+                                         cuda), precision=precision)
 
         def run(c):
             return tdec.launch(*ops, 0.2, 0.8, tk, c)()
@@ -350,3 +348,100 @@ def test_fupdate_empty_rows(cuda, precision):
                        torch.zeros(0, device=cuda), tkf.rbf(0.5),
                        precision=precision)
     assert out.shape == (0,) and tfup.FUPDATE.launches == n0
+
+
+# -- decision: the split design at the serving buckets and ragged shapes ------
+
+def _packed_model(cuda, precision, n_sv=1500, d=128, seed=15, zero=False):
+    rng = np.random.default_rng(seed)
+    T = rng.standard_normal((n_sv, d)) / np.sqrt(d)
+    g = np.zeros(n_sv) if zero else np.abs(rng.standard_normal(n_sv)) * 0.05
+    model = OCSSVMModel(gamma=_t(g, cuda), rho1=_t(0.2, cuda),
+                        rho2=_t(0.8, cuda), X=_t(T, cuda),
+                        spec=SlabSpec(kernel=tkf.rbf(1.0 / d)))
+    return pack_model(model, precision=precision, sv_threshold=0.0)
+
+
+@pytest.mark.parametrize("precision", tprec.PRECISIONS)
+@pytest.mark.parametrize("k", KERNELS, ids=KIDS)
+@pytest.mark.parametrize("nq", [1, 63, 64, 65, 256, 1000, 4096])
+def test_decision_buckets_match_plain(cuda, k, precision, nq):
+    """decision_packed at each serving bucket (nq rows padded up to it)
+    launches the entry the bucket picks, of the precision's class, and
+    agrees with the plain version; a second launch is bitwise the
+    first."""
+    from repro_torch.serve.scorer import bucket_for
+    tk = _kern(k)
+    sm = _packed_model(cuda, precision)
+    rng = np.random.default_rng(16)
+    b = bucket_for(nq)
+    q = torch.zeros((b, 128), device=cuda)
+    q[:nq] = _t(rng.standard_normal((nq, 128)) / np.sqrt(128), cuda)
+    out = tdec.decision_packed(q, sm.t_pad, sm.gamma_pad, sm.t_norms, 0.2,
+                               0.8, tk, tm=min(b, 256), tn=sm.tn,
+                               precision=precision)
+    cfg = tdec.DECISION.last_config
+    assert cfg == ttil.packed_decision_config(b, precision)
+    assert (ttil.kernel_of("decision", cfg) == "wgmma") == (
+        precision != "f32")
+    ops = tdec.prepare_packed(q, sm.t_pad, sm.gamma_pad, sm.t_norms,
+                              tm=min(b, 256), tn=sm.tn, precision=precision)
+    again = tdec.launch(*ops, 0.2, 0.8, tk, cfg)()
+    torch.cuda.synchronize()
+    assert _bitwise(out, again)
+    plain = decision_plain(*ops, 0.2, 0.8, kind=k[0], gamma=k[1],
+                           coef0=k[2], degree=k[3])
+    _close(out[:nq], plain[:nq])
+
+
+@pytest.mark.parametrize("precision", tprec.PRECISIONS)
+def test_decision_zero_sv_model(cuda, precision):
+    """A model whose weights are all zero serves (s - rho1)(rho2 - s) at
+    s = 0 exactly: every split's partial is +0."""
+    sm = _packed_model(cuda, precision, zero=True)
+    q = _t(np.random.default_rng(17).standard_normal((64, 128)), cuda)
+    out = tdec.decision_packed(q, sm.t_pad, sm.gamma_pad, sm.t_norms, 0.2,
+                               0.8, tkf.rbf(0.5), tm=64, tn=sm.tn,
+                               precision=precision)
+    r1, r2 = torch.tensor(0.2), torch.tensor(0.8)        # f32, as passed
+    assert torch.equal(out.cpu(), torch.full((64,), float((0 - r1) *
+                                                          (r2 - 0))))
+
+
+@pytest.mark.parametrize("precision", tprec.PRECISIONS)
+@pytest.mark.parametrize("k", KERNELS, ids=KIDS)
+@pytest.mark.parametrize("nq,nt,d", [(77, 1000, 45), (300, 33, 129),
+                                     (5, 4097, 128)])
+def test_unpacked_decision_ragged_entries(cuda, k, precision, nq, nt, d):
+    """The unpacked decision at ragged shapes (support rows no multiple of
+    SW, d no multiple of 8): every entry of the precision's class agrees
+    with the plain version on the unpadded rows and is bitwise the
+    class's default; rows past nt add nothing (the same support rows
+    with zero-weight rows appended give bitwise the same values)."""
+    tk = _kern(k)
+    rng = np.random.default_rng(18)
+    q = _t(rng.standard_normal((nq, d)) / np.sqrt(d), cuda)
+    t = _t(rng.standard_normal((nt, d)) / np.sqrt(d), cuda)
+    g = _t(np.abs(rng.standard_normal(nt)) * 0.05, cuda)
+    ops = tdec.prepare(q, t, g, precision=precision)
+    base = tdec.launch(*ops, 0.2, 0.8, tk, ttil.default_config(
+        "decision", precision=precision))()
+    for cfg in ttil.menu("decision", precision=precision):
+        out = tdec.launch(*ops, 0.2, 0.8, tk, cfg)()
+        torch.cuda.synchronize()
+        assert _bitwise(out, base), cfg
+    dt = tprec.tile_dtype(precision)
+    qr, tr = tfup.as_tile(q, dt), tfup.as_tile(t, dt)
+    plain = decision_plain(qr, tr, g, tfup.row_norms(qr), tfup.row_norms(tr),
+                           0.2, 0.8, kind=k[0], gamma=k[1], coef0=k[2],
+                           degree=k[3])
+    _close(base, plain)
+    pad = tdec.prepare(q, torch.cat([t, torch.ones((70, d), device=cuda)]),
+                       torch.cat([g, torch.zeros(70, device=cuda)]),
+                       precision=precision)
+    assert _bitwise(tdec.launch(*pad, 0.2, 0.8, tk, ttil.default_config(
+        "decision", precision=precision))(), base)
+    wrapped = tdec.decision(q, t, g, 0.2, 0.8, tk, precision=precision)
+    assert _bitwise(wrapped, tdec.decision(q, t, g, 0.2, 0.8, tk,
+                                           precision=precision))
+    _close(wrapped, plain)
