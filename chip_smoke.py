@@ -24,6 +24,21 @@ without printing the result line:
 3. main     — ``fit`` (f32 and bf16) then ``serve(...).score`` on the toy
               set at m = 8192, d = 128, with the kernels' launch counts
               set to 0 just before and read just after;
+   shrink   — ``fit`` with no strategy at m = 32768 (f32 and bf16): it
+              must take the shrinking driver, converge feasibly and agree
+              with the blocked solve (``strategy="pallas"``) on the
+              objective and both offsets; its solves (rows, offset,
+              iterations) and fupdate's launches by class;
+   paper    — the paper's Table 1 (linear, nu1 = 0.5, nu2 = 0.01,
+              eps = 2/3, d = 2, m = 500-5000): the paper and mvp SMO,
+              the blocked solver and the FISTA QP baseline, iterations,
+              seconds (the second of two calls) and MCC; every SMO
+              objective at most the QP's plus its tolerance;
+   warm     — ``fit_update`` of the main path's f32 fit after 5% of the
+              rows expire and 5% are appended, beside a cold fit: warm
+              route, the wide fupdate class launched, the same objective;
+              the reconcile against the plain K @ gamma0; the artifact
+              saved, loaded and refit bitwise;
 4. autotune — the autotuner's path, with the counts set to 0 just before
               and read just after: a quick sweep on the card over
               ``QUICK_CELLS`` and the main path's fupdate and gram cells,
@@ -62,6 +77,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -78,6 +94,9 @@ INIT_M = 2048             # the fused init pass: S = m <= BLOCK
 # fupdate's (m, S): the hot loop at P = 8 and at P = 16, and the init pass.
 FUPDATE_SHAPES = ((M, 16), (M, 2 * P), (INIT_M, INIT_M))
 SUPPORT = 4096            # packed support rows the decision kernel meets
+SHRINK_M = 32768          # [shrink]: "auto" takes the shrinking driver
+SOLVER_ATOL_FLOOR = 5e-3  # tests/test_engine_parity.py's solver floor
+QP_SIZES = 4              # [paper] runs the QP at the first QP_SIZES sizes
 PROFILE_ITERS = 100       # solver iterations inside the profiler window
 # gram: the kernel matrix of the main path's rows, a ragged shape and one
 # whose rows are no multiple of a tile.
@@ -139,6 +158,7 @@ def main() -> int:
     from repro_torch.serve import BUCKETS, pack_model
     from repro_torch.api import resolve_device
     from repro_torch.core.ocssvm import OCSSVMModel
+    from repro_torch.configs.ocssvm_paper import PAPER_SPEC, TABLE1_SIZES
 
     dev = resolve_device("cuda")   # also switches TF32 off
     torch.manual_seed(SEED)
@@ -410,9 +430,23 @@ def main() -> int:
         f"class's default")
 
     # -- 3. the main path --------------------------------------------------
+    # Each path runs with the counts set to 0 just before it and read just
+    # after; fupdate's launches also by class (the narrow hot loop,
+    # S <= 32; the wide init pass and reconcile, S > 32).
+    narrow = {c.entry for c in tiling.menu("fupdate", 2 * P)}
+
+    def reset_counts():
+        for kern_ in (fup.FUPDATE, dec.DECISION, gram_ops.GRAM):
+            kern_.reset_counts()
+
+    def fupdate_classes():
+        by = fup.FUPDATE.by_entry
+        n_narrow = sum(n for e, n in by.items() if e in narrow)
+        return {"narrow": n_narrow,
+                "wide": sum(by.values()) - n_narrow}
+
     spec = SlabSpec(nu1=0.5, nu2=0.05, eps=0.5, kernel=kernels["rbf"])
-    fup.FUPDATE.launches = 0
-    dec.DECISION.launches = 0
+    reset_counts()
     fits = {}
     for precision in ("f32", "bf16"):
         n0 = fup.FUPDATE.launches
@@ -431,6 +465,7 @@ def main() -> int:
     scores = {n: sm.score(q) for n, q in queries.items()}
     launches = {"fupdate": fup.FUPDATE.launches,
                 "decision": dec.DECISION.launches}
+    main_classes = fupdate_classes()
 
     hi, lo = spec.upper(M), spec.lower(M)
     for precision, (res, secs, n_launch) in fits.items():
@@ -469,7 +504,8 @@ def main() -> int:
             f"{float(np.median(np.abs(ref))):.3e} labels_checked="
             f"{int(sure.sum())}/{n} label_flips={flips}")
     say(f"[main] serve: n_sv={sm.n_sv} packed={tuple(sm.t_pad.shape)} "
-        f"fit+pack seconds={serve_fit_s:.3f} launches={launches}")
+        f"fit+pack seconds={serve_fit_s:.3f} launches={launches} "
+        f"fupdate_by_class={main_classes}")
 
     # The kernel path against the plain path end to end, small enough
     # for the CPU: the same solve on the card and on the CPU.
@@ -484,6 +520,229 @@ def main() -> int:
     say(f"[main] m=512 card vs cpu: iters {int(on_card.iters)} vs "
         f"{int(on_cpu.iters)}, rho1 {float(on_card.model.rho1):.6f} vs "
         f"{float(on_cpu.model.rho1):.6f}")
+
+    from repro_torch import api
+    from repro_torch.core import (dual_objective, dual_objective_matfree,
+                                  mcc, recover_rhos, shrinking, solve_qp)
+    from repro_torch.core.engine import (SolverArtifact, artifact_from_result,
+                                         make_provider, prepare_warm_start,
+                                         raw_scores_blocked)
+    path_launches = {"main": main_classes}
+
+    def objective(res, X):
+        return float(dual_objective_matfree(res.model.gamma.double(),
+                                            X.double(),
+                                            res.model.spec.kernel))
+
+    def feasible(res, m, what):
+        g = res.model.gamma.double()
+        check(abs(float(g.sum()) - spec.total()) < 1e-4,
+              f"{what}: sum(gamma) = {float(g.sum())}")
+        check(float(g.max()) <= spec.upper(m) + 1e-7
+              and float(g.min()) >= spec.lower(m) - 1e-7,
+              f"{what}: gamma leaves the box")
+
+    # -- 3b. [shrink]: "auto" above the blocked limit -----------------------
+    phase_t0 = time.perf_counter()
+    X_shr = make_toy(SEED, SHRINK_M, d=D)[0]
+    Xs_dev = torch.as_tensor(X_shr, device=dev)
+    routes, rounds = [], []
+    api_shrink, inner_solve = api.solve_blocked_shrinking, \
+        shrinking.solve_blocked
+
+    def route_spy(*a, **k):
+        routes.append("shrinking")
+        return api_shrink(*a, **k)
+
+    def round_spy(Xs, sp, **k):
+        r = inner_solve(Xs, sp, **k)
+        rounds.append((int(Xs.shape[0]), k.get("f_offset") is not None,
+                       int(r.iters)))
+        return r
+
+    shrink_launches = {}
+    api.solve_blocked_shrinking = route_spy
+    shrinking.solve_blocked = round_spy
+    try:
+        for precision in ("f32", "bf16"):
+            routes.clear()
+            rounds.clear()
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = repro_torch.fit(X_shr, spec, P=P, tol=TOL,
+                                  precision=precision)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            classes = fupdate_classes()
+            shrink_launches[precision] = dict(classes)
+            check(routes == ["shrinking"],
+                  f"auto at m={SHRINK_M} took {routes}, not shrinking")
+            check(bool(res.converged),
+                  f"shrinking {precision} did not converge")
+            feasible(res, SHRINK_M, f"shrinking {precision}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            blk = repro_torch.fit(X_shr, spec, strategy="pallas", P=P,
+                                  tol=TOL, precision=precision)
+            torch.cuda.synchronize()
+            blk_s = time.perf_counter() - t0
+            o_s, o_b = objective(res, Xs_dev), objective(blk, Xs_dev)
+            tol_o = truth_tolerance(precision, [o_b])
+            check(abs(o_s - o_b) <= max(tol_o["atol"], SOLVER_ATOL_FLOOR)
+                  + tol_o["rtol"] * abs(o_b),
+                  f"shrinking {precision} objective {o_s} vs blocked {o_b}")
+            rho_s = np.asarray([float(res.model.rho1),
+                                float(res.model.rho2)])
+            rho_b = np.asarray([float(blk.model.rho1),
+                                float(blk.model.rho2)])
+            tol_r = truth_tolerance(precision, rho_b)
+            check(np.all(np.abs(rho_s - rho_b)
+                         <= max(tol_r["atol"], SOLVER_ATOL_FLOOR)
+                         + tol_r["rtol"] * np.abs(rho_b)),
+                  f"shrinking {precision} rho {rho_s} vs blocked {rho_b}")
+            say(f"[shrink] fit {precision} m={SHRINK_M} d={D} (auto -> "
+                f"shrinking): rounds={len(rounds) - 1} solves (rows, "
+                f"f_offset, iters)={rounds} iters={int(res.iters)} "
+                f"converged={bool(res.converged)} seconds={secs:.3f} "
+                f"fupdate_launches={classes} objective={o_s:.9f} "
+                f"rho=({rho_s[0]:.6f}, {rho_s[1]:.6f})")
+            say(f"[shrink] blocked {precision} m={SHRINK_M} (strategy="
+                f"pallas): iters={int(blk.iters)} seconds={blk_s:.3f} "
+                f"objective={o_b:.9f} rho=({rho_b[0]:.6f}, "
+                f"{rho_b[1]:.6f}); |objective diff|={abs(o_s - o_b):.3e}")
+    finally:
+        api.solve_blocked_shrinking = api_shrink
+        shrinking.solve_blocked = inner_solve
+    path_launches["shrink"] = shrink_launches
+    del Xs_dev
+    say(f"[shrink] phase seconds={time.perf_counter() - phase_t0:.2f}")
+
+    # -- 3c. [paper]: the paper's Table 1 on the card ------------------------
+    phase_t0 = time.perf_counter()
+    reset_counts()
+
+    def timed(fn):
+        """(result, seconds of the second of two calls)."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for m in TABLE1_SIZES:
+        Xp, yp = make_toy(SEED, m)
+        Xp_dev = torch.as_tensor(Xp, device=dev)
+        K = PAPER_SPEC.kernel.gram(Xp_dev)
+        runs = {
+            "paper": lambda: repro_torch.fit(
+                Xp, PAPER_SPEC, strategy="paper", gram_mode="precomputed",
+                tol=1e-3, max_iters=100_000),
+            "mvp": lambda: repro_torch.fit(
+                Xp, PAPER_SPEC, strategy="mvp", gram_mode="precomputed",
+                tol=1e-3, max_iters=100_000),
+            "blocked": lambda: repro_torch.fit(
+                Xp, PAPER_SPEC, strategy="blocked", gram_mode="on_the_fly",
+                P=16, tol=1e-3, max_outer=50_000),
+        }
+        row = {}
+        for name, fn in runs.items():
+            res, secs = timed(fn)
+            row[name] = (int(res.iters), secs,
+                         float(mcc(yp, res.model.predict(Xp_dev))),
+                         float(dual_objective(res.model.gamma, K)))
+        if m in TABLE1_SIZES[:QP_SIZES]:
+            qp, secs = timed(lambda: solve_qp(Xp_dev, PAPER_SPEC,
+                                              max_iters=20_000, tol=1e-9))
+            # The QP returns gamma only: its offsets from its own scores.
+            r1, r2 = recover_rhos(qp.gamma, K @ qp.gamma, PAPER_SPEC)
+            qp_model = OCSSVMModel(gamma=qp.gamma, rho1=r1, rho2=r2,
+                                   X=Xp_dev, spec=PAPER_SPEC)
+            o_qp = float(qp.objective)
+            row["qp"] = (int(qp.iters), secs,
+                         float(mcc(yp, qp_model.predict(Xp_dev))), o_qp)
+            for name in runs:
+                check(row[name][3] <= o_qp + 5e-4 + 0.05 * abs(o_qp),
+                      f"m={m} {name}: objective {row[name][3]} above the "
+                      f"QP's {o_qp}")
+        say(f"[paper] m={m} d=2 " + " ".join(
+            f"{k}: iters={it} seconds={sec:.4f} mcc={mc:.4f} "
+            f"objective={ob:.6e};" for k, (it, sec, mc, ob) in row.items()))
+    path_launches["paper"] = fupdate_classes()
+    check(fup.FUPDATE.launches == 0,
+          "the paper's route launched fupdate: its selector holds both "
+          "columns, as in the JAX package")
+    say(f"[paper] phase seconds={time.perf_counter() - phase_t0:.2f} "
+        f"(QP at m in {TABLE1_SIZES[:QP_SIZES]}) fupdate_launches="
+        f"{path_launches['paper']}")
+
+    # -- 3d. [warm]: a streaming refresh at the main cell's size -------------
+    phase_t0 = time.perf_counter()
+    art = artifact_from_result(fits["f32"][0])     # the main path's fit
+    n_delta = M * 5 // 100        # 5% expiry and 5% append
+    X_new = np.concatenate([X_np[n_delta:],
+                            make_toy(SEED + 7, n_delta, d=D)[0]])
+    Xn_dev = torch.as_tensor(X_new, device=dev)
+    reset_counts()
+    st = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = repro_torch.fit_update(art, X_new, tol=TOL, stats_out=st)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm_classes = fupdate_classes()
+    path_launches["warm"] = warm_classes
+    t0 = time.perf_counter()
+    cold = repro_torch.fit(X_new, spec, P=P, tol=TOL)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    check(st["mode"] == "warm", f"fit_update took the {st['mode']} route")
+    check(warm_classes["wide"] >= 1,
+          "the warm reconcile launched no wide fupdate")
+    check(sum(warm_classes.values()) == int(warm.iters) + 1,
+          f"warm fit: {warm_classes} fupdate launches, not one per "
+          f"iteration plus the reconcile ({int(warm.iters)} iters)")
+    check(bool(warm.converged), "the warm fit did not converge")
+    feasible(warm, M, "warm fit")
+    o_w, o_c = objective(warm, Xn_dev), objective(cold, Xn_dev)
+    tol_o = truth_tolerance("f32", [o_c])
+    check(abs(o_w - o_c) <= tol_o["atol"] + tol_o["rtol"] * abs(o_c),
+          f"warm objective {o_w} vs cold {o_c}")
+    say(f"[warm] fit_update m={M} d={D}: stats "
+        + json.dumps({k: st[k] for k in ("mode", "n_overlap", "n_fresh",
+                                         "n_expired", "n_corr", "P")})
+        + f" warm iters={int(warm.iters)} seconds={warm_s:.3f} "
+        f"fupdate_launches={warm_classes}; cold iters={int(cold.iters)} "
+        f"seconds={cold_s:.3f}; objective warm={o_w:.9f} cold={o_c:.9f}")
+    # The reconcile alone: one wide fupdate on the card against the plain
+    # K @ gamma0 of the provider's rows.
+    ws, info = prepare_warm_start(art, Xn_dev, spec)
+    prov = make_provider("pallas", Xn_dev, spec.kernel)
+    f_rec = prov.reconcile_scores(ws)
+    cfg = fup.FUPDATE.last_config
+    check(cfg.entry not in narrow, f"the reconcile launched {cfg}")
+    truth = raw_scores_blocked(prov.X, ws.gamma0, spec.kernel)
+    torch.cuda.synchronize()
+    err, rel, tol, share = hold(f_rec, truth, truth, "warm reconcile")
+    warm_shapes = (("warm hot loop", 2 * st["P"]),
+                   ("warm reconcile", info.n_corr))
+    say(f"[warm] reconcile S={info.n_corr} entry {cfg.entry}: vs "
+        f"raw_scores_blocked max_abs={err:.3e} max_rel={rel:.3e} tol={tol} "
+        f"tol/median_f={share:.2e}")
+    # The checkpoint: saved, loaded, and warm-started again, bitwise.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "artifact.npz")
+        art.save(path)
+        again = repro_torch.fit_update(SolverArtifact.load(path), X_new,
+                                       tol=TOL)
+    check(torch.equal(warm.model.gamma.view(torch.int32),
+                      again.model.gamma.view(torch.int32)),
+          "fit_update from the loaded artifact is not bitwise the warm fit")
+    say(f"[warm] artifact saved, loaded and refit: gamma bitwise the warm "
+        f"fit's ({int(again.iters)} iters)")
+    del Xn_dev
+    say(f"[warm] phase seconds={time.perf_counter() - phase_t0:.2f}")
 
     # -- 4. the autotune path ----------------------------------------------
     for kern_ in (fup.FUPDATE, dec.DECISION, gram_ops.GRAM):
@@ -574,6 +833,27 @@ def main() -> int:
                 f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                 f"bound_ms={b_ms:.5f} ({b_by}) "
                 f"bound_share={b_ms / ms:.3f}")
+    # fupdate at the warm path's shapes (f32, as it ran): its hot loop at
+    # the delta-scaled P and its reconcile, held against the plain version
+    # first.
+    for what, s_w in warm_shapes:
+        ops = fupdate_operands("rbf", M, s_w, "f32")
+        out = fup.launch(*ops, kernels["rbf"])()
+        plain = fupdate_plain(*ops, **plain_kw("rbf"))
+        err, _, _, share = hold(out, plain, plain - ops[3],
+                                f"fupdate {what} S={s_w}")
+        worst["fupdate"] = max(worst["fupdate"], err)
+        cfg = fup.tiles(ops[0], s_w)
+        ms = time_ms(lambda: fup.launch(*ops, kernels["rbf"])())
+        plain_ms = time_ms(lambda: fupdate_plain(*ops, **plain_kw("rbf")))
+        b_ms, b_by = bound((M + s_w) * D * 4 + 4 * (3 * M + 2 * s_w),
+                           2 * M * s_w * D + 2 * M * s_w, "f32")
+        timed[("fupdate", M, s_w, "f32")] = (ms, plain_ms, b_ms, b_by)
+        say(f"[timing] fupdate {what} m={M} S={s_w} d={D} rbf f32 config "
+            f"{cfg.entry} ({cfg.source}) kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({b_by}) "
+            f"bound_share={b_ms / ms:.3f} max_abs={err:.3e} "
+            f"tol/median_update={share:.2e}")
     # decision: against SUPPORT check rows and against the served model
     # (the f32 fit's support rows, packed in each precision), at every
     # bucket, with the entry the bucket picks, as the scorer launches it.
@@ -633,12 +913,17 @@ def main() -> int:
         one = fupdate_operands("rbf", 64, 2 * P, precision)
         f_one_ms = time_ms(lambda: fup.launch(
             *one, kernels["rbf"], f_cfg)())
+        es = one[0].element_size()
+        one_b_ms, one_b_by = bound((64 + 2 * P) * D * es
+                                   + 4 * (3 * 64 + 2 * 2 * P),
+                                   2 * 64 * 2 * P * D + 2 * 64 * 2 * P,
+                                   precision)
         say(f"[timing] fupdate m={M} S={2 * P} d={D} rbf {precision} table "
             f"config {f_cfg.entry} ({f_cfg.source}) kernel_ms="
             f"{timed[('fupdate', M, 2 * P, precision)][0]:.4f}; default "
             f"config {tiling.default_config('fupdate', 2 * P).entry} "
             f"kernel_ms={f_default_ms:.4f}; one CTA (m=64) kernel_ms="
-            f"{f_one_ms:.4f}")
+            f"{f_one_ms:.4f} bound_ms={one_b_ms:.6f} ({one_b_by})")
     # gram at full width, with its library call.
     for kind, precision in GRAM_TIMED:
         x = torch.as_tensor(rows[kind], device=dev)
@@ -763,6 +1048,8 @@ def main() -> int:
     say(smi.stdout.strip().splitlines()[0])
 
     f_ms, f_plain, f_b, f_by = timed[("fupdate", M, 2 * P, "f32")]
+    w_s = warm_shapes[0][1]
+    w_ms, w_plain, w_b, w_by = timed[("fupdate", M, w_s, "f32")]
     d_ms, d_plain, d_b, d_by = timed[("decision", BUCKETS[-1], SUPPORT,
                                       "f32")]
     g_ms, g_plain, g_b, g_by, g_lib = timed[("gram", "linear", "f32")]
@@ -774,7 +1061,11 @@ def main() -> int:
          "launches": launches["fupdate"], "max_abs_err": worst["fupdate"],
          "ms": f_ms, "plain_ms": f_plain, "bound_ms": f_b, "bound_by": f_by,
          "library_ms": None, "pass": True,
-         "shape": f"m={M} S={2 * P} d={D} rbf f32"},
+         "shape": f"m={M} S={2 * P} d={D} rbf f32",
+         "launches_by_path": path_launches,
+         "wide": {"shape": f"m={M} S={w_s} d={D} rbf f32 (warm hot loop)",
+                  "ms": w_ms, "plain_ms": w_plain, "bound_ms": w_b,
+                  "bound_by": w_by}},
         {"name": "decision", "route": "cuda",
          "source": "src/repro_torch/csrc/decision.cu",
          "replaces": "src/repro/kernels/decision/kernel.py:27",

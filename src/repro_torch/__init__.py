@@ -1,7 +1,8 @@
 """repro_torch — the One-Class Slab SVM system in PyTorch, with hand-written
 CUDA kernels for an NVIDIA Hopper card.
 
-``repro_torch.fit(X, spec)`` is the training front door and
+``repro_torch.fit(X, spec)`` is the training front door,
+``repro_torch.fit_update(prev, X_new)`` its warm re-fit, and
 ``repro_torch.serve(X, spec)`` the serving one (warm-model cache + batched
 scoring through the ``decision`` kernel). Both run on the CUDA card unless
 called with ``device="cpu"``. Imports are lazy so subpackage imports stay
@@ -13,6 +14,9 @@ def __getattr__(name):
     if name == "fit":
         from repro_torch.api import fit
         return fit
+    if name == "fit_update":
+        from repro_torch.api import fit_update
+        return fit_update
     if name == "serve":
         # The subpackage is a callable module: ``repro_torch.serve(X, s)``
         # and ``repro_torch.serve.ModelCache`` resolve to the same object.
@@ -21,4 +25,4 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["fit", "serve"]
+__all__ = ["fit", "fit_update", "serve"]

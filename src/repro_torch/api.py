@@ -1,20 +1,24 @@
 """Top-level entry points: ``fit`` picks a solver composition by problem,
-``serve`` fits (once per recipe) and packs the model for scoring.
+``fit_update`` re-fits warm from a prior fit, ``serve`` fits (once per
+recipe) and packs the model for scoring.
 
 * small m (<= 2048) -> blocked solver, precomputed Gram
 * larger m          -> blocked solver; on a CUDA device the f-cache
                        update is the fused ``fupdate`` kernel
                        (``gram_mode="pallas"``), on the CPU the plain
                        on-the-fly rows
+* m > 8192          -> the shrinking repack driver around the blocked
+                       solver
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card and without that request they raise.
-The strategies the JAX package has beyond these (the paper's sequential
-selectors, shrinking, warm starts, the sharded solver) are not ported
-yet and raise ``NotImplementedError`` naming their ROADMAP item.
+The sharded solver (``strategy="distributed"``/``"sharded"``, ``mesh=``)
+is not ported yet and raises ``NotImplementedError`` naming its ROADMAP
+item.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -22,11 +26,16 @@ import torch
 
 from repro_torch.core.batched_smo import solve_blocked
 from repro_torch.core.engine.gram import SINGLE_PASS_MAX
+from repro_torch.core.engine.state import (SolverArtifact, WarmStart,
+                                           artifact_from_result,
+                                           prepare_warm_start)
 from repro_torch.core.engine.types import SMOResult
 from repro_torch.core.ocssvm import SlabSpec
+from repro_torch.core.shrinking import solve_blocked_shrinking
+from repro_torch.core.smo import solve as solve_smo
 
-# Above this row count the JAX package's "auto" takes its shrinking
-# repack driver, which is not ported yet.
+# Above this row count the shrinking repack driver wins: per-iteration
+# work drops to the active (support-vector) set.
 _SHRINKING_MIN_M = 8192
 
 STRATEGIES = ("auto", "paper", "mvp", "blocked", "pallas", "shrinking",
@@ -34,9 +43,6 @@ STRATEGIES = ("auto", "paper", "mvp", "blocked", "pallas", "shrinking",
 
 # Strategies of the JAX package still waiting for their ROADMAP item.
 _NOT_PORTED = {
-    "paper": "ROADMAP A.5 (the paper's solver)",
-    "mvp": "ROADMAP A.5 (the paper's solver)",
-    "shrinking": "ROADMAP A.6 (shrinking)",
     "distributed": "ROADMAP A.9 (distributed)",
     "sharded": "ROADMAP A.9 (distributed)",
 }
@@ -84,16 +90,25 @@ def fit(
     device=None,
     mesh=None,
     warm_start=None,
+    warm_info_out: Optional[dict] = None,
     **kwargs,
 ) -> SMOResult:
     """Train a One-Class Slab SVM; returns an ``SMOResult``.
 
-    strategy: "auto" (size/hardware rule), "blocked", or "pallas" (the
-    blocked solver pinned to the fused ``fupdate`` provider). precision:
-    Gram tile-input dtype ("f32" default, "bf16", "f16"); dot products
-    still accumulate in f32. device: where to solve (default: the CUDA
-    card). Extra kwargs flow to ``solve_blocked`` (max_outer/max_iters,
-    patience, gamma0).
+    strategy: "auto" (size rule), "paper" / "mvp" (the sequential
+    Algorithm 1 selectors), "blocked", "pallas" (the blocked solver
+    pinned to the fused ``fupdate`` provider) or "shrinking" (the repack
+    driver). precision: Gram tile-input dtype ("f32" default, "bf16",
+    "f16"); dot products still accumulate in f32. device: where to solve
+    (default: the CUDA card). warm_start: a prior fit to seed from — a
+    ``SolverArtifact``, an ``SMOResult`` (converted) or an
+    already-prepared ``engine.WarmStart``: gamma seeds from the
+    overlapping rows and the f-cache is reconciled with one fused rank-s
+    sweep instead of the O(m^2) init (the paper/mvp strategies seed gamma
+    only). warm_info_out: a dict the warm-start accounting
+    (overlap/fresh/expired/correction counts) is written into. Extra
+    kwargs flow to the chosen solver (max_iters/max_outer, patience,
+    gamma0, ...).
     """
     if spec is None:
         spec = SlabSpec()
@@ -103,19 +118,35 @@ def fit(
     if mesh is not None:
         raise NotImplementedError(
             f"a mesh needs the sharded solver: {_NOT_PORTED['sharded']}")
-    if warm_start is not None:
-        raise NotImplementedError("warm starts are ROADMAP A.7 (warm start)")
-    dev = resolve_device(device)
-    X = as_rows(X, dev)
-    m = X.shape[0]
-
-    if strategy == "auto":
-        strategy = "shrinking" if m > _SHRINKING_MIN_M else "blocked"
     if strategy in _NOT_PORTED:
         raise NotImplementedError(
             f"strategy={strategy!r} is not ported yet: "
             f"{_NOT_PORTED[strategy]}")
-    if "max_iters" in kwargs:
+    dev = resolve_device(device)
+    X = as_rows(X, dev)
+    m = X.shape[0]
+
+    warm = None
+    if warm_start is not None:
+        if isinstance(warm_start, WarmStart):
+            warm = warm_start          # prepared by the caller (fit_update)
+        else:
+            art = _as_artifact(warm_start, precision=precision)
+            warm, winfo = prepare_warm_start(art, X, spec,
+                                             precision=precision)
+            if warm_info_out is not None:
+                warm_info_out.update(dataclasses.asdict(winfo))
+
+    if strategy == "auto":
+        strategy = "shrinking" if m > _SHRINKING_MIN_M else "blocked"
+
+    # The sequential solvers call their iteration cap max_iters, the
+    # blocked family max_outer; accept either so "auto" can reroute a call
+    # without the caller caring which solver won.
+    if strategy in ("paper", "mvp"):
+        if "max_outer" in kwargs:
+            kwargs["max_iters"] = kwargs.pop("max_outer")
+    elif "max_iters" in kwargs:
         kwargs["max_outer"] = kwargs.pop("max_iters")
 
     if strategy == "pallas":
@@ -126,8 +157,115 @@ def fit(
                 f"strategy='blocked'")
         gram_mode = "pallas"
     gm = gram_mode if gram_mode is not None else _auto_gram_mode(m, dev)
+    if strategy in ("paper", "mvp"):
+        # The sequential facades seed gamma only (the init pass still
+        # scores it from scratch).
+        if warm is not None:
+            kwargs["gamma0"] = warm.gamma0
+        return solve_smo(X, spec, selection=strategy, gram_mode=gm,
+                         precision=precision, tol=tol, **kwargs)
+    if strategy == "shrinking":
+        return solve_blocked_shrinking(X, spec, P=P, gram_mode=gm,
+                                       precision=precision, tol=tol,
+                                       warm=warm, **kwargs)
     return solve_blocked(X, spec, P=P, gram_mode=gm, precision=precision,
-                         tol=tol, **kwargs)
+                         tol=tol, warm=warm, **kwargs)
+
+
+def _as_artifact(prev, *, precision: str = "f32") -> SolverArtifact:
+    if isinstance(prev, SolverArtifact):
+        return prev
+    if isinstance(prev, SMOResult):
+        return artifact_from_result(prev, precision=precision)
+    raise TypeError(
+        f"expected a SolverArtifact or SMOResult, got {type(prev).__name__}")
+
+
+def fit_update(
+    prev,
+    X_new,
+    spec: Optional[SlabSpec] = None,
+    *,
+    min_overlap: float = 0.5,
+    stats_out: Optional[dict] = None,
+    **kwargs,
+) -> SMOResult:
+    """Delta-solve: re-fit on ``X_new`` warm-started from a prior fit.
+
+    ``prev`` is a ``SolverArtifact`` (or an ``SMOResult``, converted).
+    Rows are matched by content hash — appended rows enter with zero
+    coefficient, expired rows' contribution is subtracted from the
+    f-cache with the same fused rank-s sweep the hot loop runs — so the
+    solve starts next to the prior optimum.
+
+    When the overlap fraction falls below ``min_overlap`` the call falls
+    back to a cold ``fit``; the routing is recorded in ``stats_out``
+    (``mode``: "warm" | "cold", plus the overlap/fresh/expired/correction
+    counts and ``P``). The same cold route — with ``stats_out["fallback"]``
+    saying why — is taken when the warm path cannot run: an explicit
+    ``gamma0`` of X_new's length among the kwargs (the solvers take
+    ``warm=`` or ``gamma0=``, not both), or a solver raising
+    ``NotImplementedError``. A ``gamma0`` of another length is stale and
+    dropped.
+
+    ``spec`` defaults to the artifact's; kwargs flow to ``fit``
+    (strategy, precision, tol, device, ...). ``precision`` defaults to
+    the artifact's so the warm correction rows are rounded to the same
+    Gram tiles the prior solve streamed.
+    """
+    precision = kwargs.pop("precision", None)
+    art = _as_artifact(prev, precision=precision or "f32")
+    if precision is None:
+        precision = art.precision
+    if spec is None:
+        spec = art.spec
+    X_new = as_rows(X_new, resolve_device(kwargs.get("device")))
+    warm, info = prepare_warm_start(art, X_new, spec, precision=precision)
+    mode = "warm" if info.overlap_frac >= min_overlap else "cold"
+    fallback = None
+    g0 = kwargs.get("gamma0")
+    if g0 is not None:
+        if int(np.shape(g0)[0]) == int(X_new.shape[0]):
+            # An explicit dual seed and a warm-start seed are mutually
+            # exclusive in the solvers: take the cold route, where gamma0
+            # IS the seed.
+            mode = "cold"
+            fallback = "gamma0_conflict"
+        else:
+            # A seed pinned to a previous data shape cannot seed any fit
+            # on X_new: drop it so the warm/cold routing above stands.
+            kwargs.pop("gamma0")
+            fallback = "gamma0_stale_dropped"
+    p_injected = False
+    if mode == "warm" and "P" not in kwargs:
+        # A delta-solve's violators concentrate on the delta (fresh rows
+        # acquire mass, corrected rows re-equilibrate): a working set
+        # scaled with the delta touches most of the moving set in one
+        # rank-2P sweep. Capped at m/16.
+        moving = info.n_fresh + info.n_corr
+        kwargs["P"] = max(8, min(64, info.m // 16,
+                                 1 << max(moving // 2, 1).bit_length()))
+        p_injected = True
+    if stats_out is not None:
+        stats_out.update(dataclasses.asdict(info))
+        stats_out["mode"] = mode
+        stats_out["P"] = kwargs.get("P")
+        if fallback is not None:
+            stats_out["fallback"] = fallback
+    if mode == "cold":
+        return fit(X_new, spec, precision=precision, **kwargs)
+    try:
+        return fit(X_new, spec, precision=precision, warm_start=warm,
+                   **kwargs)
+    except NotImplementedError as e:
+        # A streaming refresh degrades to a cold refit, never a traceback
+        # after the warm state was prepared.
+        if stats_out is not None:
+            stats_out["mode"] = "cold"
+            stats_out["fallback"] = f"warm_unsupported: {e}"
+        if p_injected:
+            kwargs.pop("P", None)   # sized for the warm route only
+        return fit(X_new, spec, precision=precision, **kwargs)
 
 
 def serve(X=None, spec: Optional[SlabSpec] = None, *,

@@ -26,6 +26,7 @@ epilogues stay f32.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.engine.types import Selection
@@ -56,8 +57,11 @@ class _ScoreDeltas:
     """Shared O(s * m) score-delta algebra — the warm-start substrate.
 
     ``delta_scores`` folds a rank-s kernel contribution into an f-cache
-    with ONE pass over the owned rows; ``reconcile_scores`` turns a warm
-    start's seeded f-cache into the new problem's exact K @ gamma0.
+    with ONE pass over the owned rows (the ``fupdate`` kernel under the
+    fused provider); ``append_rows``/``expire_rows`` compose it with a
+    provider rebuild so a data delta costs O(dm * m) instead of the
+    O(m^2) cold init; ``reconcile_scores`` turns a warm start's seeded
+    f-cache into the new problem's exact K @ gamma0.
     """
 
     def delta_scores(self, f: Tensor, X_delta: Tensor,
@@ -72,18 +76,66 @@ class _ScoreDeltas:
         ``delta``) into its seeded f-cache."""
         return self.delta_scores(warm.f_seed, warm.x_corr, warm.delta)
 
+    def append_rows(self, X_app, gamma: Tensor, f: Tensor):
+        """(provider', gamma', f') for the extended problem [X; X_app].
+
+        Appended rows enter with gamma = 0 (fresh data), so surviving
+        scores are untouched; their own scores cost one O(dm * m) pass.
+        Host-side API (between solves).
+        """
+        dev = self.X.device
+        Xa = round_to_tile(torch.as_tensor(X_app, dtype=torch.float32,
+                                           device=dev)
+                           .reshape(-1, self.X.shape[1]), self.precision)
+        p2 = self._rebuilt_extended(Xa)
+        gamma2 = torch.cat([gamma.to(torch.float32),
+                            torch.zeros((Xa.shape[0],), dtype=torch.float32,
+                                        device=dev)])
+        # The appended rows' own scores against the full extended set.
+        f_app = self.kernel.rows(p2.X, Xa).T @ gamma2
+        return p2, gamma2, torch.cat([f, f_app])
+
+    def expire_rows(self, idx, gamma: Tensor, f: Tensor):
+        """(provider', gamma', f') with rows ``idx`` removed — O(e * m).
+
+        Surviving scores lose the expired rows' kernel columns times
+        their gamma (one rank-e sweep); no O(m^2) recompute. Host-side
+        API (between solves).
+        """
+        dev = self.X.device
+        idx = np.asarray(idx, np.int64).reshape(-1)
+        keep = np.setdiff1d(np.arange(self.X.shape[0]), idx)
+        idx_t = torch.as_tensor(idx, device=dev)
+        keep_t = torch.as_tensor(keep, device=dev)
+        f2 = self.delta_scores(f, self.X[idx_t], -gamma[idx_t])[keep_t]
+        return self._rebuilt_shrunk(keep_t), gamma[keep_t], f2
+
 
 class PrecomputedGram(_ScoreDeltas):
     """Materialized m x m Gram matrix: every query is a gather/matmul."""
 
     name = "precomputed"
 
-    def __init__(self, X: Tensor, kernel: KernelFn, precision: str = "f32"):
+    def __init__(self, X: Tensor, kernel: KernelFn, precision: str = "f32",
+                 *, _K: Tensor | None = None):
         self.precision = check_precision(precision)
         self.X = round_to_tile(X, precision)
         self.kernel = kernel
-        self.K = kernel.gram(self.X)
+        self.K = kernel.gram(self.X) if _K is None else _K
         self._diag = kernel.diag(self.X)
+
+    def _rebuilt_extended(self, Xa: Tensor) -> "PrecomputedGram":
+        # Extend K with the new cross block — O(dm * m) kernel values,
+        # not a fresh O(m^2) gram.
+        C = self.kernel.rows(self.X, Xa)              # (m, dm)
+        K2 = torch.cat([torch.cat([self.K, C], dim=1),
+                        torch.cat([C.T, self.kernel.cross(Xa, Xa)], dim=1)])
+        return PrecomputedGram(torch.cat([self.X, Xa]), self.kernel,
+                               self.precision, _K=K2)
+
+    def _rebuilt_shrunk(self, keep: Tensor) -> "PrecomputedGram":
+        return PrecomputedGram(self.X[keep], self.kernel, self.precision,
+                               _K=self.K[keep][:, keep])
 
     def diag(self) -> Tensor:
         return self._diag
@@ -130,6 +182,15 @@ class OnTheFlyGram(_ScoreDeltas):
         self.X = round_to_tile(X, precision)
         self.kernel = kernel
         self._diag = kernel.diag(self.X)
+
+    # type(self): a rebuilt FusedGram is a FusedGram, with its own tile
+    # rows and norms.
+    def _rebuilt_extended(self, Xa: Tensor) -> "OnTheFlyGram":
+        return type(self)(torch.cat([self.X, Xa]), self.kernel,
+                          self.precision)
+
+    def _rebuilt_shrunk(self, keep: Tensor) -> "OnTheFlyGram":
+        return type(self)(self.X[keep], self.kernel, self.precision)
 
     def diag(self) -> Tensor:
         return self._diag

@@ -2,9 +2,14 @@
 
 A selector looks at the current ``SolverState`` and returns a ``Selection``
 of 2P rows (grow half first, shrink half second) for the Gauss-Seidel pair
-solve. Its ``criterion`` names the termination test the driver applies
-(``"gap"``: Keerthi MVP duality gap <= tol).
+solve. Its ``criterion`` names the termination test the driver applies:
+``"kkt"`` (paper Algorithm 1: stop when at most one violator) or
+``"gap"`` (Keerthi MVP duality gap <= tol).
 
+* ``PaperSelector`` — the paper's eq. 56 heuristic: b = argmax |f_bar|
+  among KKT violators, a = argmax |f_bar(b) - f_bar(a)| among partners
+  whose clipped step is nonzero (without the movability mask the
+  iteration deadlocks on bound-blocked pairs).
 * ``BlockSelector`` — top-P Keerthi working set: the P smallest scores
   that can grow x the P largest that can shrink (disjoint). P=1 is the
   classic maximal-violating pair.
@@ -13,9 +18,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.engine.stats import slab_margin, violation
 from repro_torch.core.engine.types import Selection, SolverState
 
 Tensor = torch.Tensor
+_TINY = 1e-12
 
 
 def top_k_ids(v: Tensor, k: int) -> Tensor:
@@ -24,6 +31,52 @@ def top_k_ids(v: Tensor, k: int) -> Tensor:
     Ties are common here: every ``-inf``-masked entry ties whenever fewer
     than k rows can move."""
     return torch.sort(v, descending=True, stable=True).indices[:k]
+
+
+class PaperSelector:
+    """One violating pair per iteration, the paper's eq. 56 heuristic.
+
+    ``torch.argmax`` returns the first maximum, as ``jnp.argmax`` does,
+    so ties (every entry ``-inf`` when nothing violates) resolve to the
+    lowest index in both packages."""
+
+    criterion = "kkt"
+
+    def __init__(self, provider, *, hi: float, lo: float, m: int,
+                 tol: float):
+        self.provider = provider
+        self.hi, self.lo, self.m, self.tol = hi, lo, m, tol
+
+    def select(self, s: SolverState) -> Selection:
+        hi, lo = self.hi, self.lo
+        neg = torch.full((), -float("inf"), dtype=s.f.dtype,
+                         device=s.f.device)
+        tiny = torch.full((), _TINY, dtype=s.f.dtype, device=s.f.device)
+
+        v = violation(s.gamma, s.f, s.rho1, s.rho2, hi=hi, lo=lo, m=self.m)
+        fbar = slab_margin(s.f, s.rho1, s.rho2)
+        b = torch.argmax(torch.where(v > self.tol, torch.abs(fbar), neg))
+
+        # Candidate step size against every partner a (needs row b).
+        kb = self.provider.column(b)
+        diagK = self.provider.diag()
+        eta_den = torch.maximum(diagK + diagK[b] - 2.0 * kb, tiny)
+        t = s.gamma + s.gamma[b]
+        L = torch.clamp_min(t - hi, lo)
+        H = torch.clamp_max(t - lo, hi)
+        gb_t = s.gamma[b] + (s.f - s.f[b]) / eta_den
+        movable = torch.abs(torch.clamp(gb_t, L, H) - s.gamma[b]) > tiny * 10
+        # b is no partner of itself (out of place, as ``.at[b].set``).
+        gap_score = torch.where(movable, torch.abs(fbar[b] - fbar),
+                                neg).index_fill(0, b.reshape(1), neg)
+        a = torch.argmax(gap_score)
+
+        ids = torch.stack([b, a])
+        # kb is already paid for; add ka so the driver's rank-2 f update
+        # reuses both columns instead of recomputing them.
+        rows = torch.stack([kb, self.provider.column(a)], dim=1)
+        return Selection(ids=ids, gamma=s.gamma[ids], f=s.f[ids],
+                         X=self.provider.X[ids], rows=rows)
 
 
 class BlockSelector:
@@ -51,3 +104,15 @@ class BlockSelector:
         ids = torch.cat([up_idx, dn_idx])
         return Selection(ids=ids, gamma=s.gamma[ids], f=s.f[ids],
                          X=self.provider.X[ids])
+
+
+def make_selector(selection: str, provider, *, P: int, hi: float, lo: float,
+                  m: int, tol: float):
+    """Build a local selector by name."""
+    if selection == "paper":
+        return PaperSelector(provider, hi=hi, lo=lo, m=m, tol=tol)
+    if selection == "mvp":
+        return BlockSelector(provider, P=1, hi=hi, lo=lo)
+    if selection == "block":
+        return BlockSelector(provider, P=P, hi=hi, lo=lo)
+    raise ValueError(f"unknown selection {selection!r}")

@@ -13,10 +13,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
+from repro_torch.core.engine import stats as _stats
 from repro_torch.core.engine.gram import BLOCK, SINGLE_PASS_MAX
 from repro_torch.core.kernel_fn import KernelFn
 
@@ -103,6 +104,22 @@ def feasible_init(m: int, spec: SlabSpec, dtype=torch.float32,
     if full < m:    # an out-of-range remainder slot is dropped, as in jax
         g[full] += rem
     return g.to(device)
+
+
+def recover_rhos(gamma: Tensor, scores: Tensor, spec: SlabSpec,
+                 tol: float = 1e-6) -> Tuple[Tensor, Tensor]:
+    """rho1 / rho2 from on-margin support vectors (eq. 20-21).
+
+    Lower-plane SVs: 0 < gamma < 1/(nu1 m)  -> s = rho1.
+    Upper-plane SVs: -eps/(nu2 m) < gamma < 0 -> s = rho2.
+
+    When a plane has no free SV (all at bound), fall back to the KKT
+    interval midpoint. This is the spec-based view of the one
+    implementation in ``repro_torch.core.engine.stats``.
+    """
+    m = gamma.shape[0]
+    return _stats.recover_rhos(gamma, scores, hi=spec.upper(m),
+                               lo=spec.lower(m), m=m, tol=tol)
 
 
 def _quantile(s: Tensor, q: float) -> Tensor:

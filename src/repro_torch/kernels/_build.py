@@ -15,9 +15,11 @@ A ``Kernel`` is the binding of one C entry point: its ``argtypes`` are
 would be cut to 32 bits), ``c_int`` for ints and ``c_float`` for the
 kernel scalars; the entry returns ``cudaGetLastError()`` and ``launch``
 raises when it is not 0 — a refused launch never runs and reports
-nothing otherwise. ``Kernel.launches`` counts successful launches and
-``Kernel.last_config`` holds the tile config (``tiling.TileConfig``) of
-the last one.
+nothing otherwise. ``Kernel.launches`` counts successful launches,
+``Kernel.by_entry`` the same launches by the menu entry of their tile
+config (its class tells, e.g., fupdate's narrow launches from its wide
+ones), and ``Kernel.last_config`` holds the tile config
+(``tiling.TileConfig``) of the last one.
 
 A ``Launch`` is one launch with its C arguments marshalled: the kernel
 wrappers build it from prepared operands and call it; calling it again
@@ -34,6 +36,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from collections import Counter
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Sequence
@@ -134,6 +137,7 @@ class Kernel:
         self.entry = entry
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.by_entry = Counter()
         self.last_config = None
         self._fn = None
         self._err_str = None
@@ -152,13 +156,19 @@ class Kernel:
                 self._lib, self._err_str, self._fn = lib, err_str, fn
         return self._fn
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, config=None) -> None:
         err = self.load()(*args)
         if err != 0:
             raise RuntimeError(
                 f"{self.entry} failed: CUDA error {err} "
                 f"({self._err_str(err).decode()})")
         self.launches += 1
+        if config is not None:
+            self.by_entry[config.entry] += 1
+
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.by_entry.clear()
 
 
 @dataclass(frozen=True)
@@ -179,6 +189,6 @@ class Launch:
 
     def __call__(self):
         with torch.cuda.device(self.device):
-            self.kernel.launch(*self.args)
+            self.kernel.launch(*self.args, config=self.config)
         self.kernel.last_config = self.config
         return self.out

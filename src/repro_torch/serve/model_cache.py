@@ -63,8 +63,8 @@ class ServingModel:
     spec: SlabSpec      # concretized (hashable) spec
     precision: str = "f32"
     fit_iters: int = 0
-    # The solver state behind the model, for warm restarts: not ported
-    # yet (ROADMAP A.7), always None.
+    # The solver state behind the model (an ``engine.SolverArtifact``):
+    # ``get_or_fit(warm_start=served.artifact)`` re-fits warm from it.
     artifact: Optional[object] = dataclasses.field(default=None, repr=False)
     _scorer: Optional[object] = dataclasses.field(default=None, repr=False)
 
@@ -219,7 +219,8 @@ class ModelCache:
     def get_or_fit(self, X, spec: Optional[SlabSpec] = None, *,
                    offsets: str = "paper", sv_threshold: float = 1e-7,
                    tn: int = 512, precision: str = "f32",
-                   warm_start=None, **fit_kwargs) -> ServingModel:
+                   warm_start=None, warm_stats_out: Optional[dict] = None,
+                   **fit_kwargs) -> ServingModel:
         """Return a warm ``ServingModel``, fitting on miss.
 
         offsets: "paper" keeps the solver's margin-SV rho recovery;
@@ -227,10 +228,14 @@ class ModelCache:
         precision: forwarded to ``fit`` AND used to pack the support
         block; part of the key. Extra kwargs flow to ``fit`` and take
         part in the key.
+
+        ``warm_start`` (a ``SolverArtifact`` from an earlier fit — e.g.
+        ``served.artifact`` — or an ``SMOResult``) routes a miss through
+        ``fit_update``. It is NOT part of the key: the seed changes how
+        fast the optimum is reached, not (within tolerance) which model
+        comes out. ``warm_stats_out`` receives ``fit_update``'s overlap /
+        mode stats when the warm path fits.
         """
-        if warm_start is not None:
-            raise NotImplementedError(
-                "warm-started serving is ROADMAP A.7 (warm start)")
         if spec is None:
             spec = SlabSpec()
         key = recipe_key(X, spec, offsets=offsets, sv_threshold=sv_threshold,
@@ -255,14 +260,20 @@ class ModelCache:
             # the fitter failed: loop and race to become the next fitter
 
         try:
-            from repro_torch.api import fit
-            res = fit(X, spec, precision=precision, **fit_kwargs)
+            from repro_torch.api import fit, fit_update
+            from repro_torch.core.engine.state import artifact_from_result
+            if warm_start is not None:
+                res = fit_update(warm_start, X, spec, precision=precision,
+                                 stats_out=warm_stats_out, **fit_kwargs)
+            else:
+                res = fit(X, spec, precision=precision, **fit_kwargs)
             model = res.model
             if offsets == "quantile":
                 model = with_quantile_offsets(model)
             served = pack_model(model, sv_threshold=sv_threshold, tn=tn,
                                 precision=precision)
             served.fit_iters = int(res.iters)
+            served.artifact = artifact_from_result(res, precision=precision)
         except BaseException as e:
             with self._lock:
                 if self._inflight.get(key) is flight:

@@ -445,3 +445,84 @@ def test_unpacked_decision_ragged_entries(cuda, k, precision, nq, nt, d):
     assert _bitwise(wrapped, tdec.decision(q, t, g, 0.2, 0.8, tk,
                                            precision=precision))
     _close(wrapped, plain)
+
+
+# -- shrinking and warm starts through the fused provider -------------------
+
+def _fupdate_by_class():
+    narrow = {c.entry for c in ttil.menu("fupdate", 16)}
+    by = tfup.FUPDATE.by_entry
+    n = sum(v for e, v in by.items() if e in narrow)
+    return n, sum(by.values()) - n
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_shrinking_on_the_card_matches_the_cpu(cuda, precision):
+    """The repack driver with the fused provider on the card (its inner
+    solves launch fupdate) against the plain provider on the CPU."""
+    X, _ = make_toy(3, 600, d=16)
+    spec = SlabSpec(nu1=0.5, nu2=0.05, eps=0.5, kernel=tkf.rbf(1 / 16))
+    kw = dict(strategy="shrinking", gram_mode="pallas", P=8, tol=1e-3,
+              precision=precision, warm_iters=50)
+    n0 = tfup.FUPDATE.launches
+    on_card = repro_torch.fit(X, spec, **kw)
+    assert tfup.FUPDATE.launches - n0 >= int(on_card.iters) > 0
+    on_cpu = repro_torch.fit(X, spec, device="cpu", **kw)
+    assert bool(on_card.converged) and bool(on_cpu.converged)
+    np.testing.assert_allclose(
+        [float(on_card.model.rho1), float(on_card.model.rho2)],
+        [float(on_cpu.model.rho1), float(on_cpu.model.rho2)], atol=5e-3)
+    g = on_card.model.gamma.double()
+    assert float(g.sum()) == pytest.approx(spec.total(), abs=1e-5)
+
+
+def test_fit_update_on_the_card_reconciles_with_the_wide_class(cuda):
+    """A 10% expiry + append: the warm reconcile is one wide fupdate
+    launch (S = the corrections > 32), each iteration one more (wide when
+    the delta-scaled P makes 2P > 32), and the warm fit lands on the cold
+    fit's objective."""
+    from repro_torch.core.engine import artifact_from_result
+    from repro_torch.core.ocssvm import dual_objective_matfree
+    X, _ = make_toy(4, 1200, d=16)
+    spec = SlabSpec(nu1=0.5, nu2=0.05, eps=0.5, kernel=tkf.rbf(1 / 16))
+    kw = dict(strategy="pallas", tol=1e-4)
+    prev = repro_torch.fit(X[:1100], spec, **kw)
+    X_new = X[100:]
+    tfup.FUPDATE.reset_counts()
+    st = {}
+    warm = repro_torch.fit_update(artifact_from_result(prev), X_new,
+                                  stats_out=st, **kw)
+    narrow, wide = _fupdate_by_class()
+    assert st["mode"] == "warm" and st["n_corr"] > 32
+    iters = int(warm.iters)
+    assert narrow + wide == iters + 1
+    assert wide == (iters + 1 if 2 * st["P"] > ttil.FUPDATE_NARROW_MAX_S
+                    else 1)
+    cold = repro_torch.fit(X_new, spec, **kw)
+    Xd = torch.as_tensor(X_new, device=cuda)
+    o_w = float(dual_objective_matfree(warm.model.gamma, Xd, spec.kernel))
+    o_c = float(dual_objective_matfree(cold.model.gamma, Xd, spec.kernel))
+    np.testing.assert_allclose(o_w, o_c, **tprec.truth_tolerance("f32", o_c))
+
+
+@pytest.mark.parametrize("precision", tprec.PRECISIONS)
+def test_warm_reconcile_matches_raw_scores(cuda, precision):
+    """FusedGram.reconcile_scores (one wide fupdate) against the plain
+    row-blocked K @ gamma0 of the provider's rows."""
+    from repro_torch.core.engine import (artifact_from_result,
+                                         make_provider, prepare_warm_start,
+                                         raw_scores_blocked)
+    X, _ = make_toy(5, 5000, d=32)
+    spec = SlabSpec(nu1=0.5, nu2=0.05, eps=0.5, kernel=tkf.rbf(1 / 32))
+    prev = repro_torch.fit(X[:4800], spec, strategy="pallas", tol=1e-3,
+                           precision=precision)
+    Xn = torch.as_tensor(X[200:], device=cuda)
+    ws, info = prepare_warm_start(
+        artifact_from_result(prev, precision=precision), Xn, spec)
+    prov = make_provider("pallas", Xn, spec.kernel, precision=precision)
+    n0 = tfup.FUPDATE.launches
+    f = prov.reconcile_scores(ws)
+    assert tfup.FUPDATE.launches == n0 + 1 and 32 < info.n_corr <= 2048
+    assert tfup.FUPDATE.last_config.entry not in {
+        c.entry for c in ttil.menu("fupdate", 16)}
+    _close(f, raw_scores_blocked(prov.X, ws.gamma0, spec.kernel))

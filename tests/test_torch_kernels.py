@@ -331,3 +331,21 @@ def test_launch_runs_its_kernel_and_returns_its_output():
     launch = Launch(k, -1, (1, 2), out)
     assert launch() is out and launch() is out
     assert seen == [(1, 2), (1, 2)] and k.launches == 2
+
+
+def test_launches_are_counted_by_menu_entry():
+    """Kernel.by_entry splits the launch count by the entry of each
+    launch's config (how fupdate's narrow launches are told from its
+    wide ones); reset_counts zeroes both counts."""
+    from repro_torch.kernels import tiling
+    from repro_torch.kernels._build import Kernel, Launch
+    k = Kernel("fupdate", "fupdate_launch", [])
+    k._fn = lambda *a: 0
+    narrow = tiling.default_config("fupdate", 16)
+    wide = tiling.default_config("fupdate", 128)
+    for cfg in (narrow, wide, wide, None):
+        Launch(k, -1, (), torch.zeros(1), cfg)()
+    assert k.launches == 4
+    assert k.by_entry == {narrow.entry: 1, wide.entry: 2}
+    k.reset_counts()
+    assert k.launches == 0 and not k.by_entry

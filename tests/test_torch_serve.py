@@ -214,8 +214,10 @@ def test_serve_routes_and_rejects():
     assert cache.hits == 1
     with pytest.raises(NotImplementedError, match="A.8"):
         repro_torch.serve(X, T_SPEC, model="tenant-a")
-    with pytest.raises(NotImplementedError, match="A.7"):
-        cache.get_or_fit(X, T_SPEC, warm_start=object(), device="cpu")
+    # a warm start must be a prior fit: on a miss (the seed is no part of
+    # the key, so X itself would hit) fit_update refuses anything else
+    with pytest.raises(TypeError, match="SolverArtifact"):
+        cache.get_or_fit(X[:40], T_SPEC, warm_start=object(), device="cpu")
 
 
 # -- import hygiene ---------------------------------------------------------------
