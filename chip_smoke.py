@@ -12,7 +12,8 @@ without printing the result line:
               them;
 2. kernels  — call each kernel's wrapper at the main path's shapes (gram:
               the 8192 x 8192 matrix of the toy rows, a ragged shape and
-              one whose rows are no multiple of a tile; decision: every
+              one whose rows are no multiple of a tile; fupdate: the hot
+              loop at S = 16, 32 and the init pass; decision: every
               bucket against 4096 packed support rows, with the entry
               the bucket picks) and hold it against its plain PyTorch
               version on the card; relaunch decision on the same inputs
@@ -34,11 +35,19 @@ without printing the result line:
               the blocked solver and the FISTA QP baseline, iterations,
               seconds (the second of two calls) and MCC; every SMO
               objective at most the QP's plus its tolerance;
-   warm     — ``fit_update`` of the main path's f32 fit after 5% of the
-              rows expire and 5% are appended, beside a cold fit: warm
-              route, the wide fupdate class launched, the same objective;
-              the reconcile against the plain K @ gamma0; the artifact
-              saved, loaded and refit bitwise;
+   warm     — ``fit_update`` of the main path's f32 and bf16 fits after
+              5% of the rows expire and 5% are appended, beside a cold
+              fit of the same precision: warm route, every fupdate launch
+              of the wide classes (the SIMT split tile, the wgmma split
+              kernel), the same objective; the reconcile against the
+              plain K @ gamma0; the artifact saved, loaded and refit
+              bitwise;
+   serve-wide — a bf16 model of d = 768 (BERT-base pooled embeddings)
+              scored through the scorer at every bucket, and one of
+              d = 2048 at the smallest, against the plain decision with
+              no label flipped: each bucket takes a decision entry whose
+              query tile fits d (the streamed one above 1664), and every
+              entry that fits gives bitwise the same values;
 4. autotune — the autotuner's path, with the counts set to 0 just before
               and read just after: a quick sweep on the card over
               ``QUICK_CELLS`` and the main path's fupdate and gram cells,
@@ -58,9 +67,11 @@ without printing the result line:
               precision against SUPPORT rows and against the served
               model's, beside its plain version, its bound and its rbf
               exp floor, and at the top bucket with the linear kernel
-              (no exp) beside rbf; the scorer's latency per bucket on the
-              host's clock, and its host share (latency minus the
-              kernel's time at the bucket);
+              (no exp) beside rbf; bf16 decision at d = 768 and 2048;
+              fupdate's wide classes at the warm path's shapes in f32
+              and bf16; the scorer's latency per bucket on the host's
+              clock, and its host share (latency minus the kernel's time
+              at the bucket);
 6. trace    — a torch.profiler window over PROFILE_ITERS iterations of
               the f32 fit: the device's busy and idle share from its own
               events, the top kernels by device time and the top
@@ -94,6 +105,9 @@ INIT_M = 2048             # the fused init pass: S = m <= BLOCK
 # fupdate's (m, S): the hot loop at P = 8 and at P = 16, and the init pass.
 FUPDATE_SHAPES = ((M, 16), (M, 2 * P), (INIT_M, INIT_M))
 SUPPORT = 4096            # packed support rows the decision kernel meets
+# [serve-wide]: the width of BERT-base pooled embeddings, scored at every
+# bucket, and one past every resident 16-bit query tile (1664).
+WIDE_D, WIDEST_D = 768, 2048
 SHRINK_M = 32768          # [shrink]: "auto" takes the shrinking driver
 SOLVER_ATOL_FLOOR = 5e-3  # tests/test_engine_parity.py's solver floor
 QP_SIZES = 4              # [paper] runs the QP at the first QP_SIZES sizes
@@ -102,8 +116,9 @@ PROFILE_ITERS = 100       # solver iterations inside the profiler window
 # whose rows are no multiple of a tile.
 GRAM_SHAPES = ((M, M, D), (130, 77, 129), (M + 1, 300, D))
 MENU_ROWS, MENU_D = 203, 45   # the menu check's ragged shape
-# fupdate's S per class in the menu check: the hot loop's and a wide one.
-MENU_S = {32: 20, 64: 77}
+# fupdate's S in the menu check: the hot loop's (narrow class) and a wide
+# one (the split classes).
+MENU_S = {"narrow": 20, "wide": 77}
 GRAM_TIMED = (("linear", "f32"), ("linear", "bf16"), ("linear", "f16"),
               ("rbf", "f32"), ("rbf", "bf16"), ("rbf", "f16"))
 # gram's feature widths at a fixed output: whether the output or the
@@ -175,11 +190,13 @@ def main() -> int:
                 say(f"[build] {name}: {line}")
     # The autotuner's feasibility model estimates registers from TR x TC;
     # ptxas says what each instantiation takes.
-    regs = autotune.ptxas_registers(ln for b in built.values()
-                                    for ln in b.ptxas)
-    if regs:
+    regs = {}
+    for name, b in built.items():      # the split kernels name no family
+        regs.update(autotune.ptxas_registers(b.ptxas, name))
+    if regs:            # the sources built here (a reused one prints none)
         n_inst = sum(len(tiling.precisions_of(f, tiling.config_of(e)))
-                     for f, menu in tiling.MENUS.items() for e in menu)
+                     for f, menu in tiling.MENUS.items() for e in menu
+                     if built[f].ptxas)
         check(len(regs) == n_inst, f"ptxas named {len(regs)} kernel "
               f"instantiations, the menus {n_inst}")
         est = {k: autotune.register_estimate(k[0], tiling.config_of(k[2]))
@@ -252,10 +269,17 @@ def main() -> int:
         step = fupdate_plain(*ops, **plain_kw(kind)).abs().max()
         return fup.prepare(x, xsel, delta / step, f, precision=precision)
 
-    worst = {"fupdate": 0.0, "decision": 0.0, "gram": 0.0, "gram_bf16": 0.0}
+    worst = {"fupdate": 0.0, "fupdate_wide": 0.0, "fupdate_wide_bf16": 0.0,
+             "decision": 0.0, "decision_d768": 0.0, "gram": 0.0,
+             "gram_bf16": 0.0}
 
-    def worst_key(family, precision):
-        """gram's f32 (SIMT) and 16-bit (wgmma) classes are two rows."""
+    def worst_key(family, precision, s=None):
+        """gram's f32 (SIMT) and 16-bit (wgmma) classes are two rows, and
+        so are fupdate's wide classes (S > 32; bf16 and f16 one row)
+        beside its narrow one."""
+        if family == "fupdate" and s is not None \
+                and s > tiling.FUPDATE_NARROW_MAX_S:
+            return "fupdate_wide" + ("" if precision == "f32" else "_bf16")
         return family + ("_bf16" if family == "gram" and precision != "f32"
                          else "")
     for (m, s) in FUPDATE_SHAPES:
@@ -269,29 +293,32 @@ def main() -> int:
                 err, rel, tol, share = hold(
                     out, plain, plain - ops[3],
                     f"fupdate m={m} S={s} {kind} {precision}")
-                worst["fupdate"] = max(worst["fupdate"], err)
+                key = worst_key("fupdate", precision, s)
+                worst[key] = max(worst[key], err)
                 say(f"[kernels] fupdate m={m} S={s} d={D} {kind:6s} "
                     f"{precision:4s} max_abs={err:.3e} max_rel={rel:.3e} "
                     f"tol={tol} tol/median_update={share:.2e}")
 
-    def check_queries(kind, n):
-        q = make_toy(SEED + n, n, d=D)[0]
+    def check_queries(kind, n, d=D):
+        q = make_toy(SEED + n, n, d=d)[0]
         if kind != "rbf":
             q = q / np.linalg.norm(q, axis=1, keepdims=True)
         return torch.as_tensor(q, device=dev)
 
-    def support_model(kind, precision):
-        """A packed model of SUPPORT check rows. Its weights are positive,
+    def support_model(kind, precision, d=D):
+        """A packed model of SUPPORT check rows of d features (rbf at
+        gamma = 1/d away from the main width). Its weights are positive,
         as almost all of a fitted model's are, and scaled so that
         |s| <= 1 over the largest bucket's queries; its offsets sit at the
         quartiles of that s. The outputs take both signs, and s is O(1)
         (with weights of both signs, s of the linear kernel gathers near
         0 and its output near -s^2, small beside the tolerance)."""
-        kern = kernels[kind]
-        T = torch.as_tensor(rows[kind][:SUPPORT], device=dev)
+        kern = kernels[kind] if d == D else rbf(1.0 / d)
+        T = torch.as_tensor(rows[kind][:SUPPORT] if d == D
+                            else make_toy(SEED, SUPPORT, d=d)[0], device=dev)
         g = torch.as_tensor(np.abs(rng.standard_normal(SUPPORT))
                             .astype(np.float32), device=dev)
-        s = kern.cross(check_queries(kind, BUCKETS[-1]), T) @ g
+        s = kern.cross(check_queries(kind, BUCKETS[-1], d), T) @ g
         g, s = g / s.abs().max(), s / s.abs().max()
         model = OCSSVMModel(gamma=g, rho1=torch.quantile(s, 0.25),
                             rho2=torch.quantile(s, 0.75), X=T,
@@ -300,7 +327,7 @@ def main() -> int:
 
     def decision_operands(kind, sm, bucket, precision):
         q = torch.zeros((bucket, sm.t_pad.shape[1]), device=dev)
-        q[:, :D] = check_queries(kind, bucket)
+        q[:, :sm.d] = check_queries(kind, bucket, sm.d)
         return dec.prepare_packed(q, sm.t_pad, sm.gamma_pad, sm.t_norms,
                                   tm=min(bucket, 256), tn=sm.tn,
                                   precision=precision)
@@ -409,7 +436,10 @@ def main() -> int:
         for idx, entry in enumerate(entries):
             cfg = tiling.config_of(entry, "explicit")
             for precision in tiling.precisions_of(family, cfg):
-                s = MENU_S[entry[1]] if family == "fupdate" else None
+                s = None if family != "fupdate" else MENU_S[
+                    "narrow" if tiling.kernel_of(family, cfg) in ("tile",
+                                                                  "pipe")
+                    else "wide"]
                 check(cfg in tiling.menu(family, s, precision),
                       f"{family} menu entry {entry} outside its class")
                 run, plain, work = menu_case(family, s, precision)
@@ -421,7 +451,7 @@ def main() -> int:
                 check(torch.equal(out.view(torch.int32),
                                   base.view(torch.int32)),
                       f"{what}: not bitwise equal to the default entry")
-                key = worst_key(family, precision)
+                key = worst_key(family, precision, s)
                 worst[key] = max(worst[key], err)
                 n_menu += 1
     say(f"[kernels] menus: {n_menu} launches (every entry of every family "
@@ -678,71 +708,148 @@ def main() -> int:
         f"{path_launches['paper']}")
 
     # -- 3d. [warm]: a streaming refresh at the main cell's size -------------
+    # In f32 and bf16, from the main path's fit of that precision: at the
+    # delta-scaled P = 64 every iteration (S = 128) and the reconcile run
+    # fupdate's wide classes (the SIMT split tile, the wgmma split kernel).
     phase_t0 = time.perf_counter()
-    art = artifact_from_result(fits["f32"][0])     # the main path's fit
     n_delta = M * 5 // 100        # 5% expiry and 5% append
     X_new = np.concatenate([X_np[n_delta:],
                             make_toy(SEED + 7, n_delta, d=D)[0]])
     Xn_dev = torch.as_tensor(X_new, device=dev)
-    reset_counts()
-    st = {}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    warm = repro_torch.fit_update(art, X_new, tol=TOL, stats_out=st)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    warm_classes = fupdate_classes()
-    path_launches["warm"] = warm_classes
-    t0 = time.perf_counter()
-    cold = repro_torch.fit(X_new, spec, P=P, tol=TOL)
-    torch.cuda.synchronize()
-    cold_s = time.perf_counter() - t0
-    check(st["mode"] == "warm", f"fit_update took the {st['mode']} route")
-    check(warm_classes["wide"] >= 1,
-          "the warm reconcile launched no wide fupdate")
-    check(sum(warm_classes.values()) == int(warm.iters) + 1,
-          f"warm fit: {warm_classes} fupdate launches, not one per "
-          f"iteration plus the reconcile ({int(warm.iters)} iters)")
-    check(bool(warm.converged), "the warm fit did not converge")
-    feasible(warm, M, "warm fit")
-    o_w, o_c = objective(warm, Xn_dev), objective(cold, Xn_dev)
-    tol_o = truth_tolerance("f32", [o_c])
-    check(abs(o_w - o_c) <= tol_o["atol"] + tol_o["rtol"] * abs(o_c),
-          f"warm objective {o_w} vs cold {o_c}")
-    say(f"[warm] fit_update m={M} d={D}: stats "
-        + json.dumps({k: st[k] for k in ("mode", "n_overlap", "n_fresh",
-                                         "n_expired", "n_corr", "P")})
-        + f" warm iters={int(warm.iters)} seconds={warm_s:.3f} "
-        f"fupdate_launches={warm_classes}; cold iters={int(cold.iters)} "
-        f"seconds={cold_s:.3f}; objective warm={o_w:.9f} cold={o_c:.9f}")
-    # The reconcile alone: one wide fupdate on the card against the plain
-    # K @ gamma0 of the provider's rows.
-    ws, info = prepare_warm_start(art, Xn_dev, spec)
-    prov = make_provider("pallas", Xn_dev, spec.kernel)
-    f_rec = prov.reconcile_scores(ws)
-    cfg = fup.FUPDATE.last_config
-    check(cfg.entry not in narrow, f"the reconcile launched {cfg}")
-    truth = raw_scores_blocked(prov.X, ws.gamma0, spec.kernel)
-    torch.cuda.synchronize()
-    err, rel, tol, share = hold(f_rec, truth, truth, "warm reconcile")
-    warm_shapes = (("warm hot loop", 2 * st["P"]),
-                   ("warm reconcile", info.n_corr))
-    say(f"[warm] reconcile S={info.n_corr} entry {cfg.entry}: vs "
-        f"raw_scores_blocked max_abs={err:.3e} max_rel={rel:.3e} tol={tol} "
-        f"tol/median_f={share:.2e}")
-    # The checkpoint: saved, loaded, and warm-started again, bitwise.
-    with tempfile.TemporaryDirectory() as tmp:
-        path = str(Path(tmp) / "artifact.npz")
-        art.save(path)
-        again = repro_torch.fit_update(SolverArtifact.load(path), X_new,
-                                       tol=TOL)
-    check(torch.equal(warm.model.gamma.view(torch.int32),
-                      again.model.gamma.view(torch.int32)),
-          "fit_update from the loaded artifact is not bitwise the warm fit")
-    say(f"[warm] artifact saved, loaded and refit: gamma bitwise the warm "
-        f"fit's ({int(again.iters)} iters)")
+    warm_launches, warm_shapes = {}, {}
+    for precision in ("f32", "bf16"):
+        art = artifact_from_result(fits[precision][0], precision=precision)
+        reset_counts()
+        st = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm = repro_torch.fit_update(art, X_new, tol=TOL, stats_out=st)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        warm_classes = fupdate_classes()
+        warm_launches[precision] = warm_classes
+        t0 = time.perf_counter()
+        cold = repro_torch.fit(X_new, spec, P=P, tol=TOL,
+                               precision=precision)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        what = f"warm {precision}"
+        check(st["mode"] == "warm", f"{what}: fit_update took the "
+              f"{st['mode']} route")
+        iters = int(warm.iters)
+        check(sum(warm_classes.values()) == iters + 1,
+              f"{what}: {warm_classes} fupdate launches, not one per "
+              f"iteration plus the reconcile ({iters} iters)")
+        check(warm_classes["narrow"] == 0
+              and 2 * st["P"] > tiling.FUPDATE_NARROW_MAX_S,
+              f"{what}: {warm_classes} at P = {st['P']}: not all wide")
+        check(bool(warm.converged), f"{what}: the fit did not converge")
+        feasible(warm, M, what)
+        o_w, o_c = objective(warm, Xn_dev), objective(cold, Xn_dev)
+        tol_o = truth_tolerance(precision, [o_c])
+        check(abs(o_w - o_c) <= tol_o["atol"] + tol_o["rtol"] * abs(o_c),
+              f"{what}: objective {o_w} vs cold {o_c}")
+        say(f"[warm] fit_update {precision} m={M} d={D}: stats "
+            + json.dumps({k: st[k] for k in ("mode", "n_overlap", "n_fresh",
+                                             "n_expired", "n_corr", "P")})
+            + f" warm iters={iters} seconds={warm_s:.3f} "
+            f"fupdate_launches={warm_classes}; cold iters={int(cold.iters)} "
+            f"seconds={cold_s:.3f}; objective warm={o_w:.9f} "
+            f"cold={o_c:.9f}")
+        # The reconcile alone: one wide fupdate on the card against the
+        # plain K @ gamma0 of the provider's rows.
+        ws, info = prepare_warm_start(art, Xn_dev, spec)
+        prov = make_provider("pallas", Xn_dev, spec.kernel,
+                             precision=precision)
+        f_rec = prov.reconcile_scores(ws)
+        cfg = fup.FUPDATE.last_config
+        check(cfg.entry not in narrow, f"the reconcile launched {cfg}")
+        truth = raw_scores_blocked(prov.X, ws.gamma0, spec.kernel)
+        torch.cuda.synchronize()
+        err, rel, tol, share = hold(f_rec, truth, truth,
+                                    f"{what} reconcile")
+        warm_shapes[precision] = (("warm hot loop", 2 * st["P"]),
+                                  ("warm reconcile", info.n_corr))
+        say(f"[warm] {precision} reconcile S={info.n_corr} entry "
+            f"{cfg.entry}: vs raw_scores_blocked max_abs={err:.3e} "
+            f"max_rel={rel:.3e} tol={tol} tol/median_f={share:.2e}")
+        # The checkpoint: saved, loaded, and warm-started again, bitwise.
+        with tempfile.TemporaryDirectory() as tmp:
+            path = str(Path(tmp) / "artifact.npz")
+            art.save(path)
+            again = repro_torch.fit_update(SolverArtifact.load(path), X_new,
+                                           tol=TOL)
+        check(torch.equal(warm.model.gamma.view(torch.int32),
+                          again.model.gamma.view(torch.int32)),
+              f"{what}: fit_update from the loaded artifact is not bitwise "
+              f"the warm fit")
+        say(f"[warm] {precision} artifact saved, loaded and refit: gamma "
+            f"bitwise the warm fit's ({int(again.iters)} iters)")
+    path_launches["warm"] = warm_launches
     del Xn_dev
     say(f"[warm] phase seconds={time.perf_counter() - phase_t0:.2f}")
+
+    # -- 3e. [serve-wide]: 16-bit scoring at embedding widths ----------------
+    # A bf16 model of BERT-base pooled embeddings' width (d = 768) scored
+    # through the scorer at every bucket, and one of d = 2048 at the
+    # smallest: the resident query tile caps d at 640-1664 by the entry,
+    # so each bucket takes an entry that fits (tiling.wgmma_fits), the
+    # streamed one above 1664.
+    phase_t0 = time.perf_counter()
+    wide_models, serve_wide = {}, {}
+    for d_w, buckets in ((WIDE_D, BUCKETS), (WIDEST_D, BUCKETS[:1])):
+        smw = support_model("rbf", "bf16", d=d_w)
+        wide_models[d_w] = smw
+        r1, r2 = float(smw.model.rho1), float(smw.model.rho2)
+        kern_w = smw.spec.kernel
+        reset_counts()
+        outs, cfgs = {}, {}
+        for bucket in buckets:
+            outs[bucket] = smw.score(check_queries("rbf", bucket, d_w))
+            cfgs[bucket] = dec.DECISION.last_config
+        torch.cuda.synchronize()
+        serve_wide[d_w] = dec.DECISION.launches
+        check(serve_wide[d_w] == len(buckets),
+              f"d={d_w}: {serve_wide[d_w]} decision launches for "
+              f"{len(buckets)} buckets")
+        for bucket in buckets:
+            out, cfg = outs[bucket], cfgs[bucket]
+            ops = decision_operands("rbf", smw, bucket, "bf16")
+            check(cfg == tiling.packed_decision_config(
+                bucket, "bf16", ops[0].shape[1]),
+                f"d={d_w} bucket={bucket} launched {cfg}")
+            plain = decision_plain(*ops, r1, r2, kind="rbf",
+                                   gamma=kern_w.gamma)
+            err, rel, tol, share = hold(out, plain, plain + r1 * r2,
+                                        f"serve-wide d={d_w} b={bucket}")
+            if d_w == WIDE_D:
+                worst["decision_d768"] = max(worst["decision_d768"], err)
+            sure = plain.abs() > 1e-2 * plain.abs().median()
+            flips = int((torch.sign(out[sure]) != torch.sign(plain[sure]))
+                        .sum())
+            check(flips == 0, f"serve-wide d={d_w} bucket={bucket}: {flips} "
+                  f"labels differ from the plain decision")
+            # Every entry of the class that fits d, the streamed one among
+            # them, gives bitwise the scorer's values.
+            fits_d = [c for c in tiling.menu("decision", precision="bf16")
+                      if tiling.wgmma_fits(c, ops[0].shape[1])]
+            for c in fits_d:
+                other = dec.launch(*ops, r1, r2, kern_w, c)()
+                torch.cuda.synchronize()
+                check(torch.equal(out.view(torch.int32),
+                                  other.view(torch.int32)),
+                      f"serve-wide d={d_w} bucket={bucket}: entry {c.entry} "
+                      f"is not bitwise {cfg.entry}")
+            say(f"[serve-wide] bf16 d={d_w} bucket={bucket} support="
+                f"{smw.t_pad.shape[0]} entry {cfg.entry} "
+                f"({tiling.kernel_of('decision', cfg)}) max_abs={err:.3e} "
+                f"max_rel={rel:.3e} tol/median_work={share:.2e} "
+                f"labels_checked={int(sure.sum())}/{bucket} label_flips="
+                f"{flips}; bitwise across the {len(fits_d)} entries that "
+                f"fit d")
+    path_launches["serve-wide"] = {f"d={k}": v for k, v in serve_wide.items()}
+    say(f"[serve-wide] phase seconds={time.perf_counter() - phase_t0:.2f} "
+        f"decision launches={path_launches['serve-wide']}")
 
     # -- 4. the autotune path ----------------------------------------------
     for kern_ in (fup.FUPDATE, dec.DECISION, gram_ops.GRAM):
@@ -833,27 +940,33 @@ def main() -> int:
                 f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                 f"bound_ms={b_ms:.5f} ({b_by}) "
                 f"bound_share={b_ms / ms:.3f}")
-    # fupdate at the warm path's shapes (f32, as it ran): its hot loop at
-    # the delta-scaled P and its reconcile, held against the plain version
-    # first.
-    for what, s_w in warm_shapes:
-        ops = fupdate_operands("rbf", M, s_w, "f32")
-        out = fup.launch(*ops, kernels["rbf"])()
-        plain = fupdate_plain(*ops, **plain_kw("rbf"))
-        err, _, _, share = hold(out, plain, plain - ops[3],
-                                f"fupdate {what} S={s_w}")
-        worst["fupdate"] = max(worst["fupdate"], err)
-        cfg = fup.tiles(ops[0], s_w)
-        ms = time_ms(lambda: fup.launch(*ops, kernels["rbf"])())
-        plain_ms = time_ms(lambda: fupdate_plain(*ops, **plain_kw("rbf")))
-        b_ms, b_by = bound((M + s_w) * D * 4 + 4 * (3 * M + 2 * s_w),
-                           2 * M * s_w * D + 2 * M * s_w, "f32")
-        timed[("fupdate", M, s_w, "f32")] = (ms, plain_ms, b_ms, b_by)
-        say(f"[timing] fupdate {what} m={M} S={s_w} d={D} rbf f32 config "
-            f"{cfg.entry} ({cfg.source}) kernel_ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({b_by}) "
-            f"bound_share={b_ms / ms:.3f} max_abs={err:.3e} "
-            f"tol/median_update={share:.2e}")
+    # fupdate's wide classes at the warm path's shapes, as it ran in each
+    # precision: its hot loop at the delta-scaled P and its reconcile,
+    # held against the plain version first (the init pass, m = S = 2048,
+    # is timed above).
+    for precision, shapes in warm_shapes.items():
+        for what, s_w in shapes:
+            ops = fupdate_operands("rbf", M, s_w, precision)
+            out = fup.launch(*ops, kernels["rbf"])()
+            plain = fupdate_plain(*ops, **plain_kw("rbf"))
+            err, _, _, share = hold(out, plain, plain - ops[3],
+                                    f"fupdate {what} S={s_w} {precision}")
+            key = worst_key("fupdate", precision, s_w)
+            worst[key] = max(worst[key], err)
+            cfg = fup.tiles(ops[0], s_w)
+            ms = time_ms(lambda: fup.launch(*ops, kernels["rbf"])())
+            plain_ms = time_ms(lambda: fupdate_plain(*ops,
+                                                     **plain_kw("rbf")))
+            es = ops[0].element_size()
+            b_ms, b_by = bound((M + s_w) * D * es + 4 * (3 * M + 2 * s_w),
+                               2 * M * s_w * D + 2 * M * s_w, precision)
+            timed[("fupdate", M, s_w, precision)] = (ms, plain_ms, b_ms,
+                                                     b_by)
+            say(f"[timing] fupdate {what} m={M} S={s_w} d={D} rbf "
+                f"{precision:4s} config {cfg.entry} ({cfg.source}) "
+                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"bound_ms={b_ms:.5f} ({b_by}) bound_share={b_ms / ms:.3f} "
+                f"max_abs={err:.3e} tol/median_update={share:.2e}")
     # decision: against SUPPORT check rows and against the served model
     # (the f32 fit's support rows, packed in each precision), at every
     # bucket, with the entry the bucket picks, as the scorer launches it.
@@ -900,6 +1013,37 @@ def main() -> int:
         say(f"[timing] decision bucket={BUCKETS[-1]} support={SUPPORT} "
             f"{precision} by kernel: rbf kernel_ms={pace['rbf']:.4f} linear "
             f"kernel_ms={pace['linear']:.4f}")
+    # 16-bit decision at the embedding widths of [serve-wide], with the
+    # entry the bucket and d pick, and at d = WIDE_D the streamed entry
+    # beside it (what streaming the query tile costs where both fit).
+    for d_w, bucket in ((WIDE_D, BUCKETS[0]), (WIDE_D, BUCKETS[-1]),
+                        (WIDEST_D, BUCKETS[0]), (WIDEST_D, BUCKETS[-1])):
+        smw = wide_models[d_w]
+        r1, r2 = float(smw.model.rho1), float(smw.model.rho2)
+        ops = decision_operands("rbf", smw, bucket, "bf16")
+        nt, dp = ops[1].shape
+        cfg = tiling.packed_decision_config(bucket, "bf16", dp)
+        kern_w = smw.spec.kernel
+        ms = time_ms(lambda: dec.launch(*ops, r1, r2, kern_w, cfg)(),
+                     iters=20)
+        plain_ms = time_ms(lambda: decision_plain(
+            *ops, r1, r2, kind="rbf", gamma=kern_w.gamma), iters=20)
+        b_ms, b_by = bound((bucket + nt) * dp * 2 + 4 * (2 * nt + 2 * bucket),
+                           2 * bucket * nt * dp + 2 * bucket * nt, "bf16")
+        timed[("decision", bucket, nt, "bf16", d_w)] = (ms, plain_ms, b_ms,
+                                                        b_by)
+        streamed = ""
+        if tiling.kernel_of("decision", cfg) != "stream":
+            sc = next(c for c in tiling.menu("decision", precision="bf16")
+                      if tiling.kernel_of("decision", c) == "stream")
+            sc_ms = time_ms(lambda: dec.launch(*ops, r1, r2, kern_w, sc)(),
+                            iters=20)
+            streamed = f" streamed entry {sc.entry} kernel_ms={sc_ms:.4f}"
+        say(f"[timing] decision bf16 d={d_w} (padded {dp}) bucket={bucket} "
+            f"support={nt} config {cfg.entry} "
+            f"({tiling.kernel_of('decision', cfg)}) kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({b_by}) "
+            f"bound_share={b_ms / ms:.3f}{streamed}")
 
     # fupdate on the hot loop at the default config too (the table's
     # is timed above: the default is the one-stage tile, the table's the
@@ -1048,8 +1192,13 @@ def main() -> int:
     say(smi.stdout.strip().splitlines()[0])
 
     f_ms, f_plain, f_b, f_by = timed[("fupdate", M, 2 * P, "f32")]
-    w_s = warm_shapes[0][1]
+    w_s = warm_shapes["f32"][0][1]
     w_ms, w_plain, w_b, w_by = timed[("fupdate", M, w_s, "f32")]
+    w16_s = warm_shapes["bf16"][0][1]
+    v_ms, v_plain, v_b, v_by = timed[("fupdate", M, w16_s, "bf16")]
+    e_nt = wide_models[WIDE_D].t_pad.shape[0]
+    e_ms, e_plain, e_b, e_by = timed[("decision", BUCKETS[-1], e_nt, "bf16",
+                                      WIDE_D)]
     d_ms, d_plain, d_b, d_by = timed[("decision", BUCKETS[-1], SUPPORT,
                                       "f32")]
     g_ms, g_plain, g_b, g_by, g_lib = timed[("gram", "linear", "f32")]
@@ -1061,11 +1210,35 @@ def main() -> int:
          "launches": launches["fupdate"], "max_abs_err": worst["fupdate"],
          "ms": f_ms, "plain_ms": f_plain, "bound_ms": f_b, "bound_by": f_by,
          "library_ms": None, "pass": True,
-         "shape": f"m={M} S={2 * P} d={D} rbf f32",
-         "launches_by_path": path_launches,
-         "wide": {"shape": f"m={M} S={w_s} d={D} rbf f32 (warm hot loop)",
-                  "ms": w_ms, "plain_ms": w_plain, "bound_ms": w_b,
-                  "bound_by": w_by}},
+         "shape": f"m={M} S={2 * P} d={D} rbf f32 (narrow class)",
+         "launches_by_path": path_launches},
+        {"name": "fupdate_wide", "route": "cuda",
+         "source": "src/repro_torch/csrc/fupdate.cu",
+         "replaces": "src/repro/kernels/fupdate/kernel.py:30",
+         "launches": path_launches["warm"]["f32"]["wide"],
+         "max_abs_err": worst["fupdate_wide"], "ms": w_ms,
+         "plain_ms": w_plain, "bound_ms": w_b, "bound_by": w_by,
+         "library_ms": None, "pass": True,
+         "shape": f"m={M} S={w_s} d={D} rbf f32 (SIMT split class; warm "
+                  f"hot loop)"},
+        {"name": "fupdate_wide_bf16", "route": "cuda",
+         "source": "src/repro_torch/csrc/fupdate.cu",
+         "replaces": "src/repro/kernels/fupdate/kernel.py:30",
+         "launches": path_launches["warm"]["bf16"]["wide"],
+         "max_abs_err": worst["fupdate_wide_bf16"], "ms": v_ms,
+         "plain_ms": v_plain, "bound_ms": v_b, "bound_by": v_by,
+         "library_ms": None, "pass": True,
+         "shape": f"m={M} S={w16_s} d={D} rbf bf16 (wgmma split class; "
+                  f"warm hot loop)"},
+        {"name": "decision_bf16_d768", "route": "cuda",
+         "source": "src/repro_torch/csrc/decision.cu",
+         "replaces": "src/repro/kernels/decision/kernel.py:27",
+         "launches": serve_wide[WIDE_D],
+         "max_abs_err": worst["decision_d768"], "ms": e_ms,
+         "plain_ms": e_plain, "bound_ms": e_b, "bound_by": e_by,
+         "library_ms": None, "pass": True,
+         "shape": f"queries={BUCKETS[-1]} support={e_nt} d={WIDE_D} rbf "
+                  f"bf16 ([serve-wide])"},
         {"name": "decision", "route": "cuda",
          "source": "src/repro_torch/csrc/decision.cu",
          "replaces": "src/repro/kernels/decision/kernel.py:27",

@@ -31,9 +31,11 @@ import torch
 
 from repro_torch.core.engine.types import Selection
 from repro_torch.core.kernel_fn import KernelFn
-from repro_torch.kernels.fupdate.ops import as_tile, fupdate, row_norms
+from repro_torch.kernels.fupdate.ops import (as_tile, fupdate, row_norms,
+                                             wide_rows)
 from repro_torch.kernels.precision import (check_precision, round_to_tile,
                                            tile_dtype)
+from repro_torch.kernels.tiling import FUPDATE_NARROW_MAX_S
 
 Tensor = torch.Tensor
 
@@ -235,9 +237,15 @@ class FusedGram(OnTheFlyGram):
         # self.X is already tile-rounded, so this cast is exact.
         self.X_tile = as_tile(self.X, tile_dtype(precision))
         self.norms = row_norms(self.X_tile)
+        # The wide launches' rows (S > 32), laid out once: 16-bit rows on
+        # the card padded for TMA when d % 8 != 0, else X_tile itself.
+        # The narrow launches read X_tile as it is.
+        self.X_wide = wide_rows(self.X_tile)
 
     def _fupdate(self, f: Tensor, X_sel: Tensor, delta: Tensor) -> Tensor:
-        return fupdate(self.X_tile, X_sel, delta, f, self.kernel,
+        x = (self.X_wide if X_sel.shape[0] > FUPDATE_NARROW_MAX_S
+             else self.X_tile)
+        return fupdate(x, X_sel, delta, f, self.kernel,
                        precision=self.precision, xn=self.norms)
 
     def init_scores(self, gamma: Tensor) -> Tensor:

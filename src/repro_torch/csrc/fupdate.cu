@@ -5,46 +5,57 @@
 // block resident in VMEM and walks a (m/TM, d/TK) grid in order. Here the
 // selected block can be up to 2048 rows (the init pass and the warm
 // reconcile): at d = 128 in f32 that is 1 MiB, far above a CTA's shared
-// memory, so each CTA loops over it in chunks of BN rows.
+// memory. Three classes, by the selected block's size S and the rows'
+// type; the wrapper picks the entry through kernels/tiling.resolve_tiles
+// (the tuned table, else its class's default).
 //
-// The launch shape comes from a menu of template instantiations (below);
-// the wrapper picks the entry through kernels/tiling.resolve_tiles (the
-// tuned table, else its class's default).
+// * The narrow class (S <= 32: the solver's hot loop at S = 2P = 16 or
+//   32), any type. Bytes-bound (X is read once per call; 4 MiB at
+//   m = 8192, d = 128 in f32, half that in 16-bit, and held in the 50 MB
+//   L2 from one iteration to the next), and each CTA is short, so what it
+//   pays is latency. A CTA owns BM rows of X and walks the block in BN =
+//   32 chunks. Its default is the first design's tile (dot_tile,
+//   kernel_rows.cuh), which loads one DK-deep chunk at a time, with scalar
+//   loads widened in flight and a barrier on each side, and pays d / DK
+//   load latencies in a row. Its pipelined entries (fupdate_pipe_kernel)
+//   copy the rows' raw bytes with cp.async (16 bytes a copy where the
+//   rows allow it), put DEPTH chunks in flight before the first computes
+//   (all of them at d = 128 and DEPTH = 4: one latency a CTA), keep
+//   16-bit rows 16-bit in shared memory and widen them as they are read,
+//   16 bytes at a time. Their sums are the tile's: the same columns a
+//   thread, the same FMA chain a dot and the same shuffle tree.
+// * The wide classes (S > 32: the warm refit's hot loop at the
+//   delta-scaled S = 128, its reconcile, the init pass at m = S = 2048):
+//   operations-bound (2 S d flops a row of X), and at m = S = 2048 one CTA
+//   a BM-row tile would leave most of the card idle while it walked the
+//   block. They are decision's split design (split_rows.cuh) with A = X,
+//   B = X_sel, w = delta: the block is cut into splits of SW rows spread
+//   over CTAs, each split's partial per row written to a (splits, m)
+//   workspace, and a second kernel adds each row's partials in split
+//   order and then f (f + s, as the reference sums k(X, X_sel) @ delta
+//   first). f32 rows take the pipelined SIMT tile (SW = 64, no TF32),
+//   bf16/f16 rows the wgmma class (SW = 32, the X tile resident by TMA,
+//   X_sel streamed in NW-row chunks; entry 13 streams the X tile too,
+//   for any d).
 //
-// What bounds it on an H100: on the solver's hot loop S = 2P = 16 or 32,
-// so the kernel does 2*S flops per element of X it reads — bytes-bound (X
-// is read once per call; 4 MiB at m = 8192, d = 128 in f32, half that in
-// 16-bit, and held in the 50 MB L2 from one iteration to the next). Each
-// CTA is short, so what it pays is latency: the first design's tile
-// (dot_tile, kernel_rows.cuh) loads one DK-deep chunk at a time, with
-// scalar loads widened in flight and a barrier on each side, and pays
-// d / DK load latencies in a row. The narrow class's pipelined entries
-// (fupdate_pipe_kernel) copy the rows' raw bytes with cp.async (16 bytes
-// a copy where the rows allow it), put DEPTH chunks in flight before the
-// first computes (all of them at d = 128 and DEPTH = 4: one latency a
-// CTA), keep 16-bit rows 16-bit in shared memory and widen them as they
-// are read, 16 bytes at a time. Their sums are the tile's: the same
-// columns a thread, the same FMA chain a dot and the same shuffle tree, so
-// every entry of a class gives bitwise the same output. For the init pass
-// (m = S = 2048) it is operations-bound; the wide class runs f32 FMA on
-// the CUDA cores, not the tensor cores.
+// Every entry of a class gives bitwise the same output (kernels/tiling.py).
 #include <cstdint>
 
-#include "kernel_rows.cuh"
+#include "split_rows.cuh"
 
 namespace repro {
 namespace {
 
 struct Args {
   const void *x, *xsel, *delta, *f, *xn, *seln;
+  float* ws;
   void* out;
   int m, s, d;
   KernelParams p;
 };
 
 // ---------------------------------------------------------------------------
-// The first design's tile (dot_tile): the wide class, and the narrow
-// class's default
+// The first design's tile (dot_tile): the narrow class's default
 // ---------------------------------------------------------------------------
 
 template <typename T, int BM, int BN, int BK, int TR, int TC, int DEPTH>
@@ -288,28 +299,87 @@ int launch_pipe(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The wide classes: split_rows.cuh's kernels, f + s as the epilogue
+// ---------------------------------------------------------------------------
+
+SplitArgs split_args(const Args& a) {
+  return SplitArgs{a.x, a.xsel, a.delta, a.xn, a.seln, a.ws,
+                   a.m, a.s, a.d, a.p};
+}
+
+AddToF add_to_f(const Args& a) {
+  return AddToF{static_cast<const float*>(a.f), static_cast<float*>(a.out)};
+}
+
+template <typename T, int BM, int BN, int BK, int TR, int TC, int DEPTH>
+int launch_simt(const Args& a, cudaStream_t st) {
+  return launch_split_simt<T, BM, BN, BK, TR, TC, DEPTH>(
+      split_args(a), add_to_f(a), st);
+}
+
+template <typename T, int BM, int BN, int BK, int TR, int TC, int DEPTH>
+int launch_wgmma(const Args& a, cudaStream_t st) {
+  return launch_split_wgmma<T, BM, BN, BK, TR, TC, DEPTH, false>(
+      split_args(a), add_to_f(a), st);
+}
+
+template <typename T, int BM, int BN, int BK, int TR, int TC, int DEPTH>
+int launch_stream(const Args& a, cudaStream_t st) {
+  return launch_split_wgmma<T, BM, BN, BK, TR, TC, DEPTH, true>(
+      split_args(a), add_to_f(a), st);
+}
+
 // The menu: launch index -> <BM, BN, BK, TR, TC, DEPTH>, in the order of
-// MENUS["fupdate"] in kernels/tiling.py (tests read these lines). Two
-// classes by the selected block's size S, each with fixed BN and TC so
-// that every entry of a class sums each row in the same order: BN = 32
-// for the hot loop (S = 2P <= 32: one column chunk), BN = 64 above it
-// (the init pass and the warm reconcile, up to S = 2048). Entry 0
-// (64 rows per CTA) and entry 5 (32 rows per CTA, so that m = 2048 still
-// spreads over 64 CTAs) are each class's default; entries 2-4 are the
-// narrow class's pipelined ones. Each narrow entry won a cell of the full
-// sweep on an H100 (PERF.md), or is the class's default.
+// MENUS["fupdate"] in kernels/tiling.py (tests read these lines). Each
+// class fixes what sets its sums' order, so every entry of a class
+// sums each row in the same order:
+//
+// * narrow (S <= 32), every type: BN = 32, TC = 2 (one column chunk).
+//   Entry 0 (64 rows per CTA, the first design's tile) is its default;
+//   entries 2-4 are its pipelined ones, each the winner of a cell of the
+//   full sweep on an H100 (PERF.md);
+// * wide f32 (S > 32): the SIMT split tile, SW = BN = 64, TC = 8; entry 5
+//   is its default;
+// * wide bf16/f16 (S > 32): the wgmma split kernel, SW = BN = 32,
+//   NW = 4 * TC; entry 9 is its default, entry 13 streams the X tile.
+//
+// Each switch is compiled for its class's types only; an index of
+// another class is refused with cudaErrorInvalidValue.
 template <typename T>
-int launch_menu(int cfg, const Args& a, cudaStream_t st) {
+int launch_narrow(int cfg, const Args& a, cudaStream_t st) {
   switch (cfg) {
     case 0: return launch_tile<T, 64, 32, 32, 4, 2, 1>(a, st);
     case 1: return launch_tile<T, 16, 32, 32, 1, 2, 1>(a, st);
     case 2: return launch_pipe<T, 64, 32, 32, 4, 2, 4>(a, st);
     case 3: return launch_pipe<T, 32, 32, 32, 2, 2, 4>(a, st);
     case 4: return launch_pipe<T, 16, 32, 32, 1, 2, 4>(a, st);
-    case 5: return launch_tile<T, 32, 64, 32, 2, 4, 1>(a, st);
-    case 6: return launch_tile<T, 16, 64, 32, 1, 4, 1>(a, st);
-    case 7: return launch_tile<T, 16, 64, 32, 2, 4, 1>(a, st);
-    case 8: return launch_tile<T, 64, 64, 32, 4, 4, 1>(a, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The first index of the wide classes.
+constexpr int kWide = 5;
+
+template <typename T>
+int launch_f32(int cfg, const Args& a, cudaStream_t st) {
+  switch (cfg) {
+    case 5: return launch_simt<T, 64, 64, 8, 4, 8, 2>(a, st);
+    case 6: return launch_simt<T, 128, 64, 8, 8, 8, 2>(a, st);
+    case 7: return launch_simt<T, 32, 64, 8, 4, 8, 2>(a, st);
+    case 8: return launch_simt<T, 16, 64, 8, 4, 8, 2>(a, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int launch_16bit(int cfg, const Args& a, cudaStream_t st) {
+  switch (cfg) {
+    case 9: return launch_wgmma<T, 128, 32, 64, 2, 8, 4>(a, st);
+    case 10: return launch_wgmma<T, 64, 32, 64, 2, 8, 4>(a, st);
+    case 11: return launch_wgmma<T, 128, 32, 64, 2, 16, 4>(a, st);
+    case 12: return launch_wgmma<T, 128, 32, 64, 2, 32, 4>(a, st);
+    case 13: return launch_stream<T, 128, 32, 64, 2, 16, 3>(a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -317,26 +387,38 @@ int launch_menu(int cfg, const Args& a, cudaStream_t st) {
 }  // namespace
 }  // namespace repro
 
-// x (m, d) and xsel (s, d) row-major in `dtype` (0 f32, 1 bf16, 2 f16);
-// delta (s,), f (m,), xn (m,), seln (s,) and out (m,) f32; `cfg` the
-// index of a menu entry. Launches on `stream`, which must belong to the
-// caller's current device, and returns cudaGetLastError()
-// (cudaErrorInvalidValue, launching nothing, for an unknown dtype or
-// menu index).
+// x (m, d) and xsel (s, d) row-major in `dtype` (0 f32, 1 bf16, 2 f16;
+// for the 16-bit wide class d % 8 == 0 and both 16-byte aligned);
+// delta (s,), f (m,), xn (m,), seln (s,) and out (m,) f32; ws an f32
+// workspace of (splits, m) with splits = ceil(s / BN) for the wide
+// classes (unread by the narrow one; may be null); `cfg` the index of a
+// menu entry of the launch's class. Launches on `stream`, which must
+// belong to the caller's current device, and returns cudaGetLastError();
+// launching nothing, cudaErrorInvalidValue for an unknown dtype or menu
+// index, a TMA map cuTensorMapEncodeTiled refuses or a resident 16-bit X
+// tile too wide for shared memory (tiling.wgmma_fits),
+// cudaErrorMisalignedAddress for 16-bit rows TMA cannot read and
+// cudaErrorNotSupported when cuTensorMapEncodeTiled is not found.
 extern "C" int fupdate_launch(const void* x, const void* xsel,
                               const void* delta, const void* f,
-                              const void* xn, const void* seln, void* out,
-                              int m, int s, int d, int dtype, int kind,
-                              float gamma, float coef0, int degree, int cfg,
-                              void* stream) {
+                              const void* xn, const void* seln, void* ws,
+                              void* out, int m, int s, int d, int dtype,
+                              int kind, float gamma, float coef0, int degree,
+                              int cfg, void* stream) {
   using namespace repro;
-  const Args a{x, xsel, delta, f, xn, seln, out, m, s, d,
-               KernelParams{kind, gamma, coef0, degree}};
+  const Args a{x, xsel, delta, f, xn, seln, static_cast<float*>(ws), out,
+               m, s, d, KernelParams{kind, gamma, coef0, degree}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kF32: return launch_menu<float>(cfg, a, st);
-    case kBF16: return launch_menu<__nv_bfloat16>(cfg, a, st);
-    case kF16: return launch_menu<__half>(cfg, a, st);
+    case kF32:
+      return cfg < kWide ? launch_narrow<float>(cfg, a, st)
+                         : launch_f32<float>(cfg, a, st);
+    case kBF16:
+      return cfg < kWide ? launch_narrow<__nv_bfloat16>(cfg, a, st)
+                         : launch_16bit<__nv_bfloat16>(cfg, a, st);
+    case kF16:
+      return cfg < kWide ? launch_narrow<__half>(cfg, a, st)
+                         : launch_16bit<__half>(cfg, a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,5 +1,5 @@
 // Hopper building blocks of the tensor-core kernels (gram.cu's wgmma
-// class and decision.cu's): mbarriers, TMA tile loads and stores, the
+// class and split_rows.cuh's): mbarriers, TMA tile loads and stores, the
 // wgmma shared-memory descriptor and instructions, and the TMA map
 // encoder; then the weighted row-sum epilogue of a wgmma fragment.
 //
@@ -271,7 +271,7 @@ int encode_map(CUtensorMap* map, CUtensorMapDataType type, int size,
 }
 
 // The accumulator operands of wgmma m64n32k16 (16 f32 a thread), for
-// decision.cu's narrower support chunks (its 128-row chunks take the
+// split_rows.cuh's narrower chunks (its 128-row chunks take the
 // m64n128k16 above) ...
 #define REPRO_REGS32 \
   "{" "%0," "%1," "%2," "%3," "%4," "%5," "%6," "%7," "%8," "%9," "%10," "%11," \
@@ -329,9 +329,9 @@ struct Wgmma<__half, 32> {
 //
 // A consumer warpgroup's m64nN accumulators hold dot products of 64 rows
 // and N columns; the thread's acc[4j + h] is row rr (+ 8 for h >= 2),
-// column 8j + 2*(lane % 4) + h % 2. The row-sum kernels (decision, and
-// fupdate's wide class later) want, for each row, sum_c w[c] * k(row, c)
-// and never the values themselves.
+// column 8j + 2*(lane % 4) + h % 2. The row-sum kernels (split_rows.cuh:
+// decision, and fupdate's wide classes) want, for each row,
+// sum_c w[c] * k(row, c) and never the values themselves.
 
 // part0 (row rr) and part1 (row rr + 8) += w[c] * k(acc, rn, cn[c]) over
 // the thread's columns c = col0 + 8j + 2*(lane % 4) + h below n, in

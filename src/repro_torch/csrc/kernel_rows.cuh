@@ -18,9 +18,10 @@
 // over the features in order. Thread (ty, tx) owns rows ty + i * NTY and
 // columns tx + j * NTX. Rows past M, columns past N and features past D
 // load as 0, so ragged edges need no padding. It is the first design's
-// tile: fupdate's wide class and the f32 gram default run on it; the
-// redesigned kernels (gram.cu's and decision.cu's SIMT and wgmma
-// classes, fupdate.cu's pipelined narrow entries) stage their own
+// tile: fupdate's narrow default and the f32 gram default run on it;
+// the redesigned kernels (gram.cu's SIMT and wgmma classes, the split
+// kernels of split_rows.cuh that decision.cu and fupdate.cu's wide
+// classes share, fupdate.cu's pipelined narrow entries) stage their own
 // operands (the SIMT classes by fetch_chunk / stash_chunk below, the
 // wgmma classes by TMA, hopper.cuh).
 //
@@ -35,11 +36,11 @@
 // the features, whatever BM, BN, TR, TC or the staging; a row sum's order
 // depends on BN and TC (which columns a thread adds, and the shuffle tree
 // over NTX) but not on BM, TR, the feature-chunk depth or the number of
-// stages. So fupdate launches that differ only in those give bitwise
-// equal outputs, and so do all f32 gram launches (the bf16/f16 gram
-// launches run wgmma, whose sums are the tensor cores'; decision.cu
-// states its own classes' orders; kernels/tiling.py keeps each class's
-// menu to that).
+// stages. So fupdate's narrow launches that differ only in those give
+// bitwise equal outputs, and so do all f32 gram launches (the bf16/f16
+// gram launches run wgmma, whose sums are the tensor cores';
+// split_rows.cuh states its classes' orders; kernels/tiling.py keeps
+// each class's menu to that).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -249,8 +250,8 @@ __device__ __forceinline__ void weighted_row_sums(
   reduce_row<TR, NTX>(part);
 }
 
-// The pipelined SIMT tiles' staging (gram.cu's f32 class, decision.cu's
-// f32 class): one BK-deep chunk of rows fetched as float4s into
+// The pipelined SIMT tiles' staging (gram.cu's f32 class, the f32 split
+// class of split_rows.cuh): one BK-deep chunk of rows fetched as float4s into
 // registers, then transposed into shared memory.
 
 // Rows [base, base + R) x features [k0, k0 + BK) of src (rows x d) as

@@ -68,10 +68,11 @@ from repro_torch.kernels.decision import ops as dec
 from repro_torch.kernels.fupdate import ops as fup
 from repro_torch.kernels.gram import ops as gram_ops
 from repro_torch.kernels.precision import check_precision, tile_dtype
-from repro_torch.kernels.tiling import (FAMILIES, TUNED_TABLE_PATH,
-                                        TileConfig, clear_caches,
-                                        decision_grid, decision_splits,
-                                        kernel_of, menu, validate_table)
+from repro_torch.kernels.tiling import (DK, FAMILIES, TUNED_TABLE_PATH,
+                                        WGMMA_KERNELS, TileConfig,
+                                        clear_caches, decision_grid,
+                                        decision_splits, kernel_of, menu,
+                                        validate_table, wgmma_smem_bytes)
 from repro_torch.utils.roofline import terms
 
 # Hopper feasibility model (per CTA; H100 SXM).
@@ -130,6 +131,9 @@ FULL_CELLS = QUICK_CELLS + (
     Cell("fupdate", 2048, 32, 16),
     Cell("decision", 1024, 256, 64),
     Cell("decision", 4096, 256, 16),
+    # fupdate's wide classes at the warm refit's S = 2P = 128: at half the
+    # main cell's m, whose key (8192, 128) is the hot loop's row.
+    Cell("fupdate", 4096, 128, 128),
 ) + MAIN_CELLS
 
 
@@ -140,10 +144,10 @@ def _ceil_div(a: int, b: int) -> int:
 def threads(family: str, cfg: TileConfig) -> int:
     """Threads of one CTA: (BM/TR) * (BN/TC); for a wgmma entry its
     BM / 64 consumer warpgroups and its producer, a warpgroup for gram,
-    one warp for decision."""
-    if kernel_of(family, cfg) != "wgmma":
+    one warp for the split kernels (decision, fupdate's wide class)."""
+    if kernel_of(family, cfg) not in WGMMA_KERNELS:
         return (cfg.block_m // cfg.tr) * (cfg.block_n // cfg.tc)
-    return cfg.block_m // 64 * 128 + (32 if family == "decision" else 128)
+    return cfg.block_m // 64 * 128 + (128 if family == "gram" else 32)
 
 
 def smem_bytes(family: str, cfg: TileConfig, precision: str = "f32",
@@ -154,18 +158,17 @@ def smem_bytes(family: str, cfg: TileConfig, precision: str = "f32",
     DEPTH raw chunks, rows padded by 16 bytes; gram's wgmma ring of DEPTH
     16-bit (BM + BN) x BK stages, four 64 x 64 f32 output chunks, two
     tiles' BN column norms, 1024 bytes of alignment slack and two 8-byte
-    barriers a stage; decision's resident BM x d query tile (whole BK
-    blocks), its ring of DEPTH (4 TC) x BK stages, the slack and
-    2 DEPTH + 1 barriers."""
+    barriers a stage; the split kernels' (decision, fupdate's wide class)
+    BM x d first-operand tile, resident or streamed, and their ring
+    (``tiling.wgmma_smem_bytes``)."""
     bm, bn, bk, depth = cfg.block_m, cfg.block_n, cfg.block_k, cfg.depth
     kind = kernel_of(family, cfg)
     if kind == "tile":
         return (bm + 1 + bn + 1) * bk * 4 * depth, 0
     if kind == "simt":
         return depth * bk * (bm + 4 + bn + 4) * 4, 0
-    if kind == "wgmma" and family == "decision":
-        return 0, (_ceil_div(d, bk) * bm * bk * 2
-                   + depth * 4 * cfg.tc * bk * 2 + 1024 + 8 * (2 * depth + 1))
+    if kind in WGMMA_KERNELS and family != "gram":
+        return 0, wgmma_smem_bytes(cfg, d)
     if kind == "wgmma":
         return 0, (depth * (bm + bn) * bk * 2 + 4 * 64 * 64 * 4 + 2 * bn * 4
                    + 1024 + 16 * depth)
@@ -198,7 +201,7 @@ def register_estimate(family: str, cfg: TileConfig) -> int:
     kernel to that); above 255 the kernel cannot run."""
     acc = cfg.tr * cfg.tc
     kind = kernel_of(family, cfg)
-    if kind == "wgmma":
+    if kind in WGMMA_KERNELS:
         regs = acc + 56
     elif kind == "simt":
         regs = acc + 4 * (cfg.tr + cfg.tc) + 48
@@ -219,7 +222,7 @@ def feasible(family: str, cfg: TileConfig, precision: str = "f32",
     if nt % 32 or nt > MAX_THREADS:
         return False
     ntx = cfg.block_n // cfg.tc
-    if family != "gram" and kernel_of(family, cfg) != "wgmma" \
+    if family != "gram" and kernel_of(family, cfg) not in WGMMA_KERNELS \
             and (ntx > 32 or 32 % ntx):
         return False            # a row's threads must sit in one warp
     static, dynamic = smem_bytes(family, cfg, precision, d)
@@ -251,9 +254,9 @@ def cost_model(cell: Cell, *, block_m: int, block_n: int,
     FLOPs count the logical work, as the JAX package counts it; the
     bytes count what the grid requests from device memory, ragged tiles
     only their live rows (``block_k`` is the chunk depth; each CTA reads
-    every feature once, so it does not enter, except that it tells a
-    decision wgmma entry, whose chunk of 4 ``tc`` support rows sets its
-    grid).
+    every feature once, so it does not enter, except that it tells
+    fupdate's split entries (wide class) from its row tiles, and a wgmma
+    entry, whose chunk of 4 ``tc`` rows sets its grid).
     """
     es = torch.empty((), dtype=tile_dtype(precision)).element_size()
     if cell.family == "gram":
@@ -264,7 +267,7 @@ def cost_model(cell: Cell, *, block_m: int, block_n: int,
                + n * d * es * gm                     # y, once per row tile
                + m * n * 4.0                         # output, written once
                + (m * gn + n * gm) * 4.0)            # norms, with the rows
-    elif cell.family == "fupdate":
+    elif cell.family == "fupdate" and block_k in (None, DK):
         m, s, d = cell.m, cell.n, cell.d
         gm = _ceil_div(m, block_m)
         flops = 2.0 * m * s * d + 2.0 * m * s
@@ -272,14 +275,19 @@ def cost_model(cell: Cell, *, block_m: int, block_n: int,
                + s * d * es * gm                     # xsel, per CTA
                + 3.0 * m * 4.0                       # f in, out, norms
                + gm * 2.0 * s * 4.0)                 # delta + sel norms
-    elif cell.family == "decision":
-        msv, nq, d = cell.m, cell.n, cell.d
+    elif cell.family in ("decision", "fupdate"):
+        # The split kernels: decision's queries x support rows, fupdate's
+        # wide class's training rows x selected block (it also reads f).
+        if cell.family == "decision":
+            msv, nq, d = cell.m, cell.n, cell.d
+        else:
+            nq, msv, d = cell.m, cell.n, cell.d
         cfg = TileConfig(block_m, block_n, block_k or 0, 2, tc, 4)
         splits = decision_splits(msv, cfg)
         # A CTA reads its query tile once: a SIMT CTA takes one split, a
         # wgmma CTA a run of them (tiling.decision_grid).
         gq, q_reads = decision_grid(nq, msv, cfg, H100_SMS,
-                                    ctas_per_sm("decision", cfg, precision,
+                                    ctas_per_sm(cell.family, cfg, precision,
                                                 d))
         flops = 2.0 * nq * msv * d + 2.0 * nq * msv
         hbm = (nq * d * es * q_reads                 # q, per CTA
@@ -287,7 +295,8 @@ def cost_model(cell: Cell, *, block_m: int, block_n: int,
                + 2.0 * msv * 4.0 * gq                # gamma + norms
                + nq * 4.0 * q_reads                  # q norms
                + 2.0 * splits * nq * 4.0             # partials, out and in
-               + nq * 4.0)                           # output
+               + nq * 4.0                            # output
+               + (nq * 4.0 if cell.family == "fupdate" else 0.0))   # f
     else:
         raise ValueError(f"unknown family {cell.family!r}")
     return flops, hbm
@@ -495,24 +504,29 @@ def write_table(entries: List[dict], path=TUNED_TABLE_PATH, *,
 # the register estimate against ptxas
 # ---------------------------------------------------------------------------
 
-_ENTRY_RE = re.compile(r"(gram|fupdate|decision)(?:_simt|_wgmma|_pipe)?"
-                       r"_kernelI(f|13__nv_bfloat16|6__half)((?:Li\d+E){6})")
+_ENTRY_RE = re.compile(r"(gram|fupdate|decision|split)"
+                       r"(?:_simt|_wgmma|_pipe)?_kernelI(f|13__nv_bfloat16|6__half)((?:Li\d+E){6})")
 _REGS_RE = re.compile(r"Used (\d+) registers")
 _DTYPES = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
 
 
-def ptxas_registers(lines: Iterable[str]) -> Dict[tuple, int]:
+def ptxas_registers(lines: Iterable[str],
+                    family: Optional[str] = None) -> Dict[tuple, int]:
     """{(family, dtype, (BM, BN, BK, TR, TC, DEPTH)): registers} from the
     ``ptxas -v`` lines of a build (``_build.Built.ptxas``): each
     "Compiling entry function" line names a kernel instantiation, and the
-    next "Used N registers" line is its count."""
+    next "Used N registers" line is its count. The split kernels
+    (``csrc/split_rows.cuh``) are named for no family: theirs is
+    ``family``, the source whose lines these are (skipped without it)."""
     out: Dict[tuple, int] = {}
     key = None
     for line in lines:
         m = _ENTRY_RE.search(line)
         if m:
-            key = (m.group(1), _DTYPES[m.group(2)],
-                   tuple(int(v) for v in re.findall(r"\d+", m.group(3))))
+            fam = family if m.group(1) == "split" else m.group(1)
+            key = None if fam is None else (
+                fam, _DTYPES[m.group(2)],
+                tuple(int(v) for v in re.findall(r"\d+", m.group(3))))
             continue
         r = _REGS_RE.search(line)
         if r and key is not None:

@@ -14,14 +14,16 @@ and ``launch`` are each wrapper's two halves: the operands the kernel and
 its plain version both take, and the kernel's launch on them.
 
 The kernel splits the support rows over CTAs and adds each query's
-partial sums in split order (``csrc/decision.cu``): ``launch`` allocates
-the (splits, queries) f32 workspace beside the output
+partial sums in split order (``csrc/split_rows.cuh``): ``launch``
+allocates the (splits, queries) f32 workspace beside the output
 (``tiling.decision_splits``). The precision picks the class (f32 SIMT,
 bf16/f16 wgmma fed by TMA). TMA needs 16-byte aligned rows, so
 ``prepare`` lays 16-bit rows on the card out as ``gram``'s wrapper does:
 features zero-padded to a multiple of 8 after rounding and after taking
-the norms (``gram.ops.tma_rows``); the packed operands have 128 features
-already.
+the norms (``tiling.tma_rows``); the packed operands have a multiple of
+128 features already. A 16-bit launch takes an entry whose query tile
+fits shared memory at its d (``tiling.wgmma_fits``): resident up to
+d = 1664, streamed above.
 
 ``decision`` takes its launch shape from ``tiling.resolve_tiles``
 (``tiles``: the tuned table keyed on (support rows, d, precision,
@@ -42,12 +44,11 @@ from repro_torch.kernels._build import Kernel, Launch
 from repro_torch.kernels.decision.ref import decision_plain
 from repro_torch.kernels.fupdate.ops import (DTYPE_CODES, KIND_CODES,
                                              as_tile, row_norms)
-from repro_torch.kernels.gram.ops import tma_rows
 from repro_torch.kernels.precision import precision_of, tile_dtype
 from repro_torch.kernels.tiling import (LANE, TileConfig, backend_name,
                                         decision_splits, default_config,
                                         menu_index, packed_decision_config,
-                                        resolve_tiles)
+                                        resolve_tiles, tma_rows)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 DECISION = Kernel("decision", "decision_launch",
@@ -87,12 +88,14 @@ def launch(q, t, gamma_vec, qn, tnorm, rho1, rho2, kernel: KernelFn,
     """The kernel's launch on prepared CUDA operands (``prepare`` or
     ``prepare_packed``), into a new (nq,) f32 output and a new
     (splits, nq) f32 workspace, on the current stream of q's card, with
-    tile config ``cfg`` (default: the default of the rows' class)."""
+    tile config ``cfg`` (default: the default of the rows' class, or the
+    first entry of the class that fits d)."""
     dev = q.device
     nq, d = q.shape
     nt = t.shape[0]
     if cfg is None:
-        cfg = default_config("decision", precision=precision_of(q.dtype))
+        cfg = default_config("decision", precision=precision_of(q.dtype),
+                             d=d)
     out = torch.empty((nq,), dtype=torch.float32, device=dev)
     ws = torch.empty((decision_splits(nt, cfg), nq), dtype=torch.float32,
                      device=dev)
@@ -173,10 +176,11 @@ def decision_packed(q_pad, t_pad, gamma_pad, t_norms, rho1, rho2,
     bucket shape. Returns all ``q_pad.shape[0]`` values; the caller
     slices its live rows. ``tm``/``tn`` are the pack geometry; the launch's
     entry is the one ``tiling.packed_decision_config`` picks for the
-    bucket (the kernel masks ragged edges, so its query tile need not be
-    ``tm``).
+    bucket and the width (the kernel masks ragged edges, so its query tile
+    need not be ``tm``).
     """
     ops = prepare_packed(q_pad, t_pad, gamma_pad, t_norms, tm=tm, tn=tn,
                          precision=precision)
     return _run(*ops, rho1, rho2, kernel,
-                packed_decision_config(ops[0].shape[0], precision))
+                packed_decision_config(ops[0].shape[0], precision,
+                                       ops[0].shape[1]))

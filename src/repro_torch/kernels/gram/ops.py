@@ -44,22 +44,13 @@ from repro_torch.kernels.fupdate.ops import (DTYPE_CODES, KIND_CODES,
                                              as_tile, row_norms)
 from repro_torch.kernels.gram.ref import gram_plain
 from repro_torch.kernels.precision import precision_of, tile_dtype
-from repro_torch.kernels.tiling import (TileConfig, _pad_to, backend_name,
-                                        menu_index, resolve_tiles)
+from repro_torch.kernels.tiling import (TMA_FEATURES, TileConfig,
+                                        backend_name, menu_index,
+                                        resolve_tiles, tma_rows)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 GRAM = Kernel("gram", "gram_launch",
               [_P] * 5 + [_I] * 5 + [_F, _F, _I, _I, _P])
-
-# 16-bit features a TMA row stride is a multiple of (16 bytes).
-TMA_FEATURES = 8
-
-
-def tma_rows(a: torch.Tensor) -> torch.Tensor:
-    """16-bit rows as TMA reads them: the features zero-padded to a
-    multiple of :data:`TMA_FEATURES`, on a 16-byte aligned base."""
-    a = _pad_to(a, TMA_FEATURES, axis=1)
-    return a.clone() if a.data_ptr() % 16 else a
 
 
 def prepare(x, y, *, precision: str = "f32") -> Tuple[torch.Tensor, ...]:

@@ -14,41 +14,49 @@ on the card; the CPU tests also read the ``case`` lines). A
 ``block_k`` = BK, ``tr``, ``tc``, ``depth``) and :func:`kernel_of` names
 the kernel it instantiates (the ``launch_<kernel>`` of its case line):
 "tile", the one-stage dot tile at ``BK = DK``; "pipe", fupdate's
-pipelined entries (``DEPTH`` cp.async stages); "simt", gram's and
-decision's pipelined f32 tiles (two stages); "wgmma", gram's and
-decision's tensor-core kernels (``BK = WGMMA_K``, bf16/f16 only).
+pipelined narrow entries (``DEPTH`` cp.async stages); "simt", the
+pipelined f32 tiles (gram's, and the f32 split class of decision and
+fupdate's wide launches; ``BK = 8``, two stages); "wgmma", the
+tensor-core kernels (``BK = WGMMA_K``, bf16/f16 only); "stream", the
+16-bit split kernel with its first operand's tile streamed through the
+ring instead of resident (:data:`STREAMED`), for any d.
 
 **Classes and the bitwise rule.** A launch may only take the menu
 entries of its class (:func:`menu`), whose first entry is the class's
 default, and every entry of a class gives bitwise the same output:
 
-* ``fupdate``: a row sum's order depends on BN and TC (which columns a
-  thread adds, and the warp-shuffle tree over BN / TC threads), never on
-  BM, TR, BK or the staging; each dot product is one thread's sequential
-  FMA chain over the features (``csrc/kernel_rows.cuh``). So a class
-  fixes BN and TC. ``fupdate`` has two classes by the selected block's
-  size S: BN = 32 for S <= 32 (the solver's hot loop; the pipelined
-  entries are this class's) and BN = 64 above (the init pass and the
-  warm reconcile), each with its own default. A tuned fit is then
-  bitwise a default one.
-* ``decision``: the support rows are split over CTAs in splits of
-  SW = BN rows, each split's partial per query written to a workspace
-  and the partials added in split order (:func:`decision_splits`). The
-  class is the rows' type, as for gram: f32 launches take the SIMT
-  entries (SW = 64, eight columns a thread, a shuffle tree over eight
-  threads), bf16/f16 launches the wgmma entries (SW = 32, the fragment's
-  columns, a shuffle tree over the quad). Entries of a class vary BM,
-  TR, the ring's depth, the number of consumer warpgroups (BM / 64) and,
-  for wgmma, the support rows one wgmma covers (NW = 4 * TC, whole
-  splits), which leave every sum's order alone. The packed serving path
-  chooses its entry by the bucket (:func:`packed_decision_config`).
+* ``decision``, and ``fupdate`` above S = 32 (its wide launches: the
+  init pass, the warm reconcile and the warm refit's delta-scaled hot
+  loop): the split design (``csrc/split_rows.cuh``). The second operand
+  (support rows; the selected block) is split over CTAs in splits of
+  SW = BN rows, each split's partial per row written to a workspace and
+  the partials added in split order (:func:`decision_splits`,
+  :func:`fupdate_splits`). The class is the rows' type: f32 launches take
+  the SIMT entries (SW = 64, eight columns a thread, a shuffle tree over
+  eight threads), bf16/f16 launches the wgmma entries (SW = 32, the
+  fragment's columns, a shuffle tree over the quad). Entries of a class
+  vary BM, TR, the ring's depth, the number of consumer warpgroups
+  (BM / 64) and, for wgmma, the rows one wgmma covers (NW = 4 * TC, whole
+  splits) and whether the first operand's tile is resident or streamed,
+  which leave every sum's order alone. A resident 16-bit tile must fit
+  in shared memory (:func:`wgmma_fits`): every launch takes an entry of
+  its class that fits its d. The packed serving path chooses its entry
+  by the bucket (:func:`packed_decision_config`).
+* ``fupdate`` at S <= 32 (the solver's hot loop), every type: a row
+  sum's order depends on BN and TC (which columns a thread adds, and the
+  warp-shuffle tree over BN / TC threads), never on BM, TR, BK or the
+  staging; each dot product is one thread's sequential FMA chain over
+  the features (``csrc/kernel_rows.cuh``). So the class fixes BN = 32
+  and TC = 2; the pipelined entries are its. A tuned fit is then bitwise
+  a default one.
 * ``gram``: the class is the rows' type. f32 launches take the SIMT
   entries ("tile", "simt"), each output one thread's FMA chain over the
   features in order, whatever the tile; bf16/f16 launches take the wgmma
   entries, each output the tensor cores' sum over k16 steps in feature
-  order, whatever the tile width or the ring's depth. The source compiles
-  each class for its types only (:func:`precisions_of`), and a table row
-  outside its precision's class is refused.
+  order, whatever the tile width or the ring's depth.
+
+Each source compiles each class for its types only (:func:`precisions_of`),
+and a table row outside its precision's class is refused.
 
 **Resolution** (:func:`resolve_tiles`, called by each wrapper on CUDA
 tensors), highest precedence first:
@@ -99,9 +107,15 @@ LANE = 128
 # (``DK`` in csrc/kernel_rows.cuh).
 DK = 32
 
-# The k-block of gram's wgmma entries: 64 16-bit features, one 128-byte
+# The k-block of the wgmma entries: 64 16-bit features, one 128-byte
 # swizzle row of a TMA tile.
 WGMMA_K = 64
+
+# The feature chunk of the pipelined f32 SIMT tiles (float4 loads).
+SIMT_K = 8
+
+# Dynamic shared memory a CTA may take on an H100 (``kMaxSmem``).
+MAX_SMEM = 232448
 
 # Nearest-shape fallback cap: |log2(m/m')| + |log2(d/d')| beyond which a
 # table entry is considered too far from the requested shape to trust.
@@ -144,14 +158,22 @@ MENUS = {
     "fupdate": ((64, 32, 32, 4, 2, 1), (16, 32, 32, 1, 2, 1),     # S <= 32
                 (64, 32, 32, 4, 2, 4), (32, 32, 32, 2, 2, 4),
                 (16, 32, 32, 1, 2, 4),
-                (32, 64, 32, 2, 4, 1), (16, 64, 32, 1, 4, 1),     # S > 32
-                (16, 64, 32, 2, 4, 1), (64, 64, 32, 4, 4, 1)),
+                (64, 64, 8, 4, 8, 2), (128, 64, 8, 8, 8, 2),      # S > 32,
+                (32, 64, 8, 4, 8, 2), (16, 64, 8, 4, 8, 2),       # f32
+                (128, 32, 64, 2, 8, 4), (64, 32, 64, 2, 8, 4),    # S > 32,
+                (128, 32, 64, 2, 16, 4), (128, 32, 64, 2, 32, 4),  # 16-bit
+                (128, 32, 64, 2, 16, 3)),
     "decision": ((128, 64, 8, 8, 8, 2), (64, 64, 8, 4, 8, 2),     # f32
                  (32, 64, 8, 4, 8, 2), (16, 64, 8, 4, 8, 2),
                  (128, 32, 64, 2, 8, 4), (64, 32, 64, 2, 8, 4),   # wgmma
                  (128, 32, 64, 2, 16, 4), (128, 32, 64, 2, 32, 4),
-                 (128, 32, 64, 2, 32, 2)),
+                 (128, 32, 64, 2, 32, 2), (128, 32, 64, 2, 16, 3)),
 }
+
+# The 16-bit split entry whose first operand's tile is streamed through
+# the ring (``launch_stream``), not resident: no cap on d. decision and
+# fupdate list it alike.
+STREAMED = (128, 32, 64, 2, 16, 3)
 FAMILIES = tuple(MENUS)
 
 
@@ -167,43 +189,65 @@ DEFAULT_CONFIGS = {
 }
 GRAM_WGMMA_DEFAULT = config_of(MENUS["gram"][2])       # bf16, f16
 DECISION_WGMMA_DEFAULT = config_of(MENUS["decision"][4])  # bf16, f16
-FUPDATE_WIDE_DEFAULT = config_of(MENUS["fupdate"][5])  # S > 32
+FUPDATE_WIDE_DEFAULT = config_of(MENUS["fupdate"][5])  # S > 32, f32
+FUPDATE_WGMMA_DEFAULT = config_of(MENUS["fupdate"][9])  # S > 32, 16-bit
+
+# The tensor-core kernels (16-bit rows only).
+WGMMA_KERNELS = ("wgmma", "stream")
 
 
 def kernel_of(family: str, cfg: TileConfig) -> str:
-    """The kernel a menu entry instantiates: "tile", "pipe", "simt" or
-    "wgmma" (the ``launch_<kernel>`` of its case line)."""
+    """The kernel a menu entry instantiates: "tile", "pipe", "simt",
+    "wgmma" or "stream" (the ``launch_<kernel>`` of its case line)."""
     if cfg.block_k == WGMMA_K:
-        return "wgmma"
+        return "stream" if cfg.entry == STREAMED else "wgmma"
     if cfg.depth == 1:
         return "tile"
-    return "pipe" if family == "fupdate" else "simt"
-
-
-# The families whose class is the rows' type (f32 SIMT, 16-bit wgmma).
-_BY_PRECISION = ("gram", "decision")
+    return "simt" if cfg.block_k == SIMT_K else "pipe"
 
 
 def precisions_of(family: str, cfg: TileConfig) -> Tuple[str, ...]:
-    """The tile precisions the source compiles an entry for: gram's and
-    decision's wgmma entries bf16/f16, their SIMT entries f32, every
-    fupdate entry all."""
-    if family not in _BY_PRECISION:
-        return PRECISIONS
-    return (("bf16", "f16") if kernel_of(family, cfg) == "wgmma"
-            else ("f32",))
+    """The tile precisions the source compiles an entry for: the wgmma
+    entries bf16/f16, the SIMT entries and gram's tile f32, fupdate's
+    narrow entries ("tile", "pipe") all."""
+    kind = kernel_of(family, cfg)
+    if kind in WGMMA_KERNELS:
+        return ("bf16", "f16")
+    if kind == "simt" or family == "gram":
+        return ("f32",)
+    return PRECISIONS
 
 
 def _class_key(family: str, cfg: TileConfig) -> tuple:
     """What a class fixes (the module docstring's bitwise rule): the kind
-    of kernel for gram; the kind, SW = BN and (SIMT) TC for decision; BN
-    and TC for fupdate."""
+    of kernel for gram; the kind, SW = BN and (SIMT, row tile) TC for
+    decision and fupdate."""
+    wgmma = kernel_of(family, cfg) in WGMMA_KERNELS
     if family == "gram":
-        return (kernel_of(family, cfg) == "wgmma",)
-    if family == "decision":
-        wgmma = kernel_of(family, cfg) == "wgmma"
-        return (wgmma, cfg.block_n, None if wgmma else cfg.tc)
-    return (cfg.block_n, cfg.tc)
+        return (wgmma,)
+    return (wgmma, cfg.block_n, None if wgmma else cfg.tc)
+
+
+def wgmma_smem_bytes(cfg: TileConfig, d: int) -> int:
+    """Dynamic shared memory of a 16-bit split entry at ``d`` features
+    (``split_wgmma_smem_bytes`` of csrc/split_rows.cuh): the first
+    operand's tile (resident: all its k-blocks of BM x 64; streamed: one a
+    stage), the ring of NW = 4 * TC rows x 64 a stage, 1024 bytes of
+    alignment slack and 2 DEPTH + 1 barriers."""
+    k = WGMMA_K
+    blocks = cfg.depth if cfg.entry == STREAMED else -(-int(d) // k)
+    return (blocks * cfg.block_m * k * 2 + cfg.depth * 4 * cfg.tc * k * 2
+            + 1024 + 8 * (2 * cfg.depth + 1))
+
+
+def wgmma_fits(cfg: TileConfig, d: int) -> bool:
+    """Whether a split launch of ``cfg`` at ``d`` features fits a CTA's
+    shared memory: always for the SIMT and streamed entries; for a
+    resident 16-bit tile, up to a padded d of 1664 at BM = 64, NW = 32,
+    and 640 to 832 at BM = 128 (by NW and the ring's depth)."""
+    if cfg.block_k != WGMMA_K:
+        return True
+    return wgmma_smem_bytes(cfg, d) <= MAX_SMEM
 
 
 def _check_family(family: str) -> None:
@@ -212,27 +256,40 @@ def _check_family(family: str) -> None:
                          f"expected one of {FAMILIES}")
 
 
+def _sixteen_bit(precision: Optional[str]) -> bool:
+    return precision is not None and check_precision(precision) != "f32"
+
+
 def default_config(family: str, n: Optional[int] = None,
-                   precision: Optional[str] = None) -> TileConfig:
+                   precision: Optional[str] = None,
+                   d: Optional[int] = None) -> TileConfig:
     """The launch with no table: ``n`` is the selected block's size S for
-    fupdate (its class), ``precision`` the rows' for gram and decision
-    (their class; f32 when ``None``); neither is read for the other
-    families."""
+    fupdate (narrow class up to 32), ``precision`` the rows' (the class of
+    gram, decision and fupdate's wide launches; f32 when ``None``). With
+    ``d``, the first entry of the class, from its default on, that fits
+    ``d`` features (:func:`wgmma_fits`)."""
     _check_family(family)
-    if family == "fupdate" and n is not None and n > FUPDATE_NARROW_MAX_S:
-        return FUPDATE_WIDE_DEFAULT
-    if family in _BY_PRECISION and precision is not None \
-            and check_precision(precision) != "f32":
-        return (GRAM_WGMMA_DEFAULT if family == "gram"
+    if family == "fupdate" and (n is None or n <= FUPDATE_NARROW_MAX_S):
+        dflt = DEFAULT_CONFIGS["fupdate"]
+    elif family == "fupdate":
+        dflt = (FUPDATE_WGMMA_DEFAULT if _sixteen_bit(precision)
+                else FUPDATE_WIDE_DEFAULT)
+    elif _sixteen_bit(precision):
+        dflt = (GRAM_WGMMA_DEFAULT if family == "gram"
                 else DECISION_WGMMA_DEFAULT)
-    return DEFAULT_CONFIGS[family]
+    else:
+        dflt = DEFAULT_CONFIGS[family]
+    if d is None or wgmma_fits(dflt, d):
+        return dflt
+    return next(config_of(c.entry) for c in _class_menu(family, dflt)
+                if wgmma_fits(c, d))
 
 
 def menu(family: str, n: Optional[int] = None,
          precision: Optional[str] = None) -> Tuple[TileConfig, ...]:
     """The menu entries a launch of ``family`` (with S = ``n`` for
-    fupdate, rows of ``precision`` for gram and decision) may take: its
-    class's."""
+    fupdate, rows of ``precision``) may take: its class's, the default
+    first."""
     return _class_menu(family, default_config(family, n, precision))
 
 
@@ -264,16 +321,26 @@ _PACKED_DECISION = {
     "wgmma": ((64, (64, 32, 64, 2, 8, 4)), (256, (128, 32, 64, 2, 8, 4)),
               (None, (128, 32, 64, 2, 32, 4))),
 }
+# A 16-bit entry whose resident query tile does not fit d gives way to
+# the streamed one (STREAMED), also the faster where the resident tiles
+# that still fit leave one CTA a SM: at d = 768, 4096 x 4096 queries x
+# support, bf16, it took 0.1021 ms against 0.1233-0.3530 ms for the
+# resident entries (PERF.md).
 
 
-def packed_decision_config(bucket: int, precision: str) -> TileConfig:
+def packed_decision_config(bucket: int, precision: str,
+                           d: int = LANE) -> TileConfig:
     """The entry ``decision_packed`` launches for a padded query block of
-    ``bucket`` rows in ``precision``: one of the precision's class (so
-    every bucket gives bitwise the same value for a query), chosen for
-    speed by the bucket alone. The tuned table is not read."""
+    ``bucket`` rows of ``d`` features in ``precision``: one of the
+    precision's class (so every bucket gives bitwise the same value for a
+    query), chosen for speed by the bucket, or the streamed entry where
+    that one's resident query tile does not fit d (:func:`wgmma_fits`).
+    The tuned table is not read."""
     precision = check_precision(precision)
     rule = _PACKED_DECISION["f32" if precision == "f32" else "wgmma"]
     entry = next(e for top, e in rule if top is None or bucket <= top)
+    if not wgmma_fits(config_of(entry), d):
+        entry = STREAMED
     return TileConfig(*entry, source="bucket")
 
 
@@ -282,6 +349,16 @@ def decision_splits(nt: int, cfg: TileConfig) -> int:
     ceil(nt / SW), SW = the entry's BN. The workspace is
     (splits, queries) f32."""
     return -(-int(nt) // cfg.block_n)
+
+
+def fupdate_splits(s: int, cfg: TileConfig) -> int:
+    """The splits of the selected block of a fupdate launch over ``s``
+    rows: ceil(s / SW) for the wide classes' split kernels, SW = the
+    entry's BN; 0 for the narrow class, which writes no workspace. The
+    workspace is (splits, m) f32."""
+    if kernel_of("fupdate", cfg) in ("tile", "pipe"):
+        return 0
+    return decision_splits(s, cfg)
 
 
 def decision_grid(nq: int, nt: int, cfg: TileConfig, sms: int = 132,
@@ -312,6 +389,18 @@ def _pad_to(a: torch.Tensor, mult: int, axis: int) -> torch.Tensor:
     # F.pad lists (left, right) pairs from the LAST axis backwards.
     widths = [0, 0] * (a.ndim - axis - 1) + [0, pad]
     return F.pad(a, widths)
+
+
+# 16-bit features a TMA row stride is a multiple of (16 bytes).
+TMA_FEATURES = 8
+
+
+def tma_rows(a: torch.Tensor) -> torch.Tensor:
+    """16-bit rows as TMA reads them: the features zero-padded to a
+    multiple of :data:`TMA_FEATURES`, on a 16-byte aligned base (the
+    same tensor when it already is)."""
+    a = _pad_to(a, TMA_FEATURES, axis=1)
+    return a.clone() if a.data_ptr() % 16 else a
 
 
 def _no_autotune() -> bool:
@@ -442,7 +531,8 @@ def nearest_entry(entries: Sequence[dict], family: str, m: int, d: int,
 @lru_cache(maxsize=4096)
 def _lookup(family: str, m: int, d: int, precision: str, backend: str,
             dflt: TileConfig) -> Optional[TileConfig]:
-    allowed = {c.entry for c in _class_menu(family, dflt)}
+    allowed = {c.entry for c in _class_menu(family, dflt)
+               if wgmma_fits(c, d)}
     hit = nearest_entry(_table_entries(), family, m, d, precision, backend,
                         allowed)
     if hit is None:
@@ -455,7 +545,7 @@ def lookup_tuned(family: str, m: int, d: int, precision: str, backend: str,
                  n: Optional[int] = None) -> Optional[TileConfig]:
     """The table's config for a launch of ``family`` at (m, d) — exact
     key, else nearest (see :func:`nearest_entry`) — among the entries its
-    class may take (S = ``n`` for fupdate, ``precision`` for gram);
+    class may take (S = ``n`` for fupdate, ``precision``) that fit ``d``;
     ``None`` if there is none."""
     return _lookup(family, int(m), int(d), precision, backend,
                    default_config(family, n, precision))
@@ -473,12 +563,14 @@ def resolve_tiles(family: str, *, m: int, d: int, precision: str,
     rows) and the feature dim; ``n`` is fupdate's selected block size S
     and ``precision`` the rows' (their classes). ``block_*`` are the
     wrapper's explicit kwargs — any of them being set wins over the
-    table. See the module docstring for the full precedence (the packed
-    decision path does not come here: :func:`packed_decision_config`).
+    table. Every way returns an entry that fits ``d``
+    (:func:`wgmma_fits`). See the module docstring for the full
+    precedence (the packed decision path does not come here:
+    :func:`packed_decision_config`).
     """
-    default = default_config(family, n, precision)
+    default = default_config(family, n, precision, d)
     if block_m is not None or block_n is not None or block_k is not None:
-        cls = menu(family, n, precision)
+        cls = [c for c in menu(family, n, precision) if wgmma_fits(c, d)]
         want = (block_m if block_m is not None else default.block_m,
                 block_n if block_n is not None else default.block_n,
                 block_k if block_k is not None else default.block_k)
@@ -488,8 +580,7 @@ def resolve_tiles(family: str, *, m: int, d: int, precision: str,
                 f"no {family} menu entry (csrc/{family}.cu) has block "
                 f"sizes (m, n, k) = {want}"
                 + (f" for S = {n}" if family == "fupdate" else "")
-                + (f" for {precision} rows" if family in _BY_PRECISION
-                   else "")
+                + f" for {precision} rows of {d} features"
                 + f"; the launch may take {[c.entry for c in cls]}")
         same_tile = [c for c in fits if (c.tr, c.tc, c.depth)
                      == (default.tr, default.tc, default.depth)]

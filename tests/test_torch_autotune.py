@@ -60,9 +60,9 @@ def _restore_tables():
 @pytest.mark.parametrize("family", ttil.FAMILIES)
 def test_menus_match_the_cuda_sources(family):
     """Every ``case`` line of the source, in order, is the menu entry of
-    its index and launches the kernel ``tiling.kernel_of`` names; gram's
-    wgmma lines sit in the 16-bit switch and its SIMT lines in the f32
-    one, and so do decision's."""
+    its index and launches the kernel ``tiling.kernel_of`` names; the
+    tensor-core lines (wgmma; the split kernels' streamed entries too)
+    sit in the 16-bit switch and nothing else does, in every family."""
     src = (CSRC / f"{family}.cu").read_text()
     n_case = len(re.findall(r"^\s*case \d+:", src, re.M))
     cases = re.findall(r"^\s*case (\d+): return launch_(\w+)<T, (\d+), "
@@ -74,12 +74,12 @@ def test_menus_match_the_cuda_sources(family):
     assert entries == ttil.MENUS[family]
     for (_, kind, *_), entry in zip(cases, entries):
         assert kind == ttil.kernel_of(family, ttil.config_of(entry))
-    if family in ("gram", "decision"):
-        f32_part, b16_part = src.split("int launch_16bit(")
-        assert all(k != "wgmma" for _, k, *_ in re.findall(
-            r"case (\d+): return launch_(\w+)<", f32_part))
-        assert {k for _, k, *_ in re.findall(
-            r"case (\d+): return launch_(\w+)<()", b16_part)} == {"wgmma"}
+    f32_part, b16_part = src.split("int launch_16bit(")
+    assert all(k not in ttil.WGMMA_KERNELS for _, k, *_ in re.findall(
+        r"case (\d+): return launch_(\w+)<", f32_part))
+    assert {k for _, k, *_ in re.findall(
+        r"case (\d+): return launch_(\w+)<()", b16_part)} == (
+        {"wgmma"} if family == "gram" else {"wgmma", "stream"})
     dk = re.search(r"constexpr int DK = (\d+);",
                    (CSRC / "kernel_rows.cuh").read_text())
     assert int(dk.group(1)) == ttil.DK
@@ -103,7 +103,12 @@ def test_menu_classes_keep_each_sum_order():
     assert ttil.menu("gram", precision="bf16") \
         == ttil.menu("gram", precision="f16")
     assert len(ttil.menu("fupdate", 32)) + len(ttil.menu("fupdate", 33)) \
-        == len(ttil.MENUS["fupdate"])
+        + len(ttil.menu("fupdate", 33, "bf16")) == len(ttil.MENUS["fupdate"])
+    assert ttil.menu("fupdate", 2048, "bf16") \
+        == ttil.menu("fupdate", 2048, "f16")
+    for precision in ("f32", "bf16", "f16"):    # the narrow class: any type
+        assert ttil.menu("fupdate", 32, precision) == ttil.menu("fupdate",
+                                                                 32)
 
 
 @pytest.mark.parametrize("precision,kinds", [
@@ -137,11 +142,13 @@ def test_gram_class_follows_the_precision(precision, kinds):
     ("f32", "simt", 64), ("bf16", "wgmma", 32), ("f16", "wgmma", 32)])
 def test_decision_class_follows_the_precision(precision, kind, sw):
     """decision's f32 launches take the SIMT class (SW = 64 support rows a
-    split), bf16/f16 ones the wgmma class (SW = 32); the classes share
-    no entry, cover the menu, and vary only what leaves the sum order
-    alone (BM, TR, the ring's depth, a wgmma's width)."""
+    split), bf16/f16 ones the wgmma class (SW = 32, its streamed entry
+    among them); the classes share no entry, cover the menu, and vary
+    only what leaves the sum order alone (BM, TR, the ring's depth, a
+    wgmma's width, a resident or streamed query tile)."""
     cls = ttil.menu("decision", precision=precision)
-    assert {ttil.kernel_of("decision", c) for c in cls} == {kind}
+    assert {ttil.kernel_of("decision", c) for c in cls} == (
+        {kind} if kind == "simt" else {"wgmma", "stream"})   # any d
     assert {(c.block_n, c.block_k) for c in cls} == {(sw, cls[0].block_k)}
     if kind == "simt":      # eight columns a thread
         assert {c.tc for c in cls} == {8}
@@ -218,6 +225,147 @@ def test_decision_workspace_for_the_served_shapes(monkeypatch, precision,
     assert groups <= splits
     if ttil.kernel_of("decision", cfg) == "wgmma":     # runs of chunks
         assert groups <= 8192 // (4 * cfg.tc)
+
+
+@pytest.mark.parametrize("precision,kinds,sw", [
+    ("f32", {"simt"}, 64), ("bf16", {"wgmma", "stream"}, 32),
+    ("f16", {"wgmma", "stream"}, 32)])
+def test_fupdate_wide_class_follows_the_precision(precision, kinds, sw):
+    """fupdate above S = 32 takes decision's split classes by the rows'
+    type: f32 the SIMT split tile (SW = 64, eight columns a thread),
+    bf16/f16 the wgmma split kernel (SW = 32, whole splits a chunk);
+    its keys and default depend on the precision, the narrow class's
+    not, and each entry is compiled for its class's types only."""
+    cls = ttil.menu("fupdate", 33, precision)
+    assert {ttil.kernel_of("fupdate", c) for c in cls} == kinds
+    assert {c.block_n for c in cls} == {sw}
+    assert all(4 * c.tc % sw == 0 for c in cls) if sw == 32 \
+        else {c.tc for c in cls} == {8}
+    assert all(precision in ttil.precisions_of("fupdate", c) for c in cls)
+    dflt = ttil.default_config("fupdate", 128, precision)
+    assert dflt.entry == cls[0].entry and dflt.source == "default"
+    assert dflt == (ttil.FUPDATE_WIDE_DEFAULT if precision == "f32"
+                    else ttil.FUPDATE_WGMMA_DEFAULT)
+    narrow = {c.entry for c in ttil.menu("fupdate", 32, precision)}
+    assert not narrow & {c.entry for c in cls}
+    assert all(ttil.precisions_of("fupdate", ttil.config_of(e))
+               == ttil.PRECISIONS for e in narrow)
+    ttil.set_tuned_table({"entries": []})
+    for s in (33, 128, 433, 2048):
+        cfg = ttil.resolve_tiles("fupdate", m=8192, d=128, n=s,
+                                 precision=precision, backend="cuda")
+        assert cfg == dflt
+    # the same split rule as decision's
+    assert ttil.fupdate_splits(128, dflt) == 128 // sw
+    assert ttil.fupdate_splits(433, dflt) == -(-433 // sw)
+    assert ttil.fupdate_splits(0, dflt) == 0
+    assert ttil.fupdate_splits(32, ttil.default_config("fupdate", 32)) == 0
+
+
+@pytest.mark.parametrize("precision,s,splits", [
+    ("f32", 128, 2), ("bf16", 128, 4), ("f16", 433, 14), ("f32", 20, 0),
+    ("bf16", 0, 0)])
+def test_fupdate_workspace_is_splits_by_rows(monkeypatch, precision, s,
+                                             splits):
+    """A wide fupdate launch owns a (splits, m) f32 workspace, splits =
+    ceil(S / SW) (SW = 64 in f32, 32 in 16 bits), passed to the C entry
+    after the norms; a narrow launch (S <= 32) one of no rows."""
+    import types
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=7))
+    m = 500
+    x = torch.randn(m, 24, generator=torch.Generator().manual_seed(0))
+    ops = tfup.prepare(x, x[:s], torch.ones(s), torch.zeros(m),
+                       precision=precision)
+    cfg = ttil.default_config("fupdate", max(s, 33) if splits else s,
+                              precision)
+    launch = tfup.launch(*ops, tkf.rbf(0.5), cfg)
+    assert tuple(launch.scratch.shape) == (splits, m)
+    assert launch.scratch.dtype == torch.float32
+    assert launch.args[6] == launch.scratch.data_ptr()
+    assert ttil.fupdate_splits(s, cfg) == splits
+
+
+# The largest padded d each 16-bit split entry keeps resident (the
+# kMaxSmem arithmetic of csrc/split_rows.cuh).
+_CAPS = {(64, 32, 64, 2, 8, 4): 1664, (128, 32, 64, 2, 8, 4): 832,
+         (128, 32, 64, 2, 16, 4): 768, (128, 32, 64, 2, 32, 2): 768,
+         (128, 32, 64, 2, 32, 4): 640}
+
+
+def test_wgmma_fits_caps_each_resident_entry():
+    for family in ("decision", "fupdate"):
+        for entry in ttil.MENUS[family]:
+            cfg = ttil.config_of(entry)
+            if ttil.kernel_of(family, cfg) == "wgmma":
+                cap = _CAPS[entry]
+                assert ttil.wgmma_fits(cfg, cap)
+                assert ttil.wgmma_fits(cfg, cap - 63)
+                assert not ttil.wgmma_fits(cfg, cap + 1)
+                assert ttil.wgmma_smem_bytes(cfg, cap) <= ttil.MAX_SMEM \
+                    < ttil.wgmma_smem_bytes(cfg, cap + 64)
+            else:       # SIMT, row tiles and the streamed entry: any d
+                assert ttil.wgmma_fits(cfg, 1 << 16)
+    src = (CSRC / "split_rows.cuh").read_text()
+    assert "(STREAM ? DEPTH : nk) * BM * BK * 2 + DEPTH * NW * BK * 2 + " \
+        "1024 +\n         8 * (2 * DEPTH + 1)" in src
+    assert int(re.search(r"kMaxSmem = (\d+);", (CSRC / "kernel_rows.cuh")
+                         .read_text()).group(1)) == ttil.MAX_SMEM
+    assert ttil.STREAMED in ttil.MENUS["decision"] \
+        and ttil.STREAMED in ttil.MENUS["fupdate"]
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("d", [128, 640, 768, 832, 896, 1664, 2048, 4096])
+def test_packed_decision_config_fits_d(precision, d):
+    """At every bucket the packed path's entry is of the precision's
+    class and fits d; up to d = 640 it is the entry of d = 128 (the
+    parent's choice), and a 16-bit model above 1664 streams (below it,
+    wherever the bucket's resident entry does not fit)."""
+    for bucket in (64, 256, 1024, 4096):
+        cfg = ttil.packed_decision_config(bucket, precision, d)
+        assert cfg.source == "bucket"
+        assert cfg.entry in {c.entry for c in ttil.menu(
+            "decision", precision=precision)}
+        assert ttil.wgmma_fits(cfg, d)
+        if d <= 640:
+            assert cfg == ttil.packed_decision_config(bucket, precision)
+        if precision != "f32" and d > 1664:
+            assert ttil.kernel_of("decision", cfg) == "stream"
+
+
+@pytest.mark.parametrize("family,n", [("decision", 4096), ("fupdate", 128)])
+@pytest.mark.parametrize("d", [128, 768, 896, 1664, 2048])
+def test_resolve_tiles_never_returns_an_entry_that_does_not_fit(family, n,
+                                                               d):
+    """The default, the table (even an exact row) and explicit tiles
+    take only 16-bit entries whose resident tile fits d."""
+    kw = dict(m=8192, d=d, n=n, precision="bf16", backend="cuda")
+    cls = ttil.menu(family, n, "bf16")
+    ttil.set_tuned_table({"entries": []})
+    dflt = ttil.resolve_tiles(family, **kw)
+    assert ttil.wgmma_fits(dflt, d) and dflt.entry in {c.entry for c in cls}
+    assert dflt == ttil.default_config(family, n, "bf16", d)
+    if d <= 832:
+        assert dflt.entry == cls[0].entry
+    for c in cls:                   # a table row naming each entry
+        ttil.set_tuned_table(_table(_entry(
+            family=family, m=8192, d=d, precision="bf16",
+            **{k: getattr(c, k) for k in ("block_m", "block_n", "block_k",
+                                          "tr", "tc", "depth")})))
+        got = ttil.resolve_tiles(family, **kw)
+        assert ttil.wgmma_fits(got, d)
+        assert (got.entry == c.entry) == ttil.wgmma_fits(c, d)
+        assert got.source == ("table-exact" if ttil.wgmma_fits(c, d)
+                              else "default")
+    ttil.set_tuned_table({"entries": []})
+    if d > 1664:                    # BM = 64 is resident only
+        with pytest.raises(ValueError, match="menu"):
+            ttil.resolve_tiles(family, **kw, block_m=64)
+    else:
+        narrowest = ttil.resolve_tiles(family, **kw, block_m=64)
+        assert narrowest.block_m == 64 and ttil.wgmma_fits(narrowest, d)
+        assert ttil.kernel_of(family, narrowest) == "wgmma"
 
 
 def test_new_narrow_fupdate_entries_lie_in_the_narrow_class():
@@ -341,7 +489,8 @@ def test_lookup_tie_prefers_larger_m():
 def test_lookup_skips_rows_of_another_fupdate_class():
     """A wide-class row (BN = 64) never steers a hot-loop launch (S <= 32)
     at its key: the nearest narrow-class row or the default does."""
-    wide = _entry(m=2048, d=128, block_m=16, block_n=64, tr=1, tc=4)
+    wide = _entry(m=2048, d=128, block_m=16, block_n=64, block_k=8, tr=4,
+                  tc=8, depth=2)
     ttil.set_tuned_table(_table(wide))
     assert ttil.lookup_tuned("fupdate", 2048, 128, "f32", "cuda",
                              n=2048).block_m == 16
@@ -483,18 +632,22 @@ def test_set_tuned_table_steers_the_next_call():
     ("gram", None, "f16", (128, 256, 64, 2, 64, 3)),
     ("fupdate", 16, "f32", (64, 32, 32, 4, 2, 1)),   # the hot loop at P = 8
     ("fupdate", 32, "f32", (64, 32, 32, 4, 2, 1)),   # ... and at P = 16
-    ("fupdate", 33, "f32", (32, 64, 32, 2, 4, 1)),
-    ("fupdate", 2048, "f32", (32, 64, 32, 2, 4, 1)),  # the init pass
+    ("fupdate", 33, "f32", (64, 64, 8, 4, 8, 2)),   # the SIMT split tile
+    ("fupdate", 2048, "f32", (64, 64, 8, 4, 8, 2)),  # the init pass
     ("decision", 4096, "f32", (128, 64, 8, 8, 8, 2)),   # SIMT
     ("decision", 4096, "bf16", (128, 32, 64, 2, 8, 4)),  # wgmma
     ("decision", 4096, "f16", (128, 32, 64, 2, 8, 4)),
+    ("fupdate", 16, "bf16", (64, 32, 32, 4, 2, 1)),   # narrow: any type
+    ("fupdate", 128, "bf16", (128, 32, 64, 2, 8, 4)),  # the wgmma split
+    ("fupdate", 2048, "f16", (128, 32, 64, 2, 8, 4)),
 ])
 def test_empty_table_gives_the_fixed_launches(family, n, precision, entry):
     """With no table row every launch is its class's default: the one its
-    source fixed before the table (fupdate: <64, 32, 4, 2> up to S = 32,
-    <32, 64, 2, 4> above; f32 gram <64, 64, 4, 4>), and for 16-bit gram
-    the wgmma default; decision's split classes' first entries (the f32
-    SIMT tile, the 16-bit wgmma kernel)."""
+    source fixed before the table (fupdate's narrow class: <64, 32, 4, 2>
+    up to S = 32, any type; f32 gram <64, 64, 4, 4>), and for 16-bit gram
+    the wgmma default; the split classes' first entries (decision's, and
+    fupdate's above S = 32: the f32 SIMT tile, the 16-bit wgmma
+    kernel)."""
     ttil.set_tuned_table({"entries": []})
     cfg = ttil.resolve_tiles(family, m=8192, d=128, n=n, precision=precision,
                              backend="cuda")
@@ -743,6 +896,29 @@ def test_ptxas_register_lines_parse():
         ("gram", "bf16", (128, 256, 64, 2, 64, 4)): 168,
         ("fupdate", "f32", (32, 32, 32, 2, 2, 4)): 56,
         ("gram", "f32", (128, 128, 8, 8, 8, 2)): 128}
+
+
+def test_ptxas_lines_of_the_split_kernels_take_the_source_family():
+    """split_rows.cuh's kernels are named for no family: their lines count
+    for the source they were built in, and not at all without one; the
+    reduction (no tile) is no menu entry."""
+    lines = [
+        "ptxas info    : Compiling entry function '_ZN5repro12_GLOBAL__N_1"
+        "17split_simt_kernelIfLi64ELi64ELi8ELi4ELi8ELi2EEEvPKfS4_' for "
+        "'sm_90a'",
+        "ptxas info    : Used 75 registers, used 1 barriers, 8704 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN5repro12_GLOBAL__N_1"
+        "18split_wgmma_kernelI13__nv_bfloat16Li128ELi32ELi64ELi2ELi16ELi3E"
+        "Lb1EEEv14CUtensorMap_stS2_PKfS4_S4_Pfiii' for 'sm_90a'",
+        "ptxas info    : Used 66 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN5repro12_GLOBAL__N_1"
+        "19split_reduce_kernelINS0_6AddToFEEEvPKfiiT_' for 'sm_90a'",
+        "ptxas info    : Used 16 registers, used 1 barriers",
+    ]
+    assert tat.ptxas_registers(lines, "fupdate") == {
+        ("fupdate", "f32", (64, 64, 8, 4, 8, 2)): 75,
+        ("fupdate", "bf16", (128, 32, 64, 2, 16, 3)): 66}
+    assert tat.ptxas_registers(lines) == {}
 
 
 # ---------------------------------------------------------------------------

@@ -84,16 +84,20 @@ def test_fupdate_kernel_matches_plain(cuda, k, precision, m, d, s):
 @pytest.mark.parametrize("k", KERNELS, ids=KIDS)
 def test_fupdate_zero_rows_add_nothing(cuda, k):
     """Zero rows with zero deltas appended to the selected block add
-    exactly nothing: each thread's partial sum only gains +0 terms."""
+    exactly nothing within its class: each thread's partial sum (and, in
+    the wide class, each further split's partial) only gains +0 terms.
+    The narrow class (S <= 32) and the wide one sum in other orders, so
+    the block stays on its side of S = 32."""
     tk = _kern(k)
     rng = np.random.default_rng(7)
     x = _t(rng.standard_normal((96, 17)), cuda)
-    dl = _t(rng.standard_normal(5) * 0.1, cuda)
     f = _t(rng.standard_normal(96), cuda)
-    out = tfup.fupdate(x, x[:5], dl, f, tk)
-    xs = torch.cat([x[:5], torch.zeros((128, 17), device=cuda)])
-    dp = torch.cat([dl, torch.zeros(128, device=cuda)])
-    assert torch.equal(out, tfup.fupdate(x, xs, dp, f, tk))
+    for s, extra in ((5, 27), (40, 128)):
+        dl = _t(rng.standard_normal(s) * 0.1, cuda)
+        out = tfup.fupdate(x, x[:s], dl, f, tk)
+        xs = torch.cat([x[:s], torch.zeros((extra, 17), device=cuda)])
+        dp = torch.cat([dl, torch.zeros(extra, device=cuda)])
+        assert torch.equal(out, tfup.fupdate(x, xs, dp, f, tk))
 
 
 @pytest.mark.parametrize("precision", tprec.PRECISIONS)
@@ -169,8 +173,9 @@ def _menu_cases():
     cases = []
     for family, entries in ttil.MENUS.items():
         for i, entry in enumerate(entries):
-            s = None if family != "fupdate" else (20 if entry[1] == 32
-                                                  else 77)
+            kind = ttil.kernel_of(family, ttil.config_of(entry))
+            s = None if family != "fupdate" else (
+                20 if kind in ("tile", "pipe") else 77)
             for precision in ttil.precisions_of(family,
                                                 ttil.config_of(entry)):
                 cases.append((family, s, i, precision))
@@ -350,6 +355,58 @@ def test_fupdate_empty_rows(cuda, precision):
     assert out.shape == (0,) and tfup.FUPDATE.launches == n0
 
 
+@pytest.mark.parametrize("precision", tprec.PRECISIONS)
+@pytest.mark.parametrize("m,s,d", [(8192, 128, 128), (8192, 433, 128),
+                                   (2048, 2048, 128), (333, 33, 130),
+                                   (130, 77, 129)])
+def test_wide_fupdate_entries_match_plain_and_their_default(
+        cuda, precision, m, s, d):
+    """Every entry of fupdate's wide class of the precision (the SIMT split
+    tile for f32, the wgmma split kernel for bf16/f16, its streamed entry
+    too) agrees with the plain version, rbf and linear, and is bitwise
+    the class's default; the wrapper's own launch is of that class."""
+    rng = np.random.default_rng(19)
+    x = _t(rng.standard_normal((max(m, s), d)) / np.sqrt(d), cuda)
+    delta = _t(rng.standard_normal(s) * 0.05, cuda)
+    f = _t(rng.standard_normal(m), cuda)
+    for tk in (tkf.rbf(1.0 / d), tkf.linear()):
+        ops = tfup.prepare(x[:m], x[:s], delta, f, precision=precision)
+        plain = fupdate_plain(*ops, kind=tk.name, gamma=tk.gamma)
+        base = tfup.launch(*ops, tk, ttil.default_config(
+            "fupdate", s, precision))()
+        cls = ttil.menu("fupdate", s, precision)
+        for cfg in cls:
+            out = tfup.launch(*ops, tk, cfg)()
+            torch.cuda.synchronize()
+            assert _bitwise(out, base), cfg
+        _close(base, plain)
+        n0 = tfup.FUPDATE.launches
+        wrapped = tfup.fupdate(x[:m], x[:s], delta, f, tk,
+                               precision=precision)
+        assert tfup.FUPDATE.launches == n0 + 1
+        assert tfup.FUPDATE.last_config.entry in {c.entry for c in cls}
+        assert _bitwise(wrapped, base)
+
+
+@pytest.mark.parametrize("precision", tprec.PRECISIONS)
+def test_wide_fupdate_empty_block_and_rows(cuda, precision):
+    """A wide launch with no selected row (no split) writes f; one with
+    no training row writes nothing and launches nothing of size 0."""
+    x = torch.ones((300, 64), device=cuda)
+    f = torch.randn(300, device=cuda)
+    cfg = ttil.default_config("fupdate", 33, precision)
+    ops = tfup.prepare(x, x[:0], torch.zeros(0, device=cuda), f,
+                       precision=precision)
+    launch = tfup.launch(*ops, tkf.rbf(0.5), cfg)
+    assert launch.scratch.shape == (0, 300)
+    assert torch.equal(launch(), f)
+    ops = tfup.prepare(x[:0], x[:50], torch.ones(50, device=cuda),
+                       f[:0], precision=precision)
+    out = tfup.launch(*ops, tkf.rbf(0.5), cfg)()
+    torch.cuda.synchronize()
+    assert out.shape == (0,)
+
+
 # -- decision: the split design at the serving buckets and ragged shapes ------
 
 def _packed_model(cuda, precision, n_sv=1500, d=128, seed=15, zero=False):
@@ -445,6 +502,67 @@ def test_unpacked_decision_ragged_entries(cuda, k, precision, nq, nt, d):
     assert _bitwise(wrapped, tdec.decision(q, t, g, 0.2, 0.8, tk,
                                            precision=precision))
     _close(wrapped, plain)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "f16"])
+@pytest.mark.parametrize("d", [768, 896, 1664, 2048])
+def test_decision_serves_wide_rows_at_every_bucket(cuda, precision, d):
+    """16-bit decision at embedding widths past the resident query tile of
+    some entries (640-1664): every bucket launches an entry that fits d
+    (the streamed one above 1664), none is refused, and each agrees with
+    the plain version without a flipped sign."""
+    sm = _packed_model(cuda, precision, n_sv=1000, d=d)
+    rng = np.random.default_rng(20)
+    for b in (64, 256, 1024, 4096):
+        q = torch.zeros((b, sm.t_pad.shape[1]), device=cuda)
+        q[:, :d] = _t(rng.standard_normal((b, d)) / np.sqrt(d), cuda)
+        out = tdec.decision_packed(q, sm.t_pad, sm.gamma_pad, sm.t_norms,
+                                   0.2, 0.8, sm.spec.kernel, tm=min(b, 256),
+                                   tn=sm.tn, precision=precision)
+        cfg = tdec.DECISION.last_config
+        assert cfg == ttil.packed_decision_config(b, precision,
+                                                  sm.t_pad.shape[1])
+        assert ttil.wgmma_fits(cfg, sm.t_pad.shape[1])
+        ops = tdec.prepare_packed(q, sm.t_pad, sm.gamma_pad, sm.t_norms,
+                                  tm=min(b, 256), tn=sm.tn,
+                                  precision=precision)
+        plain = decision_plain(*ops, 0.2, 0.8, kind="rbf",
+                               gamma=sm.spec.kernel.gamma)
+        _close(out, plain)
+        sure = plain.abs() > 1e-2 * plain.abs().median()
+        assert torch.equal(torch.sign(out[sure]), torch.sign(plain[sure]))
+    wrapped = tdec.decision(q[:, :d], sm.model.X, sm.model.gamma, 0.2, 0.8,
+                            sm.spec.kernel, precision=precision)
+    assert ttil.wgmma_fits(tdec.DECISION.last_config, q.shape[1])
+    _close(wrapped, plain)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "f16"])
+def test_streamed_tile_is_bitwise_the_resident_one(cuda, precision):
+    """At d = 768 the streamed entry and every resident entry that fits
+    give bitwise the same values: decision (query tile) and fupdate's
+    wgmma class (X tile) alike."""
+    rng = np.random.default_rng(21)
+    d = 768
+    q = _t(rng.standard_normal((300, d)) / np.sqrt(d), cuda)
+    t = _t(rng.standard_normal((1000, d)) / np.sqrt(d), cuda)
+    tk = tkf.rbf(1.0 / d)
+    ops = tdec.prepare(q, t, _t(np.abs(rng.standard_normal(1000)) * 0.05,
+                                cuda), precision=precision)
+    fup = tfup.prepare(t, q[:200], _t(rng.standard_normal(200) * 0.05, cuda),
+                       _t(rng.standard_normal(1000), cuda),
+                       precision=precision)
+    for family, run in (
+            ("decision", lambda c: tdec.launch(*ops, 0.2, 0.8, tk, c)()),
+            ("fupdate", lambda c: tfup.launch(*fup, tk, c)())):
+        cls = [c for c in ttil.menu(family, 200, precision)
+               if ttil.wgmma_fits(c, d)]
+        kinds = {ttil.kernel_of(family, c) for c in cls}
+        assert kinds == {"wgmma", "stream"}
+        outs = [run(c) for c in cls]
+        torch.cuda.synchronize()
+        for c, out in zip(cls, outs):
+            assert _bitwise(out, outs[0]), (family, c)
 
 
 # -- shrinking and warm starts through the fused provider -------------------

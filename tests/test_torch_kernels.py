@@ -108,8 +108,12 @@ def test_rbf_clamps_negative_squared_distance():
 
 @pytest.mark.parametrize("precision", PRECISIONS)
 @pytest.mark.parametrize("k", KERNELS, ids=KIDS)
-@pytest.mark.parametrize("m,d,s", [(200, 33, 20)])
+@pytest.mark.parametrize("m,d,s", [(200, 33, 20), (300, 24, 33),
+                                   (300, 24, 128), (600, 24, 433),
+                                   (512, 24, 512)])
 def test_fupdate_matches_jax(k, precision, m, d, s):
+    """The hot loop's S (narrow class on the card) and the wide classes'
+    (the warm refit's S = 128, its reconcile, the init pass m = S)."""
     jk, tk = _kern_pair(k)
     X, delta, f = _data(2, m, d, s)
     Xs = X[:s]
@@ -302,6 +306,16 @@ def test_launch_arguments_match_the_c_signature(monkeypatch, family):
         ops = tfup.prepare(_t(X), _t(X[:3]), _t(delta), _t(f),
                            precision="bf16")
         launch = tfup.launch(*ops, tk)
+        assert launch.scratch.shape == (0, 12)      # narrow: no workspace
+        Xw, dw, fw = _data(4, 40, 5, 33)             # the wide class
+        wide = tfup.launch(*tfup.prepare(_t(Xw), _t(Xw[:33]), _t(dw),
+                                         _t(fw), precision="bf16"), tk)
+        assert wide.config == tiling.default_config("fupdate", 33, "bf16")
+        assert wide.scratch.shape == (2, 40)        # ceil(33 / SW = 32)
+        assert len(wide.args) == len(wide.kernel.argtypes)
+        for arg, ctype in zip(wide.args, wide.kernel.argtypes):
+            ctype(arg)
+        assert wide.args[6] == wide.scratch.data_ptr()
     elif family == "decision":
         ops = tdec.prepare_packed(torch.zeros((64, 128)),
                                   torch.zeros((512, 128)),
@@ -343,9 +357,10 @@ def test_launches_are_counted_by_menu_entry():
     k._fn = lambda *a: 0
     narrow = tiling.default_config("fupdate", 16)
     wide = tiling.default_config("fupdate", 128)
-    for cfg in (narrow, wide, wide, None):
+    wide16 = tiling.default_config("fupdate", 128, "bf16")
+    for cfg in (narrow, wide, wide, None, wide16):
         Launch(k, -1, (), torch.zeros(1), cfg)()
-    assert k.launches == 4
-    assert k.by_entry == {narrow.entry: 1, wide.entry: 2}
+    assert k.launches == 5
+    assert k.by_entry == {narrow.entry: 1, wide.entry: 2, wide16.entry: 1}
     k.reset_counts()
     assert k.launches == 0 and not k.by_entry
