@@ -48,6 +48,26 @@ without printing the result line:
               no label flipped: each bucket takes a decision entry whose
               query tile fits d (the streamed one above 1664), and every
               entry that fits gives bitwise the same values;
+   fleet    — the serving control plane: a ModelRegistry of three tenants
+              (main-f32 and main-bf16 on the first 7783 [main] rows,
+              wide-bf16 on [serve-wide]'s 4096 rows at d = 768), each
+              fitted on first use; a few hundred requests of
+              REQUEST_SIZES from one asyncio loop (``serve_async``)
+              through an AdmissionController with per-tenant quotas and
+              its AsyncDriver on the real clock, every result held against
+              the tenant's direct score (bitwise at d = 128, within
+              TOLERANCES at d = 768); one group that spans two buckets and
+              one request over its quota (QuotaExceededError); a
+              drift-gated refresh of main-f32 with the 409 remaining rows
+              (warm: KS below 0.35, m = 8192, every fupdate launch wide)
+              and with them shifted by 5 (cold), each objective within
+              truth_tolerance of a cold fit of the same rows, the version
+              bumped and later traffic scored by the new model; main-bf16
+              published to shared memory and attached by a spawned process
+              on the card that scores 1024 rows bitwise the publisher's,
+              its leases counted 2, 1 and the segment unlinked; per bucket
+              the traffic's launch latency (warm p50, p99) beside the
+              scorer's and a ScoringService's on one quiet thread;
 4. autotune — the autotuner's path, with the counts set to 0 just before
               and read just after: a quick sweep on the card over
               ``QUICK_CELLS`` and the main path's fupdate and gram cells,
@@ -85,6 +105,7 @@ JAX.
 """
 from __future__ import annotations
 
+import asyncio
 import json
 import subprocess
 import sys
@@ -110,6 +131,37 @@ SUPPORT = 4096            # packed support rows the decision kernel meets
 WIDE_D, WIDEST_D = 768, 2048
 SHRINK_M = 32768          # [shrink]: "auto" takes the shrinking driver
 SOLVER_ATOL_FLOOR = 5e-3  # tests/test_engine_parity.py's solver floor
+# [fleet]: windows of up to two top buckets (a group past 4096 rows spans
+# buckets); a quota that binds below that (<= max_batch - 2); traffic in
+# waves of FLEET_PER_WAVE requests a tenant, each with a deadline.
+FLEET_MAX_BATCH = 2 * 4096
+FLEET_QUOTA = 8000
+FLEET_WAVES, FLEET_PER_WAVE = 25, 4
+FLEET_DEADLINE_S = 0.01
+# [fleet]'s attaching process: attach a published model on the card, score
+# 1024 toy rows, save them, and report the attach time (the card's context
+# made first, timed apart) and live leases.
+FLEET_CHILD = """
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+from repro_torch.data import make_toy
+from repro_torch.serve import attach, live_refs
+key, spool = sys.argv[2], sys.argv[3]
+t0 = time.perf_counter()
+torch.zeros(1, device="cuda")             # the card's context, first
+torch.cuda.synchronize()
+context_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+sm, lease = attach(key, dir=spool)
+torch.cuda.synchronize()
+attach_s = time.perf_counter() - t0
+np.save(sys.argv[5], sm.score(make_toy(int(sys.argv[4]), 1024, d=sm.d)[0]))
+refs = live_refs(key, dir=spool)
+lease.close()
+print(json.dumps({"attach_s": attach_s, "context_s": context_s,
+                  "live_refs": refs, "device": str(sm.t_pad.device)}))
+"""
 QP_SIZES = 4              # [paper] runs the QP at the first QP_SIZES sizes
 PROFILE_ITERS = 100       # solver iterations inside the profiler window
 # gram: the kernel matrix of the main path's rows, a ragged shape and one
@@ -850,6 +902,307 @@ def main() -> int:
     path_launches["serve-wide"] = {f"d={k}": v for k, v in serve_wide.items()}
     say(f"[serve-wide] phase seconds={time.perf_counter() - phase_t0:.2f} "
         f"decision launches={path_launches['serve-wide']}")
+
+    # -- 3f. [fleet]: the serving control plane -----------------------------
+    # Three tenants in one ModelRegistry, fitted on first use; a few hundred
+    # requests of REQUEST_SIZES from one asyncio loop through an
+    # AdmissionController (per-tenant quotas) and its AsyncDriver on the
+    # real clock; a drift-gated warm and cold refresh; the bf16 tenant
+    # published to shared memory and scored by a spawned process.
+    from repro_torch.serve import (AdmissionController, AsyncDriver,
+                                   ModelCache, ModelRegistry,
+                                   QuotaExceededError, ScoringService,
+                                   ShmKeyError, attach, live_refs, publish,
+                                   serve_async)
+    phase_t0 = time.perf_counter()
+    reset_counts()
+    fleet_m = M - n_delta                 # 7783 rows; refresh appends 409
+    wide_spec = SlabSpec(nu1=0.5, nu2=0.05, eps=0.5, kernel=rbf(1.0 / WIDE_D))
+    reg = ModelRegistry(ModelCache())
+    # The recipes leave P to the solver, so that fit_update scales it with
+    # the delta (P = 64: fupdate's wide classes), as a streaming refresh
+    # does.
+    reg.register("main-f32", X_np[:fleet_m], spec, quota=FLEET_QUOTA,
+                 tol=TOL)
+    reg.register("main-bf16", X_np[:fleet_m], spec, quota=FLEET_QUOTA,
+                 tol=TOL, precision="bf16")
+    reg.register("wide-bf16", make_toy(SEED, SUPPORT, d=WIDE_D)[0],
+                 wide_spec, quota=FLEET_QUOTA, tol=TOL, precision="bf16")
+    tenants = reg.names()
+    width = {"main-f32": D, "main-bf16": D, "wide-bf16": WIDE_D}
+    first = {}
+    for name in tenants:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first[name] = reg.get(name)
+        torch.cuda.synchronize()
+        check(first[name].fit_iters > 0, f"{name}: the fit took no "
+              f"iteration")
+        say(f"[fleet] {name}: fit on first use m={first[name].artifact.m} "
+            f"d={first[name].d} iters={first[name].fit_iters} "
+            f"n_sv={first[name].n_sv} seconds={time.perf_counter() - t0:.3f}")
+
+    pools = {D: make_toy(SEED + 11, 2 * BUCKETS[-1], d=D)[0],
+             WIDE_D: make_toy(SEED + 12, BUCKETS[-1], d=WIDE_D)[0]}
+    frng = np.random.default_rng(SEED + 13)
+
+    def request(name, n):
+        pool = pools[width[name]]
+        off = int(frng.integers(0, pool.shape[0] - n + 1))
+        return pool[off:off + n]
+
+    # BucketStats keeps launches, rows and summed seconds; the seconds of
+    # each warm launch (a bucket's first on a scorer is cold, as in its
+    # mean) are kept here as well, for percentiles: the record of each
+    # BucketStats the tenants' services file a launch under is wrapped
+    # (the instance's, not the class's). A rebuilt service carries its
+    # predecessor's BucketStats over.
+    lat = {}
+
+    def timed(bs):
+        if id(bs) not in lat:
+            lat[id(bs)] = []
+            rec = bs.record
+
+            def record(queries, requests, dt, cold=False):
+                if not cold:
+                    lat[id(bs)].append(dt)
+                return rec(queries, requests, dt, cold)
+            bs.record = record
+        return bs
+
+    class TimedStats(dict):
+        def setdefault(self, bucket, default=None):
+            return timed(super().setdefault(bucket, default))
+
+    def watch(svc):
+        svc.stats = TimedStats({b: timed(s) for b, s in svc.stats.items()})
+
+    ctrl = AdmissionController(reg, max_batch=FLEET_MAX_BATCH)
+    for name in tenants:
+        watch(ctrl.service(name))
+    fleet_out = []       # (tenant, model it must score like, rows, scores)
+    refreshes = {}
+
+    async def wave(items, models):
+        outs = await asyncio.gather(*(
+            serve_async(name, q, controller=ctrl,
+                        deadline=time.monotonic() + FLEET_DEADLINE_S)
+            for name, q in items))
+        fleet_out.extend((name, models[name], q, out)
+                      for (name, q), out in zip(items, outs))
+
+    async def drive():
+        for _ in range(FLEET_WAVES):
+            # At most FLEET_PER_WAVE requests a tenant a wave, each wave
+            # awaited: a window holds at most 3 requests (<= 7096 rows)
+            # when a 4th arrives, so no traffic request passes the quota.
+            items = [(name, request(name, int(frng.choice(REQUEST_SIZES))))
+                     for name in tenants for _ in range(FLEET_PER_WAVE)]
+            frng.shuffle(items)
+            await wave(items, first)
+        # One group that spans buckets (4096 + 1000 rows) and one request
+        # over its tenant's quota (3000 rows onto 5096 queued).
+        far = time.monotonic() + 3600
+        held = [request("main-bf16", n) for n in (4096, 1000)]
+        handles = [ctrl.submit("main-bf16", q, deadline=far) for q in held]
+        try:
+            ctrl.submit("main-bf16", request("main-bf16", 3000),
+                        deadline=far)
+            rejected = None
+        except QuotaExceededError as e:
+            rejected = e
+        groups0 = ctrl.service("main-bf16").flush_groups
+        span = ctrl.flush_model("main-bf16")
+        check(span == 2 and ctrl.service("main-bf16").flush_groups
+              == groups0 + 1, f"the 5096-row group took {span} launches")
+        fleet_out.extend(("main-bf16", first["main-bf16"], q, h.result())
+                      for q, h in zip(held, handles))
+        # The drift-gated refresh: the 409 remaining rows route warm and
+        # land at the [main] shape; the same rows shifted by 5 route cold.
+        for label, app in (("warm", X_np[fleet_m:]),
+                           ("cold", X_np[fleet_m:] + 5.0)):
+            v0 = reg.version("main-f32")
+            by0 = dict(fup.FUPDATE.by_entry)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sm_r = reg.refresh("main-f32", append=app)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            by = {e: n - by0.get(e, 0)
+                  for e, n in fup.FUPDATE.by_entry.items()}
+            n_nar = sum(n for e, n in by.items() if e in narrow)
+            refreshes[label] = (sm_r, secs, reg.refresh_stats("main-f32"),
+                                {"narrow": n_nar,
+                                 "wide": sum(by.values()) - n_nar},
+                                reg.version("main-f32") - v0)
+        # Traffic after the refresh scores against the new model.
+        watch(ctrl.service("main-f32"))
+        await wave([("main-f32", request("main-f32", n))
+                    for n in (64, 1000, 4096)],
+                   {"main-f32": reg.get("main-f32")})
+        return rejected, span
+
+    with AsyncDriver(ctrl) as driver:
+        t0 = time.perf_counter()
+        rejected, span = asyncio.run(drive())
+        drive_s = time.perf_counter() - t0
+    check(not driver.alive and driver.crashed is None,
+          f"the driver did not stop cleanly: {driver.crashed!r}")
+    check(rejected is not None and rejected.queued_rows == 5096
+          and sum(s["rejected"] for s in ctrl.stats_dict().values()) == 1,
+          f"quota: {rejected!r}, {ctrl.stats_dict()}")
+    sm_new = reg.get("main-f32")
+    check(ctrl.service("main-f32").scorer.model is sm_new,
+          "the controller still serves the replaced main-f32 model")
+    for label, (sm_r, _, st, cls_, bumped) in refreshes.items():
+        drift = st["last_drift"]
+        check(drift is not None and drift.drifted == (label == "cold")
+              and st["modes"] == {"warm": 1, "cold": int(label == "cold")}
+              and bumped == 1,
+              f"{label} refresh: {st['modes']} drift {drift} version +"
+              f"{bumped}")
+    sm_w, _, st_w, cls_w, _ = refreshes["warm"]
+    check(st_w["last_warm"]["mode"] == "warm" and sm_w.artifact.m == M,
+          f"warm refresh: {st_w['last_warm']} m={sm_w.artifact.m}")
+    check(cls_w["narrow"] == 0 and cls_w["wide"] > 0,
+          f"warm refresh fupdate launches {cls_w}: not all wide")
+
+    # Shared memory: main-bf16 published; a spawned process on the card
+    # attaches it and scores 1024 rows.
+    sm_pub = first["main-bf16"]
+    with tempfile.TemporaryDirectory() as spool:
+        key = f"{spool}/main-bf16"    # /dev/shm is the host's: our own key
+        lease = publish(sm_pub, key, dir=spool)
+        out_npy = str(Path(spool) / "child_scores.npy")
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", FLEET_CHILD, str(src), key, spool,
+             str(SEED + 14), out_npy], capture_output=True, text=True,
+            timeout=600)
+        child_s = time.perf_counter() - t0
+        check(child.returncode == 0,
+              f"the attaching process failed: {child.stderr[-2000:]}")
+        got = json.loads(child.stdout.strip().splitlines()[-1])
+        refs_after = live_refs(key, dir=spool)
+        child_scores = np.load(out_npy)
+        lease.close()
+        try:
+            attach(key, dir=spool)
+            unlinked = False
+        except ShmKeyError:
+            unlinked = True
+    check(got["live_refs"] == 2 and refs_after == 1 and unlinked,
+          f"shm leases {got['live_refs']} -> {refs_after}, unlinked "
+          f"{unlinked}")
+    check(got["device"].startswith("cuda"), f"attached on {got['device']}")
+    fleet_launches = {"fupdate": fupdate_classes(),
+                      "decision": dec.DECISION.launches}
+    path_launches["fleet"] = fleet_launches
+
+    # The checks (their launches are not the path's). Each result against
+    # the direct score of the model that served it, for the same rows:
+    # bitwise at d <= 640, where every decision entry of a class adds each
+    # sum in one order; at d = 768 within TOLERANCES (PERF.md [fleet]).
+    q_shm = make_toy(SEED + 14, 1024, d=D)[0]
+    check(sm_pub.score(q_shm).tobytes() == child_scores.tobytes(),
+          "the attached model's scores are not bitwise the publisher's")
+    n_bitwise, worst_wide = 0, 0.0
+    for name, sm_ref, q, out in fleet_out:
+        ref = sm_ref.score(q)
+        check(out.shape == ref.shape and bool(np.all(np.isfinite(out))),
+              f"{name}: scores {out.shape} for {len(q)} rows")
+        same = out.tobytes() == ref.tobytes()
+        n_bitwise += same
+        if width[name] <= 640:
+            check(same, f"{name}: {len(q)} rows not bitwise the direct "
+                  f"score (max diff {np.max(np.abs(out - ref)):.3e})")
+        else:
+            np.testing.assert_allclose(out, ref,
+                                       **truth_tolerance("f32", ref))
+            worst_wide = max(worst_wide, float(np.max(np.abs(out - ref))))
+    last = fleet_out[-1]
+    check(first["main-f32"].score(last[2]).tobytes() != last[3].tobytes(),
+          "traffic after the refresh scored like the replaced model")
+    n_traffic = FLEET_WAVES * FLEET_PER_WAVE * len(tenants)
+    say(f"[fleet] traffic: {n_traffic} requests in {FLEET_WAVES} waves, "
+        f"then 2 held + 1 rejected + 3 after the refresh; the whole drive "
+        f"(refreshes included) seconds={drive_s:.3f}; {n_bitwise} of "
+        f"{len(fleet_out)} results bitwise the direct score (wide-bf16 "
+        f"max_abs={worst_wide:.3e}); quota rejection: {rejected}; 4096 + "
+        f"1000 rows flushed as one group in {span} launches")
+    for name, st_ in ctrl.stats_dict().items():
+        w = st_["windows"]
+        say(f"[fleet] {name}: windows flushed={w['flushed']} opened="
+            f"{w['opened']} inline={w['inline_flushes']} mean_fill_rows="
+            f"{w['flushed_rows'] / max(1, w['flushed']):.1f} rejected="
+            f"{st_['rejected']}")
+        svc = ctrl.service(name)
+        for b in sorted(svc.stats):
+            bs = svc.stats[b]
+            xs = sorted(lat.get(id(bs), []))
+            warm = (f"warm={len(xs)} p50_ms={1e3 * xs[len(xs) // 2]:.4f} "
+                    f"p99_ms="
+                    f"{1e3 * xs[min(len(xs) - 1, int(0.99 * len(xs)))]:.4f}"
+                    if xs else "warm none")
+            say(f"[fleet] {name} bucket={b}: launches={bs.batches} rows="
+                f"{bs.queries} requests={bs.requests} cold="
+                f"{bs.cold_batches} (cold_ms={1e3 * bs.cold_s:.4f}) {warm} "
+                f"mean_ms={1e3 * bs.mean_latency_s:.4f}")
+    # Each refresh's objective against a cold fit of the same rows: the
+    # [main] f32 fit (X_np) for the warm one; for the cold one (8601 rows,
+    # which the refresh fitted with the shrinking driver) the blocked solve.
+    blk = repro_torch.fit(np.concatenate([X_np, X_np[fleet_m:] + 5.0]), spec,
+                          strategy="pallas", tol=TOL)
+    for label, (sm_r, secs, st, cls_, _) in refreshes.items():
+        art = sm_r.artifact
+        Xd = torch.as_tensor(art.X, device=dev)
+        o_r = float(dual_objective_matfree(
+            torch.as_tensor(art.gamma, device=dev).double(), Xd.double(),
+            spec.kernel))
+        cold_fit = fits["f32"][0] if label == "warm" else blk
+        o_c = objective(cold_fit, Xd)
+        tol_o = truth_tolerance("f32", [o_c])
+        check(abs(o_r - o_c) <= tol_o["atol"] + tol_o["rtol"] * abs(o_c),
+              f"{label} refresh objective {o_r} vs cold {o_c}")
+        drift = st["last_drift"]
+        say(f"[fleet] refresh {label}: m={art.m} drift_ks="
+            f"{drift.statistic:.4f} (threshold {drift.threshold}) iters="
+            f"{sm_r.fit_iters} seconds={secs:.3f} fupdate_launches={cls_} "
+            f"objective={o_r:.9f}; cold fit of the same rows: iters="
+            f"{int(cold_fit.iters)} objective={o_c:.9f}")
+    say(f"[fleet] shm: main-bf16 published ({sm_pub.n_sv} support rows); a "
+        f"spawned process made the card's context in "
+        f"{got['context_s']:.4f} s, then attached it in "
+        f"{got['attach_s']:.4f} s on {got['device']} (the process: "
+        f"{child_s:.2f} s) and scored 1024 rows bitwise the publisher's; "
+        f"leases 2 -> {refs_after}, then unlinked")
+    # Per bucket on the replaced main-f32 model, one thread, nothing else
+    # running: the scorer's direct latency; a ScoringService's launch
+    # latency (its BucketStats) and its whole submit + flush (host clock,
+    # numpy in and out). Beside the traffic's launch latency above.
+    sc = first["main-f32"].scorer()
+    quiet = ScoringService(sc)
+    for b in BUCKETS:
+        q_b = pools[D][:b]
+        direct, launch, whole = [], [], []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            sc.score(q_b)
+            direct.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            quiet.submit(q_b)
+            quiet.flush()
+            whole.append(time.perf_counter() - t0)
+            launch.append(quiet.stats[b].last_s)
+        for xs in (direct, launch, whole):
+            xs.sort()
+        say(f"[fleet] main-f32 bucket={b} alone: scorer direct p50_ms="
+            f"{1e3 * direct[10]:.4f} min_ms={1e3 * direct[0]:.4f}; service "
+            f"launch p50_ms={1e3 * launch[10]:.4f}, submit+flush p50_ms="
+            f"{1e3 * whole[10]:.4f}")
+    say(f"[fleet] phase seconds={time.perf_counter() - phase_t0:.2f} "
+        f"launches={fleet_launches}")
 
     # -- 4. the autotune path ----------------------------------------------
     for kern_ in (fup.FUPDATE, dec.DECISION, gram_ops.GRAM):

@@ -13,8 +13,8 @@ recipe) and packs the model for scoring.
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card and without that request they raise.
 The sharded solver (``strategy="distributed"``/``"sharded"``, ``mesh=``)
-is not ported yet and raises ``NotImplementedError`` naming its ROADMAP
-item.
+and the sharded scorer (``ServingModel.scorer(mesh=...)``) are not
+ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -269,20 +269,24 @@ def fit_update(
 
 
 def serve(X=None, spec: Optional[SlabSpec] = None, *,
-          model: Optional[str] = None, **kwargs):
+          model: Optional[str] = None, registry=None,
+          quota: Optional[int] = None, **kwargs):
     """Train-then-serve: a warm ``ServingModel`` ready to ``score(q)``.
 
     Hits the process-wide warm-model cache (fit + SV compaction + packing
     happen once per (spec, data, kwargs) key). kwargs flow to
     ``ModelCache.get_or_fit`` (cache=, offsets=, sv_threshold=, tn=,
     precision=) and on to ``fit`` (strategy, device, tol, P, ...).
-    Routing by ``model=`` name is ROADMAP A.8 (serving control plane).
+
+    ``model=`` switches on multi-model routing: with ``X`` the recipe is
+    registered under that name in ``registry`` (default: the
+    process-wide ``repro_torch.serve.default_registry()``; idempotent — a
+    *different* recipe under the same name raises
+    ``DuplicateModelError``) and the registry's warm model comes back;
+    without ``X`` it is a pure name lookup (``UnknownModelError`` if
+    absent). ``quota=`` records the per-model admission budget the
+    ``AdmissionController`` enforces.
     """
-    if model is not None:
-        raise NotImplementedError(
-            "serve(model=...) needs the model registry: ROADMAP A.8 "
-            "(serving control plane)")
-    if X is None:
-        raise TypeError("serve() needs X")
-    from repro_torch.serve.model_cache import serve as cache_serve
-    return cache_serve(X, spec, **kwargs)
+    from repro_torch.serve.registry import serve as _serve
+    return _serve(X, spec, model=model, registry=registry, quota=quota,
+                  **kwargs)

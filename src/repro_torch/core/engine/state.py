@@ -72,7 +72,7 @@ class WarmStartInfo:
     overlap_frac: float  # n_overlap / m — the fallback-routing signal
 
 
-def _host_f32(X) -> np.ndarray:
+def host_f32(X) -> np.ndarray:
     """A C-contiguous f32 numpy copy of rows on any device."""
     if isinstance(X, torch.Tensor):
         X = X.detach().to(torch.float32).cpu().numpy()
@@ -84,7 +84,7 @@ def row_hashes(X) -> np.ndarray:
     read from a host copy: a row hashes the same in both packages and on
     any device. A hash collision here would seed a *wrong f-cache*, which
     the solver trusts rather than repairs, so no positional sample."""
-    a = _host_f32(X)
+    a = host_f32(X)
     if a.ndim != 2:
         raise ValueError(f"expected (m, d) rows, got shape {a.shape}")
     out = np.empty(a.shape[0], np.uint64)
@@ -173,6 +173,10 @@ class SolverArtifact:
     def m(self) -> int:
         return int(self.X.shape[0])
 
+    def support_mask(self, threshold: float = 1e-7) -> np.ndarray:
+        """Rows whose coefficient is nonzero (|gamma| > threshold)."""
+        return np.abs(self.gamma) > threshold
+
     def save(self, path: str) -> None:
         """Checkpoint to one ``.npz`` (spec flattened to scalars), in the
         JAX package's layout."""
@@ -218,9 +222,9 @@ def artifact_from_result(res, *, precision: str = "f32",
     if f is None:
         f = raw_scores_blocked(model.X.to(torch.float32), model.gamma,
                                spec.kernel)
-    X = _host_f32(model.X)
+    X = host_f32(model.X)
     return SolverArtifact(
-        gamma=_host_f32(model.gamma), f=_host_f32(f),
+        gamma=host_f32(model.gamma), f=host_f32(f),
         rho1=float(model.rho1), rho2=float(model.rho2), X=X,
         hashes=hashes if hashes is not None else row_hashes(X),
         spec=spec, precision=precision)
@@ -250,7 +254,7 @@ def prepare_warm_start(prev: SolverArtifact, X_new, spec, *,
         precision = prev.precision
     device = (X_new.device if isinstance(X_new, torch.Tensor)
               else torch.device("cpu"))
-    X32 = _host_f32(X_new)
+    X32 = host_f32(X_new)
     m, d = X32.shape
     hi, lo, total = spec.upper(m), spec.lower(m), spec.total()
 
@@ -279,7 +283,7 @@ def prepare_warm_start(prev: SolverArtifact, X_new, spec, *,
         s_fresh = spec.kernel.cross(Xf, Xr) @ dev(g_assumed)
         if prev_exp.size:
             s_fresh = s_fresh + spec.kernel.cross(Xf, X_exp) @ dev(g_exp)
-        f_seed[new_fresh] = _host_f32(s_fresh)
+        f_seed[new_fresh] = host_f32(s_fresh)
 
     gamma0 = clip_to_box(g_assumed, hi=hi, lo=lo, total=total)
     moved = np.nonzero(gamma0 != g_assumed)[0]

@@ -80,16 +80,31 @@ class ServingModel:
     def d(self) -> int:
         return int(self.model.X.shape[1])
 
-    def scorer(self):
-        """The memoized ``BatchScorer`` for this model."""
+    def scorer(self, **kwargs):
+        """The batched scoring engine for this model.
+
+        No kwargs -> one memoized default ``BatchScorer`` (so repeated
+        ``score`` calls share it); with kwargs a fresh scorer is built
+        (``mesh=`` names the sharded path, which raises until it is
+        ported).
+        """
         from repro_torch.serve.scorer import BatchScorer
+        if kwargs:
+            return BatchScorer(self, **kwargs)
         if self._scorer is None:
             self._scorer = BatchScorer(self)
         return self._scorer
 
-    def score(self, q):
+    def score(self, q, **kwargs):
         """Slab decision values for queries (n, d) -> (n,)."""
-        return self.scorer().score(q)
+        return self.scorer(**kwargs).score(q)
+
+    def predict(self, q, **kwargs):
+        """+1 inside the slab, -1 outside (numpy in, numpy out)."""
+        s = self.score(q, **kwargs)
+        if isinstance(s, np.ndarray):
+            return np.where(s >= 0, 1, -1)
+        return torch.where(s >= 0, 1, -1)
 
 
 def pack_model(model: OCSSVMModel, *, sv_threshold: float = 1e-7,
@@ -149,6 +164,57 @@ def fingerprint_array(X) -> Tuple:
     return (tuple(a.shape), dtype, digest)
 
 
+class ExtendableFingerprint:
+    """Incremental ``fingerprint_array``: O(delta rows) keying for appends.
+
+    sha1 is a streaming hash, so while the WHOLE array is hashed (nbytes
+    within ``_HASH_SAMPLE_BYTES``; above it ``fingerprint_array`` hashes a
+    strided sample and the prefix property breaks), hashing appended rows
+    into a copy of the saved sha1 state gives exactly
+    ``fingerprint_array(concat([X, X_app]))``. Tensors hash as
+    ``fingerprint_array`` hashes them (bf16 as its bits, named
+    "bfloat16"), so the keys equal the JAX package's for the same rows.
+
+    ``extend`` returns the extended fingerprint, or None when only a full
+    re-hash can be exact (sampled regime, dtype or width mismatch).
+    """
+
+    __slots__ = ("shape", "dtype", "nbytes", "_h", "_key")
+
+    def __init__(self, X):
+        a, self.dtype = _host_array(X)
+        self.shape = tuple(a.shape)
+        self.nbytes = a.nbytes
+        self._h = (hashlib.sha1(a.tobytes())
+                   if a.ndim >= 1 and a.nbytes <= _HASH_SAMPLE_BYTES
+                   else None)
+        # hexdigest() does not finalize: _h stays extendable.
+        self._key = ((self.shape, self.dtype, self._h.hexdigest())
+                     if self._h is not None else fingerprint_array(X))
+
+    @property
+    def key(self) -> Tuple:
+        """== ``fingerprint_array`` of the array this fingerprint covers."""
+        return self._key
+
+    def extend(self, X_app) -> Optional["ExtendableFingerprint"]:
+        """Fingerprint of ``concat([X, X_app], axis=0)``, hashing only
+        ``X_app`` — or None when only a full re-hash can be exact."""
+        a, dtype = _host_array(X_app)
+        if (self._h is None or dtype != self.dtype
+                or tuple(a.shape[1:]) != self.shape[1:]
+                or self.nbytes + a.nbytes > _HASH_SAMPLE_BYTES):
+            return None
+        out = object.__new__(ExtendableFingerprint)
+        out.shape = (self.shape[0] + a.shape[0],) + self.shape[1:]
+        out.dtype = self.dtype
+        out.nbytes = self.nbytes + a.nbytes
+        out._h = self._h.copy()
+        out._h.update(a.tobytes())
+        out._key = (out.shape, out.dtype, out._h.hexdigest())
+        return out
+
+
 def spec_key(spec: SlabSpec) -> Tuple:
     spec = concrete_spec(spec)
     k = spec.kernel
@@ -167,17 +233,25 @@ def _kwarg_key(v) -> Tuple:
 def recipe_key(X, spec: Optional[SlabSpec] = None, *,
                offsets: str = "paper", sv_threshold: float = 1e-7,
                tn: int = 512, precision: str = "f32",
+               _fingerprint: Optional[Tuple] = None,
                **fit_kwargs) -> Tuple:
     """The full cache key for one serve recipe: the concretized spec, the
     data fingerprint, the offset policy, the pack shape, the precision,
-    and every fit kwarg."""
+    and every fit kwarg. The registry uses the same tuple as recipe
+    identity, so "same recipe" means "same cache entry".
+
+    ``_fingerprint`` substitutes a precomputed data fingerprint (an
+    ``ExtendableFingerprint.key``) for ``fingerprint_array(X)``; it MUST
+    equal what ``fingerprint_array`` would return.
+    """
     if spec is None:
         spec = SlabSpec()
     if offsets not in ("paper", "quantile"):
         raise ValueError(f"unknown offsets {offsets!r}; "
                          "expected 'paper' or 'quantile'")
     check_precision(precision)
-    return (spec_key(spec), fingerprint_array(X), offsets, sv_threshold,
+    fp = fingerprint_array(X) if _fingerprint is None else _fingerprint
+    return (spec_key(spec), fp, offsets, sv_threshold,
             tn, precision,
             tuple(sorted((k, _kwarg_key(v)) for k, v in
                          fit_kwargs.items())))
@@ -209,6 +283,7 @@ class ModelCache:
         self.maxsize = maxsize
         self._entries: OrderedDict = OrderedDict()
         self._inflight: dict = {}
+        self._gen = 0           # bumped by clear(): stale fits don't insert
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
@@ -216,10 +291,40 @@ class ModelCache:
     def __len__(self) -> int:
         return len(self._entries)
 
+    def lookup(self, key: Tuple) -> Optional[ServingModel]:
+        """Warm-path getter by precomputed ``recipe_key``: the cached
+        model (counted as a hit, LRU recency refreshed) or None. A miss
+        counts nothing; callers fall back to ``get_or_fit``."""
+        with self._lock:
+            served = self._entries.get(key)
+            if served is not None:
+                self.hits += 1
+                self._entries.move_to_end(key)
+            return served
+
+    def evict(self, key: Tuple) -> bool:
+        """Drop one entry by its ``recipe_key``; True iff it was cached.
+        A fit in flight for the key is not cancelled, and models handed
+        out earlier stay valid."""
+        with self._lock:
+            return self._entries.pop(key, None) is not None
+
+    def clear(self) -> None:
+        """Empty the cache and counters. Fits in flight complete into the
+        pre-clear generation: their waiters get a model, and nothing
+        re-appears in the cleared cache."""
+        with self._lock:
+            self._entries.clear()
+            self._inflight.clear()
+            self._gen += 1
+            self.hits = 0
+            self.misses = 0
+
     def get_or_fit(self, X, spec: Optional[SlabSpec] = None, *,
                    offsets: str = "paper", sv_threshold: float = 1e-7,
                    tn: int = 512, precision: str = "f32",
                    warm_start=None, warm_stats_out: Optional[dict] = None,
+                   _key: Optional[Tuple] = None,
                    **fit_kwargs) -> ServingModel:
         """Return a warm ``ServingModel``, fitting on miss.
 
@@ -234,12 +339,14 @@ class ModelCache:
         ``fit_update``. It is NOT part of the key: the seed changes how
         fast the optimum is reached, not (within tolerance) which model
         comes out. ``warm_stats_out`` receives ``fit_update``'s overlap /
-        mode stats when the warm path fits.
+        mode stats when the warm path fits. ``_key`` substitutes a
+        precomputed ``recipe_key`` (the registry's delta-refresh keying).
         """
         if spec is None:
             spec = SlabSpec()
-        key = recipe_key(X, spec, offsets=offsets, sv_threshold=sv_threshold,
-                         tn=tn, precision=precision, **fit_kwargs)
+        key = _key if _key is not None else recipe_key(
+            X, spec, offsets=offsets, sv_threshold=sv_threshold, tn=tn,
+            precision=precision, **fit_kwargs)
 
         while True:
             with self._lock:
@@ -251,6 +358,7 @@ class ModelCache:
                 if flight is None:
                     flight = self._inflight[key] = _InFlight()
                     self.misses += 1
+                    gen = self._gen
                     break   # this thread owns the fit
             flight.done.wait()
             if flight.exc is None and flight.result is not None:
@@ -283,10 +391,11 @@ class ModelCache:
             raise
 
         with self._lock:
-            self._entries[key] = served
-            self._entries.move_to_end(key)
-            while len(self._entries) > self.maxsize:
-                self._entries.popitem(last=False)
+            if self._gen == gen:   # clear() since the miss -> don't insert
+                self._entries[key] = served
+                self._entries.move_to_end(key)
+                while len(self._entries) > self.maxsize:
+                    self._entries.popitem(last=False)
             if self._inflight.get(key) is flight:
                 self._inflight.pop(key)
         flight.result = served

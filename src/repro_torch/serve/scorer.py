@@ -35,15 +35,26 @@ def bucket_for(n: int) -> int:
 
 
 class BatchScorer:
-    """Scores query batches against one ``ServingModel`` on its device."""
+    """Scores query batches against one ``ServingModel`` on its device.
 
-    def __init__(self, model: ServingModel):
+    ``mesh=`` (the JAX package's sharded path) is not ported yet and
+    raises ``NotImplementedError``.
+    """
+
+    def __init__(self, model: ServingModel, *, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "a sharded scorer (mesh=) needs the distributed path: "
+                "ROADMAP A.9 (distributed)")
         self.model = model
         self.device = model.t_pad.device
         self._d_pad = int(model.t_pad.shape[1])
         # The slab offsets as host floats, read once: the kernel takes
         # them as scalars, so no launch waits on a device read.
         self._rho = (float(model.rho1), float(model.rho2))
+        # Buckets warmup() has launched (and built the kernel for): the
+        # service records a warmed bucket's first launch as warm.
+        self.warmed_buckets: set = set()
 
     # -- padding ------------------------------------------------------------
     def _pad_queries(self, q, rows: int) -> torch.Tensor:
@@ -119,5 +130,6 @@ class BatchScorer:
             q = torch.zeros((b, self.model.d), dtype=torch.float32,
                             device=self.device)
             self._score_once(q)
+            self.warmed_buckets.add(b)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

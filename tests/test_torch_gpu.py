@@ -644,3 +644,102 @@ def test_warm_reconcile_matches_raw_scores(cuda, precision):
     assert tfup.FUPDATE.last_config.entry not in {
         c.entry for c in ttil.menu("fupdate", 16)}
     _close(f, raw_scores_blocked(prov.X, ws.gamma0, spec.kernel))
+
+
+# -- the serving control plane on the card ---------------------------------------
+
+@pytest.mark.parametrize("precision,d", [("f32", 128), ("bf16", 128),
+                                         ("bf16", 768)])
+def test_service_and_driver_score_bitwise_like_the_scorer(cuda, precision,
+                                                          d):
+    """Requests coalesced by the service (groups padded to other buckets
+    than each request alone, one group spanning two buckets) and flushed
+    by the admission driver's thread: every request's scores are bitwise
+    the scorer's for that request alone (each menu entry keeps every
+    sum's order)."""
+    import asyncio
+    import time
+    from repro_torch.serve import (AdmissionController, AsyncDriver,
+                                   ScoringService)
+    sm = _packed_model(cuda, precision, d=d)
+    rng = np.random.default_rng(22)
+    sizes = (1, 63, 64, 65, 300, 1000, 4100, 7)
+    qs = [(rng.standard_normal((n, d)) / np.sqrt(d)).astype(np.float32)
+          for n in sizes]
+    alone = [sm.score(q) for q in qs]
+    svc = ScoringService(sm.scorer())
+    handles = [svc.submit(q) for q in qs]
+    n0 = tdec.DECISION.launches
+    launches = svc.flush()
+    assert tdec.DECISION.launches - n0 == launches >= 3
+    assert len(svc.stats) >= 2
+    for h, ref in zip(handles, alone):
+        assert h.result().tobytes() == ref.tobytes()
+
+    class OneModel:
+        def get(self, name):
+            return sm
+
+        def quota(self, name):
+            return None
+
+    ctrl = AdmissionController(OneModel())
+
+    async def main():
+        futs = [ctrl.submit_async("m", q, deadline=time.monotonic() + 0.05)
+                for q in qs]
+        return await asyncio.gather(*futs)
+
+    with AsyncDriver(ctrl):
+        got = asyncio.run(main())
+    for g, ref in zip(got, alone):
+        assert g.tobytes() == ref.tobytes()
+
+
+@pytest.mark.parametrize("precision", tprec.PRECISIONS)
+def test_shm_round_trip_on_the_card_is_bitwise(cuda, precision, tmp_path):
+    from repro_torch.serve import attach, live_refs, publish
+    sm = _packed_model(cuda, precision)
+    d = str(tmp_path)
+    key = f"{d}/card-key"      # /dev/shm is the host's: a key of our own
+    lease = publish(sm, key, dir=d)
+    try:
+        sm2, lease2 = attach(key, dir=d)
+        with lease2:
+            assert sm2.t_pad.device.type == "cuda"
+            assert sm2.t_pad.dtype == sm.t_pad.dtype
+            for a, b in ((sm2.t_pad, sm.t_pad), (sm2.t_norms, sm.t_norms),
+                         (sm2.gamma_pad, sm.gamma_pad)):
+                assert torch.equal(a.view(torch.int8), b.view(torch.int8))
+            q = np.random.default_rng(23).standard_normal(
+                (1000, 128)).astype(np.float32)
+            assert sm2.score(q).tobytes() == sm.score(q).tobytes()
+            assert live_refs(key, dir=d) == 2
+    finally:
+        lease.close()
+    assert live_refs(key, dir=d) == 0
+
+
+def test_registry_refresh_on_the_card_routes_warm_then_cold(cuda):
+    """A drift-gated refresh on the card: an in-band append refits warm
+    through fit_update (wide fupdate launches only), a shifted one cold,
+    and the controller's rebuilt service scores against the new model."""
+    from repro_torch.serve import AdmissionController, ModelRegistry
+    X, _ = make_toy(5, 3000, d=32)
+    spec = SlabSpec(nu1=0.5, nu2=0.05, eps=0.5, kernel=tkf.rbf(1 / 32))
+    reg = ModelRegistry()
+    reg.register("a", X[:2850], spec, tol=1e-3)
+    ctrl = AdmissionController(reg)
+    svc1 = ctrl.service("a")
+    n0 = tfup.FUPDATE.launches
+    reg.refresh("a", append=X[2850:])
+    st = reg.refresh_stats("a")
+    assert st["modes"] == {"warm": 1, "cold": 0}
+    assert tfup.FUPDATE.launches > n0
+    reg.refresh("a", append=X[:150] + 5.0)
+    assert reg.refresh_stats("a")["modes"] == {"warm": 1, "cold": 1}
+    assert ctrl.service("a") is not svc1
+    q = X[:70]
+    h = ctrl.submit("a", q)
+    ctrl.drain()
+    assert h.result().tobytes() == reg.get("a").score(q).tobytes()

@@ -35,8 +35,8 @@ import repro_torch
 import repro_torch.core as tc
 from repro_torch import convert
 from repro_torch.serve import (BUCKETS, BatchScorer, ModelCache,
-                               bucket_for, fingerprint_array, pack_model,
-                               recipe_key)
+                               ModelRegistry, bucket_for, fingerprint_array,
+                               pack_model, recipe_key)
 from repro_torch.data import make_toy
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -212,12 +212,27 @@ def test_serve_routes_and_rejects():
     a = repro_torch.serve(X, T_SPEC, cache=cache, device="cpu")
     assert repro_torch.serve(X, T_SPEC, cache=cache, device="cpu") is a
     assert cache.hits == 1
-    with pytest.raises(NotImplementedError, match="A.8"):
-        repro_torch.serve(X, T_SPEC, model="tenant-a")
+    # by name through a registry; only the sharded scorer still raises
+    reg = ModelRegistry()
+    b = repro_torch.serve(X, T_SPEC, model="tenant-a", registry=reg,
+                          device="cpu")
+    assert repro_torch.serve(model="tenant-a", registry=reg) is b
+    assert np.array_equal(b.score(X[:5]), a.score(X[:5]))
+    with pytest.raises(NotImplementedError, match="A.9"):
+        b.scorer(mesh=object())
     # a warm start must be a prior fit: on a miss (the seed is no part of
     # the key, so X itself would hit) fit_update refuses anything else
     with pytest.raises(TypeError, match="SolverArtifact"):
         cache.get_or_fit(X[:40], T_SPEC, warm_start=object(), device="cpu")
+
+
+def test_serve_surface_equals_the_reference():
+    import repro.serve as jserve
+    import repro_torch.serve as tserve
+    assert tserve.__all__ == jserve.__all__
+    assert all(hasattr(tserve, n) for n in tserve.__all__)
+    assert repro_torch.__all__ == repro.__all__
+    assert repro_torch.serve_async is tserve.serve_async
 
 
 # -- import hygiene ---------------------------------------------------------------
@@ -229,6 +244,10 @@ def test_port_sources_import_nothing_of_jax():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
+    serve_dir = ROOT / "src" / "repro_torch" / "serve"
+    assert {serve_dir / f"{m}.py" for m in (
+        "drift", "service", "registry", "admission", "async_driver",
+        "shm_registry")} <= set(files)
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -246,7 +265,9 @@ def test_port_sources_import_nothing_of_jax():
 def test_port_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch; repro_torch.fit; repro_torch.serve; "
             "import repro_torch.convert, repro_torch.serve.scorer, "
-            "repro_torch.kernels._build; "
+            "repro_torch.kernels._build, repro_torch.serve.shm_registry, "
+            "repro_torch.serve.async_driver, repro_torch.serve.drift; "
+            "repro_torch.serve_async; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
