@@ -97,11 +97,17 @@ without printing the result line:
               events, the top kernels by device time and the top
               operations by host time.
 
-The last three lines are the card's name and power limit as nvidia-smi
-gives them, a JSON line with one entry per kernel, and the result line
+The last three lines are a JSON line with one entry per kernel, the
+card's name and power limit as nvidia-smi gives them, and the result line
 ``{"ok": true, "device": {...}}``. Needs one card, the CUDA toolkit
 (nvcc) and the repository's ``src/`` beside this file; imports nothing of
 JAX.
+
+    python3 chip_smoke.py --cards N
+
+runs [dist] alone over N NCCL ranks, one card each (the cross-card path
+a one-card run cannot reach), held against single-device fits of the
+same rows on the first card; it needs N cards.
 """
 from __future__ import annotations
 
@@ -112,6 +118,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 SEED = 0
 M, D = 8192, 128          # the largest m "auto" solves as one blocked solve
@@ -162,6 +169,11 @@ lease.close()
 print(json.dumps({"attach_s": attach_s, "context_s": context_s,
                   "live_refs": refs, "device": str(sm.t_pad.device)}))
 """
+# [dist]: requests of twice each bucket (per rank: every bucket, 64-4096)
+# and one odd size; each spawned job's time limit (also its process
+# group's timeout).
+DIST_REQUESTS = (128, 512, 2048, 8192, 1001)
+DIST_TIMEOUT_S = 600
 QP_SIZES = 4              # [paper] runs the QP at the first QP_SIZES sizes
 PROFILE_ITERS = 100       # solver iterations inside the profiler window
 # gram: the kernel matrix of the main path's rows, a ragged shape and one
@@ -195,17 +207,425 @@ def say(*parts) -> None:
     print(*parts, flush=True)
 
 
-def main() -> int:
+def _traced(fit) -> dict:
+    """``fit()`` (a solve) under torch.profiler: wall seconds, iterations,
+    the device's busy seconds (the union of its own events' intervals:
+    the operators' rows of key_averages() carry their kernels' time too),
+    its events, and the top kernels by device time and operations by host
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = fit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in on_card):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    per_name = {}
+    for e in on_card:
+        calls, us = per_name.get(e.name, (0, 0.0))
+        per_name[e.name] = (calls + 1, us + e.time_range.elapsed_us())
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return {"iters": int(res.iters), "wall_s": wall, "busy_s": busy_us / 1e6,
+            "events": len(on_card),
+            "device": [(n[:60], c, us / 1e3) for n, (c, us) in sorted(
+                per_name.items(), key=lambda kv: -kv[1][1])[:10]],
+            "host": [(e.key[:60], e.count, e.self_cpu_time_total / 1e3)
+                     for e in host[:10]]}
+
+
+def _say_trace(tag: str, what: str, tr: dict) -> None:
+    iters, busy, wall = max(1, tr["iters"]), tr["busy_s"], tr["wall_s"]
+    say(f"{tag} {what} iters={tr['iters']} wall_s={wall:.4f} "
+        f"device_busy_s={busy:.6f} device_idle_share={1 - busy / wall:.4f} "
+        f"device_ms_per_iter={1e3 * busy / iters:.4f} "
+        f"device_events_per_iter={tr['events'] / iters:.1f}" if busy > 0
+        else f"{tag} device time: not measured (the profiler saw none)")
+    for name, calls, ms in tr["device"]:
+        say(f"{tag} device {name!r}: calls={calls} ms={ms:.3f}")
+    for key, calls, ms in tr["host"]:
+        say(f"{tag} host {key!r}: calls={calls} self_cpu_ms={ms:.3f}")
+
+
+def _dist_rank(rank: int, world: int, job: dict) -> dict:
+    """One rank of [dist], in its own process on the card (see
+    ``repro_torch.launch.spawn_ranks``): the distributed fits of
+    ``job["precisions"]`` on [main]'s data; with ``job["full"]`` also a
+    ledger solve at m = 2048, the sharded fit at SHRINK_M and the sharded
+    warm refit; then the sharded scorer on [main]'s served model. Returns
+    plain numbers and numpy arrays for the parent to check."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import repro_torch
+    from repro_torch import api
+    from repro_torch.core import SlabSpec, rbf
+    from repro_torch.core.engine import (CollectiveLedger,
+                                         artifact_from_result)
+    from repro_torch.core.ocssvm import OCSSVMModel
+    from repro_torch.data import make_toy
+    from repro_torch.kernels import tiling
+    from repro_torch.kernels.decision import ops as dec
+    from repro_torch.kernels.fupdate import ops as fup
+    from repro_torch.launch import make_solver_mesh
+    from repro_torch.serve import pack_model
+
+    torch.cuda.set_device(rank % job["cards"])     # cards=1: all on one
+    dev = api.resolve_device("cuda")
+    mesh, axes = make_solver_mesh()
+    spec = SlabSpec(nu1=0.5, nu2=0.05, eps=0.5, kernel=rbf(RBF_GAMMA))
+    X = make_toy(SEED, M, d=D)[0]
+    narrow = {c.entry for c in tiling.menu("fupdate", 2 * P)}
+
+    def reset():
+        fup.FUPDATE.reset_counts()
+        dec.DECISION.reset_counts()
+
+    def drive(fn) -> tuple:
+        reset()
+        led = CollectiveLedger()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(led)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        iters = int(res.iters)
+        by = fup.FUPDATE.by_entry
+        n_narrow = sum(n for e, n in by.items() if e in narrow)
+        return res, {
+            "iters": iters, "seconds": secs,
+            "ms_per_iter": 1e3 * secs / max(iters, 1),
+            "converged": bool(res.converged),
+            "gamma": res.model.gamma.cpu().numpy(),
+            "rho": (float(res.model.rho1), float(res.model.rho2)),
+            "fupdate": {"narrow": n_narrow,
+                        "wide": sum(by.values()) - n_narrow},
+            "decision": dec.DECISION.launches,
+            "comm_s_per_iter": led.seconds / max(iters, 1),
+            "comm_calls": led.calls, "ledger": led.summary()}
+
+    out = {"rank": rank, "world": world, "backend": dist.get_backend(),
+           "device": torch.cuda.get_device_name(0), "fits": {}}
+    main = {}
+    for precision in job["precisions"]:
+        main[precision], out["fits"][f"main-{precision}"] = drive(
+            lambda led: repro_torch.fit(
+                X, spec, strategy="distributed", mesh=mesh, data_axes=axes,
+                P=P, tol=TOL, precision=precision, ledger=led))
+    if job["full"]:
+        _, out["fits"]["ledger-2048"] = drive(
+            lambda led: repro_torch.fit(
+                X[:2048], spec, strategy="distributed", mesh=mesh,
+                data_axes=axes, P=P, tol=TOL, max_outer=50, ledger=led))
+        routes, real = [], api.solve_sharded_shrinking
+
+        def route_spy(*a, **k):
+            routes.append("sharded-shrinking")
+            return real(*a, **k)
+
+        api.solve_sharded_shrinking = route_spy
+        try:
+            X_shr = make_toy(SEED, SHRINK_M, d=D)[0]
+            _, rec = drive(lambda led: repro_torch.fit(
+                X_shr, spec, strategy="sharded", mesh=mesh, data_axes=axes,
+                P=P, tol=TOL, ledger=led))
+        finally:
+            api.solve_sharded_shrinking = real
+        rec["routes"] = routes
+        out["fits"]["shrink-f32"] = rec
+        n_delta = M * 5 // 100
+        X_new = np.concatenate([X[n_delta:],
+                                make_toy(SEED + 7, n_delta, d=D)[0]])
+        art = artifact_from_result(main["f32"], precision="f32")
+        st = {}
+        _, rec = drive(lambda led: repro_torch.fit_update(
+            art, X_new, tol=TOL, mesh=mesh, data_axes=axes, stats_out=st,
+            ledger=led))
+        rec["stats"] = {k: st[k] for k in ("mode", "n_overlap", "n_fresh",
+                                           "n_expired", "n_corr", "P")}
+        out["fits"]["warm-f32"] = rec
+
+    # Where a distributed iteration's time goes: a profiler window over
+    # PROFILE_ITERS iterations (every rank runs it: the solve is SPMD).
+    out["trace"] = _traced(lambda: repro_torch.fit(
+        X, spec, strategy="distributed", mesh=mesh, data_axes=axes, P=P,
+        tol=TOL, max_outer=PROFILE_ITERS))
+    sv = job["served"]
+    model = OCSSVMModel(
+        gamma=torch.as_tensor(sv["gamma"], device=dev),
+        rho1=torch.tensor(sv["rho1"], device=dev),
+        rho2=torch.tensor(sv["rho2"], device=dev),
+        X=torch.as_tensor(sv["X"], device=dev), spec=spec)
+    sm = pack_model(model, tn=sv["tn"])
+    scorer = sm.scorer(mesh=mesh, data_axis="data")
+    queries = {n: make_toy(SEED + 1 + n, n, d=D)[0] for n in job["requests"]}
+    reset()
+    t0 = time.perf_counter()
+    scores = {n: scorer.score(q) for n, q in queries.items()}
+    torch.cuda.synchronize()
+    out["score_seconds"] = time.perf_counter() - t0
+    out["score_launches"] = {"decision": dec.DECISION.launches,
+                             "fupdate": fup.FUPDATE.launches}
+    out["scores"] = scores
+    out["buckets"] = {n: scorer.bucket_used(n) for n in queries}
+    # The rank's own single-device scorer (not counted: a check).
+    out["local_bitwise"] = all(
+        scores[n].tobytes() == sm.score(q).tobytes()
+        for n, q in queries.items())
+    return out
+
+
+def _dist_phase(jobs: dict, ref: dict):
+    """[dist]'s drive and checks: spawn each job's rank processes
+    (``jobs``: backend -> (world size, job for ``_dist_rank``)) and hold
+    what they return against the single-device results in ``ref`` (the
+    card ``dev``, ``spec``, the served model ``sm``, the rows ``X`` /
+    ``X_shr`` / ``X_new`` and the fits ``main`` (by precision), ``shrink``
+    and ``warm``). Returns ({backend: fupdate launches by rank and fit},
+    {backend: decision launches by rank})."""
+    import numpy as np
+    import torch
+    from repro_torch.core import dual_objective_matfree
+    from repro_torch.data import make_toy
+    from repro_torch.kernels.precision import truth_tolerance
+    from repro_torch.launch import spawn_ranks
+    dev, spec, sm = ref["dev"], ref["spec"], ref["sm"]
+    phase_t0 = time.perf_counter()
+    ranks, job_s = {}, {}
+    for backend, (world, job) in jobs.items():
+        t0 = time.perf_counter()
+        ranks[backend] = spawn_ranks(_dist_rank, world, backend=backend,
+                                     args=(job,), timeout_s=DIST_TIMEOUT_S)
+        job_s[backend] = time.perf_counter() - t0
+    X_dev = torch.as_tensor(ref["X"], device=dev)
+    Xs_shr = torch.as_tensor(ref["X_shr"], device=dev)
+    Xn_warm = torch.as_tensor(ref["X_new"], device=dev)
+
+    def held(rec, single, Xd, what, iters=True):
+        """A rank's fit against the single-device fit of the same rows:
+        converged, feasible, objective and offsets within truth_tolerance
+        + SOLVER_ATOL_FLOOR, iterations within 10% (ROADMAP C.6)."""
+        m = Xd.shape[0]
+        g = torch.as_tensor(rec["gamma"], device=dev).double()
+        check(rec["converged"], f"{what}: did not converge")
+        check(abs(float(g.sum()) - spec.total()) < 1e-4,
+              f"{what}: sum(gamma) = {float(g.sum())}")
+        check(float(g.max()) <= spec.upper(m) + 1e-7
+              and float(g.min()) >= spec.lower(m) - 1e-7,
+              f"{what}: gamma leaves the box")
+        o_d = float(dual_objective_matfree(g, Xd.double(), spec.kernel))
+        o_s = float(dual_objective_matfree(single.model.gamma.double(),
+                                           Xd.double(), spec.kernel))
+        tol_o = truth_tolerance(precision_of[what], [o_s])
+        check(abs(o_d - o_s) <= max(tol_o["atol"], SOLVER_ATOL_FLOOR)
+              + tol_o["rtol"] * abs(o_s),
+              f"{what}: objective {o_d} vs single-device {o_s}")
+        rho_d = np.asarray(rec["rho"])
+        rho_s = np.asarray([float(single.model.rho1),
+                            float(single.model.rho2)])
+        tol_r = truth_tolerance(precision_of[what], rho_s)
+        check(np.all(np.abs(rho_d - rho_s)
+                     <= max(tol_r["atol"], SOLVER_ATOL_FLOOR)
+                     + tol_r["rtol"] * np.abs(rho_s)),
+              f"{what}: rho {rho_d} vs single-device {rho_s}")
+        i_s = int(single.iters)
+        if iters:
+            check(abs(rec["iters"] - i_s) <= max(1, 0.1 * i_s),
+                  f"{what}: {rec['iters']} iterations vs single-device "
+                  f"{i_s}")
+        return o_d, o_s, i_s
+
+    precision_of = {}
+    dist_fupdate, dist_decision = {}, {}
+    for backend, recs in ranks.items():
+        world = len(recs)
+        for key in recs[0]["fits"]:
+            fits_k = [r["fits"][key] for r in recs]
+            what = f"[dist] {backend} {key}"
+            precision_of[what] = "bf16" if key.endswith("bf16") else "f32"
+            check(all(f["iters"] == fits_k[0]["iters"] for f in fits_k),
+                  f"{what}: iterations differ across ranks "
+                  f"{[f['iters'] for f in fits_k]}")
+            check(all(f["gamma"].tobytes() == fits_k[0]["gamma"].tobytes()
+                      for f in fits_k),
+                  f"{what}: gamma is not bitwise equal across ranks")
+            for r, f in enumerate(fits_k):
+                check(f["fupdate"]["narrow"] + f["fupdate"]["wide"] > 0,
+                      f"{what} rank {r}: no fupdate launch")
+                say(f"[dist] {backend} rank {r}/{world} {key}: iters="
+                    f"{f['iters']} converged={f['converged']} seconds="
+                    f"{f['seconds']:.3f} ms_per_iter={f['ms_per_iter']:.3f}"
+                    f" fupdate_launches={f['fupdate']} decision_launches="
+                    f"{f['decision']} comm_s_per_iter="
+                    f"{f['comm_s_per_iter']:.6f} comm_calls="
+                    f"{f['comm_calls']} ledger={json.dumps(f['ledger'])}")
+            rec = fits_k[0]
+            if key.startswith("main-"):
+                p_ = key.split("-")[1]
+                o_d, o_s, i_s = held(rec, ref["main"][p_], X_dev, what)
+            elif key == "shrink-f32":
+                check(rec["routes"] == ["sharded-shrinking"],
+                      f"{what}: took {rec['routes']}, not the sharded "
+                      f"shrinking driver")
+                o_d, o_s, i_s = held(rec, ref["shrink"], Xs_shr, what)
+            elif key == "warm-f32":
+                st = rec["stats"]
+                check(st["mode"] == "warm", f"{what}: {st['mode']} route")
+                for r, f in enumerate(fits_k):
+                    check(f["fupdate"]["narrow"] == 0
+                          and f["fupdate"]["wide"] == f["iters"] + 1,
+                          f"{what} rank {r}: {f['fupdate']} fupdate "
+                          f"launches, not one wide per iteration plus the "
+                          f"reconcile ({f['iters']} iters)")
+                o_d, o_s, i_s = held(rec, ref["warm"], Xn_warm, what,
+                                     iters=False)
+                say(f"[dist] {backend} {key}: stats {json.dumps(st)}")
+            else:
+                continue
+            say(f"[dist] {backend} {key}: objective {o_d:.9f} vs "
+                f"single-device {o_s:.9f} (|diff| {abs(o_d - o_s):.3e}); "
+                f"iterations {rec['iters']} vs {i_s}; gamma bitwise equal "
+                f"on {world} rank(s)")
+        # The O(P d) bill: the same per-iteration bytes at m = 8192 and
+        # 2048, within tests/test_distributed.py's budget.
+        if "ledger-2048" in recs[0]["fits"]:
+            b_big = recs[0]["fits"]["main-f32"]["ledger"]["iteration_bytes"]
+            b_small = recs[0]["fits"]["ledger-2048"]["ledger"][
+                "iteration_bytes"]
+            budget = 4 * world * P * (D + 4) * 4 + 256
+            check(b_big == b_small and 0 < b_big <= budget,
+                  f"[dist] iteration bytes {b_big} (m={M}) / {b_small} "
+                  f"(m=2048), budget {budget}")
+            say(f"[dist] {backend} ledger: iteration_bytes {b_big} at m={M} "
+                f"and m=2048 (budget 4*n*P*(d+4)*4+256 = {budget})")
+        # The sharded scorer, bitwise [main]'s single-device scores.
+        for r, rec_r in enumerate(recs):
+            check(rec_r["score_launches"]["decision"] > 0,
+                  f"[dist] {backend} rank {r}: no decision launch")
+            check(rec_r["local_bitwise"], f"[dist] {backend} rank {r}: "
+                  f"sharded scores are not bitwise its local scorer's")
+            for n, s_n in rec_r["scores"].items():
+                q = make_toy(SEED + 1 + n, n, d=D)[0]
+                check(s_n.shape == (n,) and
+                      s_n.tobytes() == sm.score(q).tobytes(),
+                      f"[dist] {backend} rank {r}: {n} rows not bitwise "
+                      f"[main]'s single-device scores")
+            say(f"[dist] {backend} rank {r}: scorer(mesh=) requests "
+                f"{list(rec_r['scores'])} -> per-rank buckets "
+                f"{list(rec_r['buckets'].values())}, seconds="
+                f"{rec_r['score_seconds']:.4f}, launches="
+                f"{rec_r['score_launches']}; bitwise [main]'s single-device "
+                f"scores")
+        dist_fupdate[backend] = {
+            f"rank{r}": {k: f["fupdate"] for k, f in rec_r["fits"].items()}
+            for r, rec_r in enumerate(recs)}
+        dist_decision[backend] = {
+            f"rank{r}": rec_r["score_launches"]["decision"]
+            for r, rec_r in enumerate(recs)}
+        _say_trace("[dist]", f"{backend} rank 0 distributed fit f32 m={M}",
+                   recs[0]["trace"])
+        say(f"[dist] {backend}: {world} rank(s) on "
+            f"{recs[0]['device']}, job seconds={job_s[backend]:.2f}")
+    say(f"[dist] phase seconds={time.perf_counter() - phase_t0:.2f}")
+    return dist_fupdate, dist_decision
+
+
+def _served(sm) -> dict:
+    """A served model's compacted parts, for rank processes to repack."""
+    return {"gamma": sm.model.gamma.cpu().numpy(),
+            "X": sm.model.X.cpu().numpy(), "rho1": float(sm.model.rho1),
+            "rho2": float(sm.model.rho2), "tn": sm.tn}
+
+
+def _port_on_path() -> Optional[Path]:
+    """The port's ``src/`` beside this file, put on the path, when a card
+    is there and the sources are; else None, saying why on stderr."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 1
+        return None
     src = Path(__file__).resolve().parent / "src"
     if not (src / "repro_torch" / "csrc").is_dir():
         print(f"chip_smoke: the port's sources are not at {src}",
               file=sys.stderr)
-        return 1
+        return None
     sys.path.insert(0, str(src))
+    return src
+
+
+def _say_cards_and_result() -> None:
+    """The cards' names and power limits as nvidia-smi gives them, then
+    the result line."""
+    import torch
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    for line in smi.stdout.strip().splitlines():
+        say(line)
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def cards_main(cards: int) -> int:
+    """``chip_smoke.py --cards N``: [dist] alone over N NCCL ranks, one
+    card each — the cross-card path a one-card run cannot reach — held
+    against single-device fits of the same rows on the first card (the
+    [main], [shrink] and [warm] solves, at their sizes). Prints the [dist]
+    lines, the launches as JSON, the cards and the result line."""
+    if _port_on_path() is None:
+        return 1
+    import numpy as np
+    import torch
+    import repro_torch
+    from repro_torch.api import resolve_device
+    from repro_torch.core import SlabSpec, rbf
+    from repro_torch.core.engine import artifact_from_result
+    from repro_torch.data import make_toy
+    from repro_torch.kernels import _build
+    check(torch.cuda.device_count() >= cards,
+          f"--cards {cards}: {torch.cuda.device_count()} card(s) here")
+    dev = resolve_device("cuda")
+    t0 = time.perf_counter()
+    _build.build()
+    say(f"[build] seconds={time.perf_counter() - t0:.2f}")
+    spec = SlabSpec(nu1=0.5, nu2=0.05, eps=0.5, kernel=rbf(RBF_GAMMA))
+    X_np = make_toy(SEED, M, d=D)[0]
+    fits = {p_: repro_torch.fit(X_np, spec, strategy="auto", P=P, tol=TOL,
+                                precision=p_) for p_ in ("f32", "bf16")}
+    sm = repro_torch.serve(X_np, spec, offsets="quantile", P=P, tol=TOL)
+    X_shr = make_toy(SEED, SHRINK_M, d=D)[0]
+    shrink = repro_torch.fit(X_shr, spec, P=P, tol=TOL)
+    n_delta = M * 5 // 100
+    X_new = np.concatenate([X_np[n_delta:],
+                            make_toy(SEED + 7, n_delta, d=D)[0]])
+    warm = repro_torch.fit_update(artifact_from_result(fits["f32"]), X_new,
+                                  tol=TOL)
+    torch.cuda.synchronize()
+    jobs = {"nccl": (cards, dict(precisions=("f32", "bf16"), full=True,
+                                 requests=DIST_REQUESTS, served=_served(sm),
+                                 cards=cards))}
+    fup_l, dec_l = _dist_phase(jobs, dict(
+        dev=dev, spec=spec, sm=sm, X=X_np, X_shr=X_shr, X_new=X_new,
+        main=fits, shrink=shrink, warm=warm))
+    say(json.dumps({"dist_launches": {"fupdate": fup_l, "decision": dec_l}}))
+    _say_cards_and_result()
+    return 0
+
+
+def main() -> int:
+    src = _port_on_path()
+    if src is None:
+        return 1
+    import torch
 
     import numpy as np
     import repro_torch
@@ -642,7 +1062,7 @@ def main() -> int:
                        int(r.iters)))
         return r
 
-    shrink_launches = {}
+    shrink_launches, shrink_fits = {}, {}
     api.solve_blocked_shrinking = route_spy
     shrinking.solve_blocked = round_spy
     try:
@@ -658,6 +1078,7 @@ def main() -> int:
             secs = time.perf_counter() - t0
             classes = fupdate_classes()
             shrink_launches[precision] = dict(classes)
+            shrink_fits[precision] = res
             check(routes == ["shrinking"],
                   f"auto at m={SHRINK_M} took {routes}, not shrinking")
             check(bool(res.converged),
@@ -768,7 +1189,7 @@ def main() -> int:
     X_new = np.concatenate([X_np[n_delta:],
                             make_toy(SEED + 7, n_delta, d=D)[0]])
     Xn_dev = torch.as_tensor(X_new, device=dev)
-    warm_launches, warm_shapes = {}, {}
+    warm_launches, warm_shapes, warm_fits = {}, {}, {}
     for precision in ("f32", "bf16"):
         art = artifact_from_result(fits[precision][0], precision=precision)
         reset_counts()
@@ -780,6 +1201,7 @@ def main() -> int:
         warm_s = time.perf_counter() - t0
         warm_classes = fupdate_classes()
         warm_launches[precision] = warm_classes
+        warm_fits[precision] = warm
         t0 = time.perf_counter()
         cold = repro_torch.fit(X_new, spec, P=P, tol=TOL,
                                precision=precision)
@@ -1204,6 +1626,22 @@ def main() -> int:
     say(f"[fleet] phase seconds={time.perf_counter() - phase_t0:.2f} "
         f"launches={fleet_launches}")
 
+    # -- 3g. [dist]: the row-sharded solver and the sharded scorer ---------
+    # Rank processes spawned on the one card: two gloo ranks (NCCL refuses
+    # two ranks on one card), then one NCCL rank (world size 1). They load
+    # the libraries built in phase 1. Each rank sets its counts to 0 just
+    # before each drive and reads them just after.
+    served = _served(sm)
+    jobs = {"gloo": (2, dict(precisions=("f32", "bf16"), full=True,
+                             requests=DIST_REQUESTS, served=served, cards=1)),
+            "nccl": (1, dict(precisions=("f32",), full=False,
+                             requests=DIST_REQUESTS[:1], served=served,
+                             cards=1))}
+    path_launches["dist"], dist_decision = _dist_phase(jobs, dict(
+        dev=dev, spec=spec, sm=sm, X=X_np, X_shr=X_shr, X_new=X_new,
+        main={p_: f[0] for p_, f in fits.items()}, shrink=shrink_fits["f32"],
+        warm=warm_fits["f32"]))
+
     # -- 4. the autotune path ----------------------------------------------
     for kern_ in (fup.FUPDATE, dec.DECISION, gram_ops.GRAM):
         kern_.launches = 0
@@ -1501,48 +1939,9 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated()} bytes")
 
     # -- 6. where a fit's time goes: a profiler window over one solve ------
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = repro_torch.fit(X_np, spec, strategy="auto", P=P, tol=TOL,
-                              max_outer=PROFILE_ITERS)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # Device time is read from the device's own events (kernels, copies):
-    # the operators' rows of key_averages() carry their kernels' time too.
-    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us, end = 0.0, float("-inf")
-    for a, b in sorted((e.time_range.start, e.time_range.end)
-                       for e in on_card):    # the union of their intervals
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    busy_s = busy_us / 1e6
-    iters = max(1, int(res.iters))
-    say(f"[trace] fit f32 m={M} iters={int(res.iters)} wall_s={wall:.4f} "
-        f"device_busy_s={busy_s:.6f} device_idle_share="
-        f"{1 - busy_s / wall:.4f} device_ms_per_iter="
-        f"{1e3 * busy_s / iters:.4f} device_events_per_iter="
-        f"{len(on_card) / iters:.1f}" if busy_s > 0 else
-        "[trace] device time: not measured (the profiler saw none)")
-    per_name = {}
-    for e in on_card:
-        calls, us = per_name.get(e.name, (0, 0.0))
-        per_name[e.name] = (calls + 1, us + e.time_range.elapsed_us())
-    for name, (calls, us) in sorted(per_name.items(),
-                                    key=lambda kv: -kv[1][1])[:10]:
-        say(f"[trace] device {name[:60]!r}: calls={calls} ms={us / 1e3:.3f}")
-    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
-    for e in host[:10]:
-        say(f"[trace] host {e.key[:60]!r}: calls={e.count} "
-            f"self_cpu_ms={e.self_cpu_time_total / 1e3:.3f}")
-
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    say(smi.stdout.strip().splitlines()[0])
+    tr = _traced(lambda: repro_torch.fit(X_np, spec, strategy="auto", P=P,
+                                         tol=TOL, max_outer=PROFILE_ITERS))
+    _say_trace("[trace]", f"fit f32 m={M}", tr)
 
     f_ms, f_plain, f_b, f_by = timed[("fupdate", M, 2 * P, "f32")]
     w_s = warm_shapes["f32"][0][1]
@@ -1598,6 +1997,10 @@ def main() -> int:
          "launches": launches["decision"], "max_abs_err": worst["decision"],
          "ms": d_ms, "plain_ms": d_plain, "bound_ms": d_b, "bound_by": d_by,
          "library_ms": None, "pass": True,
+         "launches_by_path": {"main": launches["decision"],
+                              "serve-wide": path_launches["serve-wide"],
+                              "fleet": path_launches["fleet"]["decision"],
+                              "dist": dist_decision},
          "shape": f"queries={BUCKETS[-1]} support={SUPPORT} d={D} rbf f32"},
         {"name": "gram", "route": "cuda",
          "source": "src/repro_torch/csrc/gram.cu",
@@ -1614,11 +2017,16 @@ def main() -> int:
          "bound_ms": h_b, "bound_by": h_by, "library_ms": h_lib,
          "pass": True, "shape": f"m=n={M} d={D} linear bf16 (wgmma class)"},
     ]}))
-    say(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    _say_cards_and_result()
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--cards", type=int, default=1,
+        help="run [dist] alone over this many NCCL ranks, one card each "
+             "(default 1: every phase on one card)")
+    args = parser.parse_args()
+    sys.exit(main() if args.cards == 1 else cards_main(args.cards))

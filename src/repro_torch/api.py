@@ -9,29 +9,36 @@ recipe) and packs the model for scoring.
                        on-the-fly rows
 * m > 8192          -> the shrinking repack driver around the blocked
                        solver
+* mesh given / "sharded" -> the row-sharded solver over the mesh's data
+                       axes (the per-rank ``fupdate`` on the hot loop);
+                       large m additionally gets the sharded shrinking
+                       repack driver. With no mesh given, "sharded" builds
+                       one (``repro_torch.launch.make_solver_mesh``: one
+                       rank without a process group).
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card and without that request they raise.
-The sharded solver (``strategy="distributed"``/``"sharded"``, ``mesh=``)
-and the sharded scorer (``ServingModel.scorer(mesh=...)``) are not
-ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
+The sharded strategies run SPMD: every rank's process calls ``fit`` with
+the same arguments after ``torch.distributed.init_process_group``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.batched_smo import solve_blocked
+from repro_torch.core.distributed_smo import solve_blocked_distributed
 from repro_torch.core.engine.gram import SINGLE_PASS_MAX
 from repro_torch.core.engine.state import (SolverArtifact, WarmStart,
                                            artifact_from_result,
                                            prepare_warm_start)
 from repro_torch.core.engine.types import SMOResult
 from repro_torch.core.ocssvm import SlabSpec
-from repro_torch.core.shrinking import solve_blocked_shrinking
+from repro_torch.core.shrinking import (solve_blocked_shrinking,
+                                        solve_sharded_shrinking)
 from repro_torch.core.smo import solve as solve_smo
 
 # Above this row count the shrinking repack driver wins: per-iteration
@@ -40,12 +47,6 @@ _SHRINKING_MIN_M = 8192
 
 STRATEGIES = ("auto", "paper", "mvp", "blocked", "pallas", "shrinking",
               "distributed", "sharded")
-
-# Strategies of the JAX package still waiting for their ROADMAP item.
-_NOT_PORTED = {
-    "distributed": "ROADMAP A.9 (distributed)",
-    "sharded": "ROADMAP A.9 (distributed)",
-}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -89,6 +90,9 @@ def fit(
     tol: float = 1e-4,
     device=None,
     mesh=None,
+    data_axes: Tuple[str, ...] = ("data",),
+    multi_pod: bool = False,
+    ledger=None,
     warm_start=None,
     warm_info_out: Optional[dict] = None,
     **kwargs,
@@ -98,9 +102,18 @@ def fit(
     strategy: "auto" (size rule), "paper" / "mvp" (the sequential
     Algorithm 1 selectors), "blocked", "pallas" (the blocked solver
     pinned to the fused ``fupdate`` provider) or "shrinking" (the repack
-    driver). precision: Gram tile-input dtype ("f32" default, "bf16",
-    "f16"); dot products still accumulate in f32. device: where to solve
-    (default: the CUDA card). warm_start: a prior fit to seed from — a
+    driver), "sharded" (row-sharded solver over a mesh — built by
+    ``make_solver_mesh(multi_pod=...)`` when ``mesh`` is not given; large
+    m composes with the sharded shrinking driver) or "distributed" (the
+    plain row-sharded solver; requires ``mesh``). precision: Gram
+    tile-input dtype ("f32" default, "bf16", "f16"); dot products still
+    accumulate in f32. device: where to solve (default: the CUDA card;
+    under a mesh, this rank's card). mesh / data_axes: a
+    ``repro_torch.launch.SolverMesh`` and the axes its rows shard over;
+    every rank calls ``fit`` with the same arguments. ledger: a
+    ``repro_torch.core.engine.CollectiveLedger`` the sharded strategies
+    fill with per-device collective bytes (ignored by the local ones).
+    warm_start: a prior fit to seed from — a
     ``SolverArtifact``, an ``SMOResult`` (converted) or an
     already-prepared ``engine.WarmStart``: gamma seeds from the
     overlapping rows and the f-cache is reconciled with one fused rank-s
@@ -115,13 +128,6 @@ def fit(
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; "
                          f"expected one of {STRATEGIES}")
-    if mesh is not None:
-        raise NotImplementedError(
-            f"a mesh needs the sharded solver: {_NOT_PORTED['sharded']}")
-    if strategy in _NOT_PORTED:
-        raise NotImplementedError(
-            f"strategy={strategy!r} is not ported yet: "
-            f"{_NOT_PORTED[strategy]}")
     dev = resolve_device(device)
     X = as_rows(X, dev)
     m = X.shape[0]
@@ -138,7 +144,12 @@ def fit(
                 warm_info_out.update(dataclasses.asdict(winfo))
 
     if strategy == "auto":
-        strategy = "shrinking" if m > _SHRINKING_MIN_M else "blocked"
+        if mesh is not None:
+            strategy = "sharded"
+        elif m > _SHRINKING_MIN_M:
+            strategy = "shrinking"
+        else:
+            strategy = "blocked"
 
     # The sequential solvers call their iteration cap max_iters, the
     # blocked family max_outer; accept either so "auto" can reroute a call
@@ -148,6 +159,45 @@ def fit(
             kwargs["max_iters"] = kwargs.pop("max_outer")
     elif "max_iters" in kwargs:
         kwargs["max_outer"] = kwargs.pop("max_iters")
+
+    if strategy in ("distributed", "sharded"):
+        if gram_mode is not None:
+            raise ValueError(
+                "gram_mode is not configurable for the sharded/"
+                "distributed strategies: the sharded provider owns Gram "
+                "access (its hot loop is the per-rank fupdate; the local "
+                "repack solves of the sharded shrinking driver pick their "
+                "own provider)")
+        if strategy == "distributed" and mesh is None:
+            raise ValueError("strategy='distributed' needs a mesh; "
+                             "use strategy='sharded' to build one from "
+                             "the launch layer")
+        if mesh is None:
+            from repro_torch.launch.mesh import make_solver_mesh
+            mesh, data_axes = make_solver_mesh(multi_pod=multi_pod)
+        if strategy == "sharded" and m > _SHRINKING_MIN_M:
+            return solve_sharded_shrinking(X, spec, mesh,
+                                           data_axes=data_axes, P_pairs=P,
+                                           tol=tol, precision=precision,
+                                           ledger=ledger, warm=warm,
+                                           **kwargs)
+        # Below the shrinking threshold the plain sharded solve runs: the
+        # shrinking-only knobs raise a clear error instead of a TypeError
+        # (the accepted kwargs must not change silently when a growing
+        # data set crosses the threshold).
+        shrink_only = [k for k in ("warm_iters", "max_rounds",
+                                   "round_iters", "margin", "gather_max")
+                       if k in kwargs]
+        if shrink_only:
+            raise ValueError(
+                f"kwargs {shrink_only} configure the sharded shrinking "
+                f"driver, which only runs for m > {_SHRINKING_MIN_M} "
+                f"(got m={m}); drop them or call "
+                "repro_torch.core.solve_sharded_shrinking directly")
+        return solve_blocked_distributed(X, spec, mesh, data_axes=data_axes,
+                                         P_pairs=P, tol=tol,
+                                         precision=precision, ledger=ledger,
+                                         warm=warm, **kwargs)
 
     if strategy == "pallas":
         if gram_mode is not None and gram_mode != "pallas":

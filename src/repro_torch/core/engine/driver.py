@@ -14,6 +14,10 @@ Each iteration:
 The JAX package runs this as a ``lax.while_loop`` on the device; here it
 is a Python loop that reads the termination flags back once per
 iteration. Every other scalar stays an f32 tensor on the solve's device.
+Under the sharded solver every rank runs this loop on its slice of the
+rows; the flags come from all-reduced statistics and the selection from
+one all-gather, so every rank reads the same flags and the ranks stay in
+lockstep.
 """
 from __future__ import annotations
 
@@ -71,14 +75,19 @@ def gauss_seidel_pairs(sel: Selection, Kblk: Tensor, dsl: Tensor, *,
 
 
 def init_state(provider, stats_fn: StatsFn, gamma0: Tensor,
-               f_offset: Optional[Tensor] = None, warm=None) -> SolverState:
+               f_offset: Optional[Tensor] = None, ledger=None,
+               warm=None) -> SolverState:
     """Score the initial gamma and measure the starting diagnostics.
 
     f_offset: constant per-row score contribution from coordinates
     outside this problem. warm: optional warm start whose seeded f-cache
     ``provider.reconcile_scores`` turns into K @ gamma0 instead of the
-    O(m^2) init pass.
+    O(m^2) init pass (the local slice under the sharded provider).
+    ledger: optional ``CollectiveLedger``; everything here is one-time
+    work, tagged phase="init".
     """
+    if ledger is not None:
+        ledger.set_phase("init")
     if warm is not None:
         f = provider.reconcile_scores(warm)
     else:
@@ -103,7 +112,7 @@ def _unconverged(s: SolverState, criterion: str, tol: float) -> Tensor:
 
 def run(provider, selector, stats_fn: StatsFn, state0: SolverState, *,
         hi: float, lo: float, tol: float, max_iters: int, patience: int,
-        rho_every: int = 1) -> SolverState:
+        rho_every: int = 1, ledger=None) -> SolverState:
     """Iterate select -> pair-solve -> rank-2P update until converged.
 
     Termination (selector.criterion):
@@ -112,7 +121,14 @@ def run(provider, selector, stats_fn: StatsFn, state0: SolverState, *,
       "gap" — Keerthi MVP duality gap <= tol.
     Both additionally stop at max_iters or after ``patience`` consecutive
     zero-progress steps (bound-blocked working sets).
+
+    ledger: optional ``CollectiveLedger``. The first iteration's
+    collectives are tagged phase="iter" — the per-iteration bill, as the
+    JAX package records its loop body once at trace time — and later
+    iterations are not recorded.
     """
+    if ledger is not None:
+        ledger.set_phase("iter")
     criterion = selector.criterion
     s = state0
     tiny10 = torch.full((), _TINY, dtype=s.f.dtype, device=s.f.device) * 10
@@ -139,6 +155,8 @@ def run(provider, selector, stats_fn: StatsFn, state0: SolverState, *,
             [_unconverged(s, criterion, tol), progressed]).tolist()
         it += 1
         stall = 0 if progressed else stall + 1
+        if ledger is not None:
+            ledger.set_phase(None)      # one iteration's bill is enough
     dev = s.f.device
     return s._replace(it=torch.tensor(it, dtype=torch.int32, device=dev),
                       stall=torch.tensor(stall, dtype=torch.int32,

@@ -17,6 +17,10 @@ Implementations:
                     fused into the ``fupdate`` CUDA kernel (one pass over
                     X per iteration; the name is the JAX package's, so
                     call sites match).
+* ``sharded``     — ``ShardedGram``: a rank's local rows under the
+                    row-sharded solver; updates touch only the local f
+                    and gamma slices through the same ``fupdate`` kernel,
+                    selections arrive as gathered (2P, d) row blocks.
 
 Every provider takes a ``precision`` ("f32" default, "bf16", "f16"): the
 training rows are round-tripped through the tile dtype ONCE at
@@ -274,9 +278,88 @@ class FusedGram(OnTheFlyGram):
         return self._fupdate(f, X_delta, g_delta)
 
 
+class ShardedGram(FusedGram):
+    """A rank's local rows under the row-sharded solver; f and gamma are
+    local slices.
+
+    ``gids`` are this rank's global row ids (``rank * m_local + i``);
+    selections carry gathered (2P, d) row blocks, so the per-iteration
+    update needs no communication at all — only ``init_scores`` gathers
+    (once). The rank-2P update is ``FusedGram``'s ``fupdate`` launch on
+    the local rows, with the tile rows, norms and wide layout it makes
+    once.
+
+    ``comm`` is the facade's ``MeshComm`` over the data axes: the init
+    gathers go through it, so an attached ``CollectiveLedger`` sees every
+    collective this provider issues.
+
+    Precision: ``X_local`` arrives tile-rounded (the facade rounds once,
+    before building provider and selector), so the selector's gathered
+    rows are the rows the kernel streams.
+    """
+
+    name = "sharded"
+
+    def __init__(self, X_local: Tensor, kernel: KernelFn, *, gids: Tensor,
+                 rank: int, m_local: int, m_pad: int, comm,
+                 precision: str = "f32"):
+        super().__init__(X_local, kernel, precision=precision)
+        self.gids = gids
+        self.rank = rank
+        self.m_local = m_local
+        self.m_pad = m_pad
+        self.comm = comm
+        self.axes = comm.axes
+
+    def init_scores(self, gamma_local: Tensor) -> Tensor:
+        # The local f needs the global K @ gamma: gather X and gamma once,
+        # then accumulate over column blocks of BLOCK rows (the JAX
+        # package's plain pass, outside any kernel).
+        X_all = self.comm.all_gather(self.X, tiled=True)
+        g_all = self.comm.all_gather(gamma_local, tiled=True)
+        acc = torch.zeros((self.m_local,), dtype=torch.float32,
+                          device=self.X.device)
+        for i in range(0, self.m_pad, BLOCK):
+            acc = acc + self.kernel.cross(self.X, X_all[i:i + BLOCK]) \
+                @ g_all[i:i + BLOCK]
+        return acc
+
+    def block(self, sel: Selection) -> Tensor:
+        return self.kernel.cross(sel.X, sel.X)
+
+    def diag_sel(self, sel: Selection) -> Tensor:
+        return self.kernel.diag(sel.X)
+
+    def scatter(self, gamma: Tensor, sel: Selection,
+                delta: Tensor) -> Tensor:
+        # Only the ids in this rank's range land here; the others add 0
+        # at a clipped slot (no host read of how many are in range).
+        loc = sel.ids - self.rank * self.m_local
+        in_range = (loc >= 0) & (loc < self.m_local)
+        return gamma.index_add(0, loc.clamp(0, self.m_local - 1),
+                               torch.where(in_range, delta,
+                                           torch.zeros_like(delta)))
+
+    def append_rows(self, X_app, gamma: Tensor, f: Tensor):
+        """Sharded append is a facade-level operation (row placement,
+        gids and m_pad change on every rank), so the provider's share is
+        the score algebra only (``delta_scores`` / ``reconcile_scores``
+        on the local slice); the distributed facade re-shards and takes
+        ``warm=``."""
+        raise NotImplementedError(
+            "sharded append is handled by the distributed facade "
+            "(re-shard + warm=); use delta_scores for the local f algebra")
+
+    def expire_rows(self, idx, gamma: Tensor, f: Tensor):
+        raise NotImplementedError(
+            "sharded expiry is handled by the distributed facade "
+            "(re-shard + warm=); use delta_scores for the local f algebra")
+
+
 def make_provider(gram_mode: str, X: Tensor, kernel: KernelFn,
                   precision: str = "f32"):
-    """Build a local provider by name."""
+    """Build a local provider by name ("sharded" is constructed
+    explicitly by the distributed facade: it needs the shard layout)."""
     if gram_mode == "precomputed":
         return PrecomputedGram(X, kernel, precision=precision)
     if gram_mode == "on_the_fly":

@@ -5,7 +5,8 @@ composition, as in the JAX package's ``repro.serve``.
   fingerprint); a miss fits via ``repro_torch.fit`` and packs the support
   set for the decision kernel once (``ServingModel``).
 * ``scorer``      — ``BatchScorer``: padding buckets (64/256/1024/4096)
-  over the ``decision`` CUDA kernel (``mesh=`` raises: ROADMAP A.9).
+  over the ``decision`` CUDA kernel; ``mesh=`` shards the queries over
+  a mesh's ranks.
 * ``service``     — ``ScoringService``: micro-batching request loop with
   per-bucket latency/throughput counters on an injectable clock.
 * ``registry``    — ``ModelRegistry``: name -> recipe -> warm model

@@ -85,8 +85,7 @@ class ServingModel:
 
         No kwargs -> one memoized default ``BatchScorer`` (so repeated
         ``score`` calls share it); with kwargs a fresh scorer is built
-        (``mesh=`` names the sharded path, which raises until it is
-        ported).
+        (e.g. ``mesh=...`` for the sharded path).
         """
         from repro_torch.serve.scorer import BatchScorer
         if kwargs:

@@ -6,6 +6,15 @@ requests larger than the top bucket are chunked through it. numpy
 requests (the service boundary) are padded and unpadded host-side and
 come back as numpy; tensor requests stay tensors.
 
+Two execution paths share the packing:
+
+* local   — ``decision_packed`` on the model's device,
+* sharded — ``mesh=``: one process per rank (SPMD, every rank calling
+  ``score`` with the same queries); queries are padded to the per-rank
+  bucket times the data axis's size, each rank scores its slice through
+  the same ``decision_packed`` against the replicated support set, and
+  one all_gather returns the full result on every rank.
+
 Scoring runs at the model's packed ``precision``: the support block is
 already in the serving tile dtype, queries are cast per launch, and the
 accumulate/epilogue stays f32.
@@ -15,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.engine.stats import MeshComm
 from repro_torch.kernels.decision.ops import decision_packed
 from repro_torch.kernels.tiling import LANE, _pad_to
 from repro_torch.serve.model_cache import ServingModel
@@ -37,16 +47,22 @@ def bucket_for(n: int) -> int:
 class BatchScorer:
     """Scores query batches against one ``ServingModel`` on its device.
 
-    ``mesh=`` (the JAX package's sharded path) is not ported yet and
-    raises ``NotImplementedError``.
+    ``mesh`` (a ``repro_torch.launch.SolverMesh``) switches on the sharded
+    path: queries are padded to ``bucket * mesh.shape[data_axis]`` rows
+    and each rank scores its own slice against the replicated support
+    set; every rank of the mesh calls ``score`` with the same queries.
     """
 
-    def __init__(self, model: ServingModel, *, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a sharded scorer (mesh=) needs the distributed path: "
-                "ROADMAP A.9 (distributed)")
+    def __init__(self, model: ServingModel, *, mesh=None,
+                 data_axis: str = "data"):
+        if mesh is not None and data_axis not in mesh.shape:
+            raise ValueError(f"mesh has no axis {data_axis!r}: "
+                             f"{tuple(mesh.shape)}")
         self.model = model
+        self.mesh = mesh
+        self.data_axis = data_axis
+        self._comm = (None if mesh is None
+                      else MeshComm((data_axis,), mesh=mesh))
         self.device = model.t_pad.device
         self._d_pad = int(model.t_pad.shape[1])
         # The slab offsets as host floats, read once: the kernel takes
@@ -87,13 +103,20 @@ class BatchScorer:
                                tm=self._tm(q_pad.shape[0]), tn=m.tn,
                                precision=m.precision)
 
+    def _n_ranks(self) -> int:
+        return 1 if self.mesh is None else int(self.mesh.shape[self.data_axis])
+
     def chunk_rows(self) -> int:
-        """Rows one launch can take: the top bucket."""
-        return BUCKETS[-1]
+        """Rows one launch can take: the top bucket, times the data axis's
+        size on the sharded path (each rank gets a top-bucket slice)."""
+        return BUCKETS[-1] * self._n_ranks()
 
     def bucket_used(self, n: int) -> int:
-        """The padding bucket one single-launch n-row request lands in."""
-        return bucket_for(n)
+        """The padding bucket one single-launch n-row request lands in —
+        the per-rank bucket on the sharded path."""
+        if self.mesh is None:
+            return bucket_for(n)
+        return bucket_for(max(1, -(-n // self._n_ranks())))
 
     def launch_plan(self, n: int):
         """(rows, bucket) per kernel launch for an n-row request — full
@@ -119,16 +142,28 @@ class BatchScorer:
 
     def _score_once(self, q):
         n = int(q.shape[0])
-        out = self._score_bucket(self._pad_queries(q, bucket_for(n)))
+        if self.mesh is None:
+            out = self._score_bucket(self._pad_queries(q, bucket_for(n)))
+        else:
+            out = self._score_sharded(q, n)
         if isinstance(q, np.ndarray):
             return out.cpu().numpy()[:n]
         return out[:n]
 
+    def _score_sharded(self, q, n: int) -> torch.Tensor:
+        per_rank = self.bucket_used(n)
+        q_pad = self._pad_queries(q, per_rank * self._n_ranks())
+        r = self.mesh.coords()[self.data_axis]
+        out = self._score_bucket(q_pad[r * per_rank:(r + 1) * per_rank])
+        return self._comm.all_gather(out, tiled=True)
+
     def warmup(self) -> None:
-        """Launch every bucket once (and build the kernel, on first use)."""
+        """Launch every bucket once (and build the kernel, on first use):
+        on the sharded path, every per-rank bucket (``b * n_ranks`` rows
+        land on per-rank bucket ``b``)."""
         for b in BUCKETS:
-            q = torch.zeros((b, self.model.d), dtype=torch.float32,
-                            device=self.device)
+            q = torch.zeros((b * self._n_ranks(), self.model.d),
+                            dtype=torch.float32, device=self.device)
             self._score_once(q)
             self.warmed_buckets.add(b)
         if self.device.type == "cuda":

@@ -23,6 +23,7 @@ import repro_torch
 import repro_torch.core as tc
 from repro_torch import api
 from repro_torch.data import make_toy
+from repro_torch.launch import make_solver_mesh
 
 SOLVER_ATOL_FLOOR = 5e-3
 M, TOL, P = 256, 1e-3, 8
@@ -103,8 +104,14 @@ def test_auto_gram_mode_mirrors_the_reference():
 
 @pytest.mark.parametrize("strategy", ["distributed", "sharded"])
 def test_unported_strategies_name_their_roadmap_item(X, strategy):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        repro_torch.fit(X, strategy=strategy, device="cpu")
+    """The sharded strategies validate their arguments as the JAX
+    package's do: "distributed" needs a mesh, and neither takes a
+    gram_mode (the sharded provider owns Gram access)."""
+    with pytest.raises(ValueError, match="needs a mesh"
+                       if strategy == "distributed" else "gram_mode"):
+        repro_torch.fit(X, strategy=strategy, device="cpu",
+                        **({} if strategy == "distributed"
+                           else dict(gram_mode="pallas")))
 
 
 def test_unknown_strategy_and_unported_options(X):
@@ -113,8 +120,12 @@ def test_unknown_strategy_and_unported_options(X):
     # a warm start must be a prior fit (artifact, result or prepared seed)
     with pytest.raises(TypeError, match="SolverArtifact"):
         repro_torch.fit(X, warm_start=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        repro_torch.fit(X, mesh=object(), device="cpu")
+    # a mesh routes "auto" to the sharded solver, whose shrinking-only
+    # knobs are refused below the shrinking threshold (as in the JAX
+    # package)
+    mesh, _ = make_solver_mesh()
+    with pytest.raises(ValueError, match="warm_iters"):
+        repro_torch.fit(X, mesh=mesh, warm_iters=5, device="cpu")
 
 
 def test_default_device_is_the_card(monkeypatch):

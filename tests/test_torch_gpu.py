@@ -743,3 +743,36 @@ def test_registry_refresh_on_the_card_routes_warm_then_cold(cuda):
     h = ctrl.submit("a", q)
     ctrl.drain()
     assert h.result().tobytes() == reg.get("a").score(q).tobytes()
+
+
+def test_distributed_fit_on_the_card_matches_single_device(cuda, tmp_path):
+    """Two gloo ranks on the one card (NCCL refuses two ranks on one
+    card) fit with ``strategy="distributed"``: each rank launches
+    fupdate, gamma is bitwise equal on both, and the fit lands on the
+    single-device fit's optimum (objective and offsets within
+    truth_tolerance + 5e-3, iterations within 10%: ROADMAP C.6)."""
+    import torch_dist_ranks
+    from repro_torch.core.ocssvm import dual_objective_matfree
+    from repro_torch.launch import spawn_ranks
+    X, _ = make_toy(11, 1024, d=16)
+    ranks = spawn_ranks(torch_dist_ranks.card_fit, 2, backend="gloo",
+                        args=(dict(X=X, precision="f32"),), timeout_s=300,
+                        dir=str(tmp_path))
+    assert all(r["launches"] >= r["iters"] > 0 for r in ranks)
+    assert all(r["device"].startswith("cuda") for r in ranks)
+    assert ranks[0]["gamma"].tobytes() == ranks[1]["gamma"].tobytes()
+    assert ranks[0]["iters"] == ranks[1]["iters"] and ranks[0]["converged"]
+    spec = SlabSpec(nu1=0.5, nu2=0.05, eps=0.5, kernel=tkf.rbf(1 / 16))
+    single = repro_torch.fit(X, spec, strategy="pallas", P=8, tol=1e-3)
+    Xd = torch.as_tensor(X, device=cuda).double()
+    o_d = float(dual_objective_matfree(
+        torch.as_tensor(ranks[0]["gamma"], device=cuda).double(), Xd,
+        spec.kernel))
+    o_s = float(dual_objective_matfree(single.model.gamma.double(), Xd,
+                                       spec.kernel))
+    tol = tprec.truth_tolerance("f32", [o_s])
+    assert abs(o_d - o_s) <= max(tol["atol"], 5e-3) + tol["rtol"] * abs(o_s)
+    rho_s = [float(single.model.rho1), float(single.model.rho2)]
+    np.testing.assert_allclose(ranks[0]["rho"], rho_s, atol=5e-3)
+    i_s = int(single.iters)
+    assert abs(ranks[0]["iters"] - i_s) <= max(1, 0.1 * i_s)

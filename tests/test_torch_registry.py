@@ -25,6 +25,7 @@ import repro_torch.core as tc
 import repro_torch.serve as tserve
 from repro.kernels.precision import truth_tolerance
 from repro_torch.data import make_toy
+from repro_torch.launch import make_solver_mesh
 from repro_torch.serve import registry as tregistry
 
 M = 96
@@ -345,7 +346,9 @@ def test_serving_model_predict_and_scorer_kwargs():
     assert isinstance(pt, torch.Tensor)
     assert np.array_equal(pt.numpy(), sm.predict(q))
     assert sm.scorer() is sm.scorer()
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        sm.scorer(mesh=object())
+    # kwargs build a fresh scorer: a one-rank mesh scores as the default
+    mesh, _ = make_solver_mesh()
+    assert sm.scorer(mesh=mesh) is not sm.scorer()
+    assert np.array_equal(sm.scorer(mesh=mesh).score(q), s)
     with pytest.raises(TypeError):
         sm.scorer(interpret=True)

@@ -38,6 +38,7 @@ from repro_torch.serve import (BUCKETS, BatchScorer, ModelCache,
                                ModelRegistry, bucket_for, fingerprint_array,
                                pack_model, recipe_key)
 from repro_torch.data import make_toy
+from repro_torch.launch import make_solver_mesh
 
 ROOT = Path(__file__).resolve().parents[1]
 SOLVER_ATOL_FLOOR = 5e-3
@@ -212,14 +213,17 @@ def test_serve_routes_and_rejects():
     a = repro_torch.serve(X, T_SPEC, cache=cache, device="cpu")
     assert repro_torch.serve(X, T_SPEC, cache=cache, device="cpu") is a
     assert cache.hits == 1
-    # by name through a registry; only the sharded scorer still raises
+    # by name through a registry
     reg = ModelRegistry()
     b = repro_torch.serve(X, T_SPEC, model="tenant-a", registry=reg,
                           device="cpu")
     assert repro_torch.serve(model="tenant-a", registry=reg) is b
     assert np.array_equal(b.score(X[:5]), a.score(X[:5]))
-    with pytest.raises(NotImplementedError, match="A.9"):
-        b.scorer(mesh=object())
+    # a one-rank mesh (no process group) scores as the local scorer does
+    mesh, _ = make_solver_mesh()
+    assert np.array_equal(b.scorer(mesh=mesh).score(X[:5]), a.score(X[:5]))
+    with pytest.raises(ValueError, match="no axis 'pod'"):
+        b.scorer(mesh=mesh, data_axis="pod")
     # a warm start must be a prior fit: on a miss (the seed is no part of
     # the key, so X itself would hit) fit_update refuses anything else
     with pytest.raises(TypeError, match="SolverArtifact"):
