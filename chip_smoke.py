@@ -68,6 +68,26 @@ without printing the result line:
               its leases counted 2, 1 and the segment unlinked; per bucket
               the traffic's launch latency (warm p50, p99) beside the
               scorer's and a ScoringService's on one quiet thread;
+   dist     — the row-sharded solver and scorer in spawned rank processes
+              (see ``_dist_phase``);
+   ckpt     — ``FaultTolerantLoop`` over chunks of CKPT_CHUNK outer
+              iterations of the blocked solve on the main path's rows (f32
+              and bf16), checkpointed every 2 steps through its
+              AsyncCheckpointer (keep 3), failures injected before steps
+              3 and 6: two restarts, the final state bitwise the same loop
+              run without failures, converged, feasible, the objective
+              within truth_tolerance + 5e-3 of the main fit, 3 checkpoints
+              left; a bf16 leaf through the manager on the card, bitwise;
+   head     — ``fit_head`` on the card on 4096 toy rows at d = 768, held
+              against the same head fitted on the CPU (no kernel launch:
+              on-the-fly rows, as in the JAX package);
+   cli      — ``repro_torch.launch.serve_slab`` in three processes at once:
+              the single-model path (m = 8192, bf16, max batch 4096), the
+              fleet (two models, deadlines, a quota, the async driver) and
+              an attach of a model published here; JSON fields as the JAX
+              package's CLI writes them, support rows and inside-slab
+              counts as the same model served in process, streams' scores
+              bitwise;
 4. autotune — the autotuner's path, with the counts set to 0 just before
               and read just after: a quick sweep on the card over
               ``QUICK_CELLS`` and the main path's fupdate and gram cells,
@@ -113,6 +133,8 @@ from __future__ import annotations
 
 import asyncio
 import json
+import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -174,6 +196,45 @@ print(json.dumps({"attach_s": attach_s, "context_s": context_s,
 # group's timeout).
 DIST_REQUESTS = (128, 512, 2048, 8192, 1001)
 DIST_TIMEOUT_S = 600
+# [ckpt]: outer iterations a step of the checkpointed fit, its steps, and
+# the steps before which a failure is injected (checkpoints every 2 steps).
+CKPT_CHUNK, CKPT_STEPS, CKPT_FAILS = 50, 12, (3, 6)
+HEAD_M = 4096             # [head]: rows of pooled features at WIDE_D
+# [cli]: each run of the serving CLI is ``repro_torch.launch.serve_slab``
+# run as ``__main__`` (runpy, as ``python -m`` runs it) in a process of its
+# own, which then writes its kernels' launches (from 0 at its start), its
+# seconds from the interpreter's start-up on, and the scores of its
+# request stream, if it ran one.
+CLI_CHILD = """
+import json, runpy, sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import repro_torch.serve as serve
+from repro_torch.kernels.decision import ops as dec
+from repro_torch.kernels.fupdate import ops as fup
+counts_path, scores_path = sys.argv[2], sys.argv[3]
+stream = serve.run_request_stream
+def spy(svc, requests, coalesce=None):
+    out = stream(svc, requests, coalesce=coalesce)
+    np.save(scores_path, np.concatenate([np.asarray(s) for s in out]))
+    return out
+serve.run_request_stream = spy
+sys.argv = ["serve_slab"] + sys.argv[4:]
+runpy.run_module("repro_torch.launch.serve_slab", run_name="__main__",
+                 alter_sys=True)
+with open(counts_path, "w") as f:
+    json.dump({"fupdate": [[list(e), n] for e, n in fup.FUPDATE.by_entry.items()],
+               "decision": dec.DECISION.launches,
+               "seconds": time.perf_counter() - t0}, f)
+"""
+# The JSON fields of the JAX package's CLI (src/repro/launch/serve_slab.py).
+CLI_FIELDS = {
+    "single": {"m", "n_sv", "precision", "cold_s", "stream_s", "requests",
+               "queries", "buckets"},
+    "multi": {"m", "models", "precision", "deadline_ms", "quota", "stream_s",
+              "requests", "admitted", "rejected", "queries", "per_model"}}
+CLI_TIMEOUT_S = 600
 QP_SIZES = 4              # [paper] runs the QP at the first QP_SIZES sizes
 PROFILE_ITERS = 100       # solver iterations inside the profiler window
 # gram: the kernel matrix of the main path's rows, a ragged shape and one
@@ -536,6 +597,325 @@ def _dist_phase(jobs: dict, ref: dict):
             f"{recs[0]['device']}, job seconds={job_s[backend]:.2f}")
     say(f"[dist] phase seconds={time.perf_counter() - phase_t0:.2f}")
     return dist_fupdate, dist_decision
+
+
+def _ckpt_phase(dev, X_np, spec, main_fits: dict, reset_counts,
+                fupdate_classes) -> dict:
+    """[ckpt]: ``FaultTolerantLoop`` over chunks of the blocked solve
+    (``gram_mode="pallas"``: fupdate's hot loop) on [main]'s rows, f32 and
+    bf16, checkpointed every 2 steps through its ``AsyncCheckpointer``
+    (keep 3), with failures injected before CKPT_FAILS; then a bf16 leaf
+    through the manager on the card. Held against the same loop run with
+    no failure (bitwise) and [main]'s one-shot fits (``main_fits``, by
+    precision). Returns the failing runs' launches by precision: fupdate's
+    by class, and decision's."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import manager
+    from repro_torch.core import (dual_objective_matfree, feasible_init,
+                                  solve_blocked)
+    from repro_torch.kernels.decision import ops as dec
+    from repro_torch.kernels.precision import truth_tolerance
+    from repro_torch.runtime.fault_tolerance import FaultTolerantLoop
+    phase_t0 = time.perf_counter()
+    Xd = torch.as_tensor(X_np, device=dev)
+    m = Xd.shape[0]
+
+    class Cursor:
+        """The loop's data pipeline: its batches are its step count."""
+
+        def __init__(self):
+            self.step = 0
+
+        def next_batch(self):
+            self.step += 1
+            return self.step
+
+        def state_dict(self):
+            return {"step": self.step}
+
+        def load_state_dict(self, d):
+            self.step = d["step"]
+
+    def loop(precision, directory, fails):
+        def step(state, batch):
+            res = solve_blocked(Xd, spec, P=P, tol=TOL, gram_mode="pallas",
+                                precision=precision, gamma0=state["gamma"],
+                                max_outer=CKPT_CHUNK)
+            return ({"gamma": res.model.gamma, "rho1": res.model.rho1,
+                     "rho2": res.model.rho2,
+                     "iters": state["iters"] + res.iters},
+                    {"gap": res.gap, "iters": res.iters})
+        pending = set(fails)
+
+        def inject(s):
+            if s in pending:
+                pending.discard(s)
+                raise RuntimeError(f"injected failure before step {s}")
+        init = {"gamma": feasible_init(m, spec, torch.float32, device=dev),
+                "rho1": torch.zeros((), device=dev),
+                "rho2": torch.zeros((), device=dev),
+                "iters": torch.zeros((), dtype=torch.int32, device=dev)}
+        return FaultTolerantLoop(step, init, Cursor(), directory,
+                                 save_every=2, keep=3,
+                                 failure_injector=inject)
+
+    saves = [s for s in range(CKPT_STEPS) if (s + 1) % 2 == 0]
+    launches, dec_launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for precision in ("f32", "bf16"):
+            what = f"[ckpt] {precision}"
+            want = loop(precision, f"{tmp}/{precision}-clean", ()).run(
+                CKPT_STEPS)
+            failing = loop(precision, f"{tmp}/{precision}", CKPT_FAILS)
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = failing.run(CKPT_STEPS)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches[precision] = fupdate_classes()
+            dec_launches[precision] = dec.DECISION.launches
+            check(failing.restarts == len(CKPT_FAILS),
+                  f"{what}: {failing.restarts} restarts")
+            for k in want:
+                check(got[k].cpu().numpy().tobytes()
+                      == want[k].cpu().numpy().tobytes(),
+                      f"{what}: {k} is not bitwise the run with no failure")
+            kept = sorted(d for d in os.listdir(f"{tmp}/{precision}")
+                          if d.startswith("step_"))
+            check(kept == [f"step_{s:09d}" for s in saves[-3:]],
+                  f"{what}: checkpoints left {kept}")
+            gap = failing.metrics_log[-1]["gap"]
+            check(gap <= TOL, f"{what}: gap {gap} after {CKPT_STEPS} steps")
+            check(launches[precision]["narrow"] > 0,
+                  f"{what}: no narrow fupdate launch")
+            g = got["gamma"].double()
+            check(abs(float(g.sum()) - spec.total()) < 1e-4
+                  and float(g.max()) <= spec.upper(m) + 1e-7
+                  and float(g.min()) >= spec.lower(m) - 1e-7,
+                  f"{what}: gamma is not feasible")
+            o = float(dual_objective_matfree(g, Xd.double(), spec.kernel))
+            one = main_fits[precision]
+            o_main = float(dual_objective_matfree(
+                one.model.gamma.double(), Xd.double(), spec.kernel))
+            tol_o = truth_tolerance(precision, [o_main])
+            check(abs(o - o_main) <= tol_o["atol"] + SOLVER_ATOL_FLOOR
+                  + tol_o["rtol"] * abs(o_main),
+                  f"{what}: objective {o} vs [main]'s {o_main}")
+            say(f"{what} m={m} d={Xd.shape[1]}: {CKPT_STEPS} steps of "
+                f"{CKPT_CHUNK} outer iterations, failures before steps "
+                f"{CKPT_FAILS}: restarts={failing.restarts} steps_run="
+                f"{len(failing.metrics_log)} iters={int(got['iters'])} "
+                f"([main] one-shot {int(one.iters)}) gap={gap:.3e} "
+                f"seconds={secs:.3f} fupdate_launches={launches[precision]} "
+                f"objective={o:.9f} ([main] {o_main:.9f}); bitwise the run "
+                f"with no failure; checkpoints left {kept}")
+        # A bf16 leaf beside the state, through one asynchronous save.
+        rows16 = Xd[:1024].to(torch.bfloat16)
+        tree = {"rows": rows16, "state": got}
+        ck = manager.AsyncCheckpointer(f"{tmp}/async", keep=3)
+        t0 = time.perf_counter()
+        fut = ck.save(0, tree)
+        snap_s = time.perf_counter() - t0
+        path = fut.result()
+        write_s = time.perf_counter() - t0
+        back = manager.restore(f"{tmp}/async", 0, tree)
+        check(back["rows"].dtype == torch.bfloat16
+              and back["rows"].device == rows16.device
+              and torch.equal(back["rows"].view(torch.int16),
+                              rows16.view(torch.int16))
+              and torch.equal(back["state"]["gamma"].view(torch.int32),
+                              got["gamma"].view(torch.int32)),
+              "[ckpt] the bf16 leaf or the state did not round-trip "
+              "bitwise on the card")
+        nbytes = os.path.getsize(os.path.join(path, "arrays.npz"))
+    say(f"[ckpt] AsyncCheckpointer.save of the bf16 rows (1024 x {D}) and "
+        f"the state: returned in {snap_s:.4f} s (device-to-host copy), "
+        f"written in {write_s:.4f} s ({nbytes} bytes); restored on "
+        f"{back['rows'].device} bitwise, bf16 kept")
+    say(f"[ckpt] phase seconds={time.perf_counter() - phase_t0:.2f}")
+    return launches, dec_launches
+
+
+def _head_phase(dev, reset_counts) -> dict:
+    """[head]: ``fit_head`` on the card on HEAD_M toy rows of WIDE_D
+    features (rbf(1/d): rbf(0.5) is degenerate at this width, ROADMAP
+    C.9), held against the same head fitted on the CPU. Its blocked solve
+    takes on-the-fly rows, as the JAX package's head does: no kernel
+    launches. Returns the launches of the fit and one score."""
+    import numpy as np
+    import torch
+    from repro_torch.core import SlabSpec, fit_head, rbf
+    from repro_torch.data import make_toy
+    from repro_torch.kernels.decision import ops as dec
+    from repro_torch.kernels.fupdate import ops as fup
+    from repro_torch.kernels.precision import TOLERANCES
+    phase_t0 = time.perf_counter()
+    F = make_toy(SEED, HEAD_M, d=WIDE_D)[0]
+    Q = make_toy(SEED + 15, 1024, d=WIDE_D)[0]
+    spec = SlabSpec(nu1=0.5, nu2=0.05, eps=0.5, kernel=rbf(1.0 / WIDE_D))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    head = fit_head(F, spec, tol=TOL)
+    s_card = head.score(Q).cpu().numpy()
+    card_s = time.perf_counter() - t0
+    launches = {"fupdate": fup.FUPDATE.launches,
+                "decision": dec.DECISION.launches}
+    check(head.mean.device.type == dev.type,
+          f"[head] fitted on {head.mean.device}")
+    check(launches == {"fupdate": 0, "decision": 0},
+          f"[head] launched {launches}: its blocked solve takes on-the-fly "
+          f"rows, as in the JAX package")
+    t0 = time.perf_counter()
+    cpu = fit_head(F, spec, tol=TOL, device="cpu")
+    s_cpu = cpu.score(Q).numpy()
+    cpu_s = time.perf_counter() - t0
+    for h, where in ((head, "card"), (cpu, "cpu")):
+        check(int(h.result.iters) > 0 and bool(h.result.converged),
+              f"[head] the {where} fit: {int(h.result.iters)} iterations, "
+              f"converged={bool(h.result.converged)}")
+    tol = TOLERANCES["f32"]
+    for name in ("mean", "scale"):
+        np.testing.assert_allclose(getattr(head, name).cpu().numpy(),
+                                   getattr(cpu, name).numpy(), **tol,
+                                   err_msg=f"[head] {name}")
+    np.testing.assert_allclose(s_card, s_cpu, **tol, err_msg="[head] scores")
+    sure = np.abs(s_cpu) > 1e-2 * np.abs(s_cpu).max()
+    flips = int(np.sum(np.sign(s_card[sure]) != np.sign(s_cpu[sure])))
+    check(flips == 0, f"[head] {flips} labels differ from the CPU head's")
+    say(f"[head] fit_head m={HEAD_M} d={WIDE_D} rbf(1/{WIDE_D}) tol={TOL}: "
+        f"card iters={int(head.result.iters)} n_sv="
+        f"{int((head.model.gamma.abs() > 1e-7).sum())} seconds={card_s:.3f}"
+        f" (fit + 1024 scores); cpu iters={int(cpu.result.iters)} seconds="
+        f"{cpu_s:.3f}; scores max_abs_diff="
+        f"{float(np.max(np.abs(s_card - s_cpu))):.3e} (max |score| "
+        f"{float(np.abs(s_cpu).max()):.3e}), labels_checked="
+        f"{int(sure.sum())}/1024 label_flips={flips}; launches={launches}")
+    say(f"[head] phase seconds={time.perf_counter() - phase_t0:.2f}")
+    return launches
+
+
+def _cli_phase(src: Path) -> dict:
+    """[cli]: the serving CLI in three processes at once (CLI_CHILD): the
+    single-model path at m = M in bf16 with the top bucket, the fleet
+    (registry, admission with a quota, the async driver), and an attach of
+    the single run's model, published here. Held against the same model
+    served in process: its support rows, its stream's scores bitwise and
+    its inside-slab count. Returns each run's launches."""
+    import numpy as np
+    import repro_torch
+    from repro_torch.core import SlabSpec
+    from repro_torch.data import make_toy
+    from repro_torch.kernels import tiling
+    from repro_torch.launch import serve_slab
+    from repro_torch.serve import (BUCKETS, ScoringService, publish,
+                                   run_request_stream)
+    phase_t0 = time.perf_counter()
+    narrow = {c.entry for c in tiling.menu("fupdate", 2 * 16)}
+    with tempfile.TemporaryDirectory() as spool:
+        runs = {"single": ["--m", str(M), "--max-batch", str(BUCKETS[-1]),
+                           "--precision", "bf16"],
+                "multi": ["--models", "a=rbf:0.5", "--models", "b=linear",
+                          "--deadline-ms", "20", "--quota", "256",
+                          "--driver"],
+                "attach": ["--shm-attach", f"{spool}/cli", "--max-batch",
+                           str(BUCKETS[-1])]}
+        args = {k: serve_slab._parser().parse_args(v) for k, v in runs.items()}
+        # In process, what the single run fits and streams.
+        a = args["single"]
+        spec = SlabSpec(nu1=a.nu1, nu2=a.nu2, eps=a.eps,
+                        kernel=serve_slab._kernel(a))
+        t0 = time.perf_counter()
+        sm = repro_torch.serve(make_toy(a.seed, a.m)[0], spec, tol=a.tol,
+                               P=16, precision=a.precision)
+        fit_s = time.perf_counter() - t0
+        want = np.concatenate(run_request_stream(
+            ScoringService(sm.scorer()), serve_slab._requests(a),
+            coalesce=a.coalesce))
+        inside_want = int((want >= 0).sum())
+        fleet = {}
+        am = args["multi"]
+        for flag in am.models:
+            name, spec_m = serve_slab._parse_model_flag(flag, am)
+            fleet[name] = repro_torch.serve(
+                make_toy(am.seed, am.m)[0], spec_m, tol=am.tol, P=16,
+                precision=am.precision).n_sv
+        lease = publish(sm, f"{spool}/cli", dir=spool)
+        procs, outs = {}, {}
+        try:
+            for tag, argv in runs.items():
+                files = [f"{spool}/{tag}.{x}" for x in
+                         ("counts.json", "scores.npy", "stats.json")]
+                cmd = [sys.executable, "-c", CLI_CHILD, str(src), *files[:2],
+                       *argv, "--json", files[2]]
+                procs[tag] = (files, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True, env=dict(os.environ, REPRO_SHM_DIR=spool)))
+            for tag, (files, p) in procs.items():
+                out, err = p.communicate(timeout=CLI_TIMEOUT_S)
+                check(p.returncode == 0, f"[cli] {tag} exited with "
+                      f"{p.returncode}: {err[-2000:]}")
+                with open(files[0]) as f:
+                    counts = json.load(f)
+                with open(files[2]) as f:
+                    stats = json.load(f)
+                scores = np.load(files[1]) if os.path.exists(files[1]) \
+                    else None
+                outs[tag] = (out, counts, stats, scores)
+        finally:
+            for _, p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            lease.close()
+
+    launches = {"fupdate": {}, "decision": {}}
+    for tag, (out, counts, stats, scores) in outs.items():
+        by = {tuple(e): n for e, n in counts["fupdate"]}
+        n_nar = sum(n for e, n in by.items() if e in narrow)
+        launches["fupdate"][tag] = {"narrow": n_nar,
+                                    "wide": sum(by.values()) - n_nar}
+        launches["decision"][tag] = counts["decision"]
+        kind = "multi" if tag == "multi" else "single"
+        check(set(stats) == CLI_FIELDS[kind],
+              f"[cli] {tag}: JSON fields {sorted(stats)}")
+        check(counts["decision"] > 0, f"[cli] {tag}: no decision launch")
+        (inside, total), = [tuple(map(int, x)) for x in re.findall(
+            r"^decisions: (\d+)/(\d+) inside the slab$", out, re.M)]
+        if tag == "multi":
+            svs = dict((n, int(k)) for n, k in re.findall(
+                r"^model (\S+): (\d+) SVs", out, re.M))
+            check(svs == fleet, f"[cli] multi: support rows {svs}, in "
+                  f"process {fleet}")
+            check(stats["admitted"] + stats["rejected"] == am.requests
+                  and total == stats["queries"] and inside <= total,
+                  f"[cli] multi: {stats['admitted']} admitted, "
+                  f"{stats['rejected']} rejected, {inside}/{total}")
+        else:
+            check(stats["n_sv"] == sm.n_sv and stats["precision"] == "bf16",
+                  f"[cli] {tag}: n_sv {stats['n_sv']} {stats['precision']}"
+                  f", in process {sm.n_sv} bf16")
+            check(scores is not None and scores.tobytes() == want.tobytes(),
+                  f"[cli] {tag}: the stream's scores are not bitwise the "
+                  f"in-process model's")
+            check((inside, total) == (inside_want, want.size),
+                  f"[cli] {tag}: {inside}/{total} inside, in process "
+                  f"{inside_want}/{want.size}")
+        check((launches["fupdate"][tag]["narrow"] > 0) == (tag == "single"),
+              f"[cli] {tag}: fupdate launches {launches['fupdate'][tag]}")
+        for line in out.strip().splitlines():
+            say(f"[cli] {tag} | {line}")
+        say(f"[cli] {tag}: seconds={counts['seconds']:.2f} (the process, "
+            f"after the interpreter's start), launches: fupdate "
+            f"{launches['fupdate'][tag]}, decision {counts['decision']}")
+    say(f"[cli] in process: serve m={M} bf16 n_sv={sm.n_sv} seconds="
+        f"{fit_s:.3f}; every check held (fields, support rows, the single "
+        f"and attached streams bitwise, {inside_want}/{want.size} inside)")
+    say(f"[cli] phase seconds={time.perf_counter() - phase_t0:.2f} (the "
+        f"three processes at once)")
+    return launches
 
 
 def _served(sm) -> dict:
@@ -1642,6 +2022,19 @@ def main() -> int:
         main={p_: f[0] for p_, f in fits.items()}, shrink=shrink_fits["f32"],
         warm=warm_fits["f32"]))
 
+    # -- 3h. [ckpt]: the fault-tolerant, checkpointed fit -------------------
+    path_launches["ckpt"], ckpt_decision = _ckpt_phase(
+        dev, X_np, spec, {p_: f[0] for p_, f in fits.items()}, reset_counts,
+        fupdate_classes)
+
+    # -- 3i. [head]: the slab head on pooled features ----------------------
+    head_launches = _head_phase(dev, reset_counts)
+    path_launches["head"] = head_launches["fupdate"]
+
+    # -- 3j. [cli]: the serving CLI ----------------------------------------
+    cli_launches = _cli_phase(src)
+    path_launches["cli"] = cli_launches["fupdate"]
+
     # -- 4. the autotune path ----------------------------------------------
     for kern_ in (fup.FUPDATE, dec.DECISION, gram_ops.GRAM):
         kern_.launches = 0
@@ -2000,7 +2393,9 @@ def main() -> int:
          "launches_by_path": {"main": launches["decision"],
                               "serve-wide": path_launches["serve-wide"],
                               "fleet": path_launches["fleet"]["decision"],
-                              "dist": dist_decision},
+                              "dist": dist_decision, "ckpt": ckpt_decision,
+                              "head": head_launches["decision"],
+                              "cli": cli_launches["decision"]},
          "shape": f"queries={BUCKETS[-1]} support={SUPPORT} d={D} rbf f32"},
         {"name": "gram", "route": "cuda",
          "source": "src/repro_torch/csrc/gram.cu",

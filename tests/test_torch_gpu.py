@@ -776,3 +776,65 @@ def test_distributed_fit_on_the_card_matches_single_device(cuda, tmp_path):
     np.testing.assert_allclose(ranks[0]["rho"], rho_s, atol=5e-3)
     i_s = int(single.iters)
     assert abs(ranks[0]["iters"] - i_s) <= max(1, 0.1 * i_s)
+
+
+def test_checkpoint_restores_onto_the_card_keeping_dtype(cuda, tmp_path):
+    """CUDA leaves (f32, bf16, int32) written by the checkpoint manager
+    come back on the card, each with its dtype and bits."""
+    from repro_torch.checkpoint import manager
+    g = torch.Generator(device=cuda).manual_seed(5)
+    state = {"gamma": torch.randn(1000, device=cuda, generator=g),
+             "rows": torch.randn(64, 48, device=cuda,
+                                 generator=g).to(torch.bfloat16),
+             "iters": torch.tensor(17, dtype=torch.int32, device=cuda)}
+    ck = manager.AsyncCheckpointer(str(tmp_path), keep=2)
+    ck.save(4, state).result()
+    back, step = manager.restore_latest(str(tmp_path), state)
+    assert step == 4
+    for k, t in state.items():
+        got = back[k]
+        assert got.device == t.device and got.dtype == t.dtype, k
+        if t.dtype == torch.bfloat16:
+            got, t = got.view(torch.int16), t.view(torch.int16)
+        assert torch.equal(got, t), k
+    on_cpu = manager.restore(str(tmp_path), 4, state, shardings={
+        k: torch.device("cpu") for k in state})
+    assert all(v.device.type == "cpu" for v in on_cpu.values())
+
+
+def test_head_on_the_card_matches_the_cpu_head(cuda):
+    """``fit_head`` on the card: the whitening and the scores within the
+    f32 TOLERANCES of the same head fitted on the CPU; no kernel launch
+    (on-the-fly rows, as in the JAX package)."""
+    from repro_torch.core import fit_head
+    F = make_toy(6, 1024, d=96)[0]
+    Q = make_toy(7, 256, d=96)[0]
+    spec = SlabSpec(nu1=0.5, nu2=0.05, eps=0.5, kernel=tkf.rbf(1 / 96))
+    n0 = (tfup.FUPDATE.launches, tdec.DECISION.launches)
+    head = fit_head(F, spec, tol=1e-3)
+    s_card = head.score(Q).cpu().numpy()
+    assert (tfup.FUPDATE.launches, tdec.DECISION.launches) == n0
+    assert head.mean.device.type == "cuda" and int(head.result.iters) > 0
+    cpu = fit_head(F, spec, tol=1e-3, device="cpu")
+    tol = tprec.TOLERANCES["f32"]
+    for name in ("mean", "scale"):
+        np.testing.assert_allclose(getattr(head, name).cpu().numpy(),
+                                   getattr(cpu, name).numpy(), **tol)
+    np.testing.assert_allclose(s_card, cpu.score(Q).numpy(), **tol)
+
+
+def test_serving_cli_on_the_card(cuda, tmp_path, capsys):
+    """The serving CLI's single-model path on the card: its fit launches
+    fupdate, its stream decision, and its JSON has the reference CLI's
+    fields."""
+    import json
+    from repro_torch.launch import serve_slab
+    n0 = (tfup.FUPDATE.launches, tdec.DECISION.launches)
+    out = tmp_path / "stats.json"
+    serve_slab.main(["--m", "4096", "--requests", "8", "--max-batch",
+                     "1024", "--json", str(out)])
+    stats = json.loads(out.read_text())
+    assert set(stats) == {"m", "n_sv", "precision", "cold_s", "stream_s",
+                          "requests", "queries", "buckets"}
+    assert tfup.FUPDATE.launches > n0[0] and tdec.DECISION.launches > n0[1]
+    assert "inside the slab" in capsys.readouterr().out

@@ -252,6 +252,11 @@ def test_port_sources_import_nothing_of_jax():
     assert {serve_dir / f"{m}.py" for m in (
         "drift", "service", "registry", "admission", "async_driver",
         "shm_registry")} <= set(files)
+    port = ROOT / "src" / "repro_torch"
+    assert {port / "checkpoint" / "manager.py",
+            port / "runtime" / "fault_tolerance.py",
+            port / "core" / "head.py",
+            port / "launch" / "serve_slab.py"} <= set(files)
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -270,7 +275,10 @@ def test_port_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch; repro_torch.fit; repro_torch.serve; "
             "import repro_torch.convert, repro_torch.serve.scorer, "
             "repro_torch.kernels._build, repro_torch.serve.shm_registry, "
-            "repro_torch.serve.async_driver, repro_torch.serve.drift; "
+            "repro_torch.serve.async_driver, repro_torch.serve.drift, "
+            "repro_torch.checkpoint.manager, "
+            "repro_torch.runtime.fault_tolerance, repro_torch.core.head, "
+            "repro_torch.launch.serve_slab; "
             "repro_torch.serve_async; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
