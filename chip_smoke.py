@@ -88,6 +88,18 @@ without printing the result line:
               package's CLI writes them, support rows and inside-slab
               counts as the same model served in process, streams' scores
               bitwise;
+   lm       — the LM serving path (see ``_lm_phase``): the ten archs at
+              their reduced sizes on the card against the CPU (logits,
+              aux, decode against the full forward, MoE bitwise across
+              calls); llama3.2-3b at full width, 2 layers, f32 against the
+              CPU; at full width and depth in bf16, prefill 4 x 512
+              tokens and 32 greedy decode steps twice (the same tokens;
+              the first step's logits against a full forward; ms printed);
+              the slab fitted on 2048 pooled, whitened hidden states
+              (d = 3072, bf16, fupdate and decision launched, held
+              against their plain versions and timed) scoring held-out
+              and OOD text (AUC printed); ``repro_torch.launch.serve`` in
+              a subprocess;
 4. autotune — the autotuner's path, with the counts set to 0 just before
               and read just after: a quick sweep on the card over
               ``QUICK_CELLS`` and the main path's fupdate and gram cells,
@@ -235,6 +247,24 @@ CLI_FIELDS = {
     "multi": {"m", "models", "precision", "deadline_ms", "quota", "stream_s",
               "requests", "admitted", "rejected", "queries", "per_model"}}
 CLI_TIMEOUT_S = 600
+# [lm]: the LM serving path. llama3.2-3b at full width: prefill
+# LM_BATCH x LM_PROMPT tokens, then LM_NEW greedy decode steps; at
+# LM_PARITY_LAYERS layers in f32 against the CPU on LM_PARITY_S tokens;
+# the slab fitted on LM_SLAB_M pooled in-distribution sequences of
+# LM_SLAB_S tokens (ids below LM_SLAB_IDS) and scoring LM_SLAB_Q held-out
+# and LM_SLAB_Q OOD ones (the top LM_SLAB_IDS ids), LM_FEAT_BATCH
+# sequences a forward. Logits agree within tests/test_arch_smoke.py's
+# tolerance (LM_ATOL, LM_RTOL); bf16 decode against the full forward
+# within the bf16 TOLERANCES, atol scaled by the largest logit.
+LM_ARCH = "llama3.2-3b"
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 512, 32
+LM_PARITY_LAYERS, LM_PARITY_S = 2, 64
+LM_SLAB_M, LM_SLAB_Q, LM_SLAB_S, LM_SLAB_IDS = 2048, 512, 64, 40
+LM_FEAT_BATCH = 256
+LM_ATOL, LM_RTOL = 5e-4, 1e-3
+LM_CLI_ARGS = ["--arch", LM_ARCH, "--batch", str(LM_BATCH), "--prompt-len",
+               str(LM_PROMPT), "--new-tokens", str(LM_NEW)]
+LM_CLI_TIMEOUT_S = 300
 QP_SIZES = 4              # [paper] runs the QP at the first QP_SIZES sizes
 PROFILE_ITERS = 100       # solver iterations inside the profiler window
 # gram: the kernel matrix of the main path's rows, a ragged shape and one
@@ -916,6 +946,375 @@ def _cli_phase(src: Path) -> dict:
     say(f"[cli] phase seconds={time.perf_counter() - phase_t0:.2f} (the "
         f"three processes at once)")
     return launches
+
+
+def _lm_phase(dev, src: Path, reset_counts, fupdate_classes,
+              time_ms) -> dict:
+    """[lm]: the LM serving path (``repro_torch.models``,
+    ``train.serve_step``, ``launch.serve``) and the slab on its pooled,
+    whitened features. In order: the ten archs at their ``reduced()`` sizes on the
+    card against the same parameters on the CPU (logits, aux; the decode
+    step against the full forward on the card; MoE bitwise across two
+    calls); LM_ARCH at full width and LM_PARITY_LAYERS layers in f32
+    against the CPU; LM_ARCH at full width and depth in bf16 (prefill,
+    LM_NEW greedy decode steps, twice: the same tokens; the first decode
+    step's logits against a full forward); the slab fitted by ``serve``
+    on pooled hidden states (``strategy="pallas"``, bf16: fupdate and
+    decision at d = d_model), its scores held against the plain decision
+    and fupdate held against its plain version at the fit's shapes, each
+    timed; the CLI in a subprocess. Returns the slab's launches and the
+    JSON rows of the kernels at d = d_model."""
+    import copy
+    import dataclasses
+    import numpy as np
+    import torch
+    import repro_torch
+    from repro_torch.configs import ARCHS, get_arch
+    from repro_torch.core import SlabSpec, pool_features, rbf
+    from repro_torch.kernels import tiling
+    from repro_torch.kernels.decision import ops as dec
+    from repro_torch.kernels.decision.ref import decision_plain
+    from repro_torch.kernels.fupdate import ops as fup
+    from repro_torch.kernels.fupdate.ref import fupdate_plain
+    from repro_torch.kernels.precision import TOLERANCES
+    from repro_torch.models.transformer import (forward, init_cache,
+                                                init_params)
+    from repro_torch.serve.scorer import bucket_for
+    from repro_torch.train.serve_step import make_decode, make_prefill
+    from repro_torch.utils.roofline import terms
+    phase_t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 20)
+
+    def inputs(cfg, B, S):
+        """Numpy inputs of S positions for an arch (frontend stubs too)."""
+        kw = {}
+        if cfg.frontend == "audio":
+            kw["embeds"] = rng.standard_normal(
+                (B, S, cfg.d_model)).astype(np.float32)
+        else:
+            nv = cfg.n_frontend_tokens
+            kw["tokens"] = rng.integers(0, cfg.vocab_size,
+                                        (B, S - nv)).astype(np.int32)
+            if nv:
+                kw["vision_embeds"] = rng.standard_normal(
+                    (B, nv, cfg.d_model)).astype(np.float32)
+        return kw
+
+    def on(kw, device, keep=slice(None)):
+        """The inputs on ``device``, text positions sliced by ``keep``."""
+        out = {}
+        for k, v in kw.items():
+            v = v if k == "vision_embeds" else v[:, keep]
+            out[k] = torch.as_tensor(v, device=device)
+        return out
+
+    def close(out, ref, what, atol=LM_ATOL, rtol=LM_RTOL):
+        out, ref = out.float().cpu(), ref.float().cpu()
+        check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+              f"[lm] {what}: shape {tuple(out.shape)} against "
+              f"{tuple(ref.shape)}, or non-finite values")
+        diff = (out - ref).abs()
+        bad = int((diff > atol + rtol * ref.abs()).sum())
+        check(bad == 0, f"[lm] {what}: {bad} values outside atol {atol:.3g}"
+              f" rtol {rtol:.3g} (max abs diff {float(diff.max()):.3e})")
+        return float(diff.max())
+
+    def sync():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    # -- the ten archs, reduced, on the card against the CPU ------------
+    t0 = sync()
+    for name in sorted(ARCHS):
+        cfg = ARCHS[name].reduced()
+        cpu = init_params(cfg, torch.Generator().manual_seed(SEED),
+                          device="cpu")
+        card = copy.deepcopy(cpu).to(dev)
+        kw = inputs(cfg, 2, 20)
+        want, _, aux_w = forward(cpu, cfg, **on(kw, "cpu"))
+        got, _, aux = forward(card, cfg, **on(kw, dev))
+        err = close(got, want, f"{name} reduced: logits, card vs cpu")
+        close(aux, aux_w, f"{name} reduced: aux loss, card vs cpu")
+        note = ""
+        if cfg.n_experts:
+            again, _, aux2 = forward(card, cfg, **on(kw, dev))
+            check(torch.equal(again, got) and torch.equal(aux2, aux),
+                  f"[lm] {name} reduced: the MoE forward is not bitwise "
+                  f"the same across two calls")
+            note = "; MoE bitwise across two calls"
+            # no capacity drop between the decode check's two batch shapes
+            cfg = dataclasses.replace(cfg,
+                                      capacity_factor=float(cfg.n_experts))
+        full, _, _ = forward(card, cfg, **on(kw, dev))
+        cache = init_cache(cfg, 2, 20, dtype=torch.float32, device=dev)
+        _, cache, _ = forward(card, cfg, cache=cache,
+                              **on(kw, dev, slice(None, -1)))
+        last, _, _ = forward(card, cfg, cache=cache,
+                             **on({k: v for k, v in kw.items()
+                                   if k != "vision_embeds"}, dev,
+                                  slice(-1, None)))
+        derr = close(last[:, 0], full[:, -1],
+                     f"{name} reduced: decode vs the full forward")
+        say(f"[lm] reduced {name}: logits card vs cpu max_abs_diff="
+            f"{err:.3e}, decode vs full forward max_abs_diff={derr:.3e}"
+            f"{note}")
+    say(f"[lm] reduced archs: all {len(ARCHS)} held, seconds="
+        f"{sync() - t0:.2f}")
+
+    # -- full width, LM_PARITY_LAYERS layers, f32: card vs cpu ----------
+    full_cfg = get_arch(LM_ARCH)
+    cfg = dataclasses.replace(full_cfg, n_layers=LM_PARITY_LAYERS,
+                              param_dtype="float32")
+    card = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                       device=dev)
+    cpu = copy.deepcopy(card).to("cpu")
+    kw = inputs(cfg, 1, LM_PARITY_S)
+    t0 = sync()
+    got, _, _ = forward(card, cfg, **on(kw, dev))
+    card_ms = 1e3 * (sync() - t0)
+    t0 = time.perf_counter()
+    want, _, _ = forward(cpu, cfg, **on(kw, "cpu"))
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    v = cfg.vocab_size                 # the padded columns are -1e30
+    err = close(got[..., :v], want[..., :v], f"{LM_ARCH} "
+                f"{LM_PARITY_LAYERS} layers f32: logits card vs cpu")
+    say(f"[lm] {LM_ARCH} full width (d={cfg.d_model}, vocab "
+        f"{cfg.padded_vocab}), {LM_PARITY_LAYERS} layers, f32, B=1 S="
+        f"{LM_PARITY_S}: logits card vs cpu max_abs_diff={err:.3e} (max "
+        f"|logit| {float(want[..., :v].abs().max()):.3f}); forward ms card="
+        f"{card_ms:.1f} (first call) cpu={cpu_ms:.1f}")
+    del card, cpu, got, want
+
+    # -- full width and depth, bf16: prefill + greedy decode ------------
+    cfg = full_cfg
+    t0 = sync()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         device=dev)
+    init_s = sync() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    # every parameter the count names, plus the final norm and the
+    # padded vocab rows of embed and unembed
+    check(n_params == cfg.param_count() + cfg.d_model + 2 * cfg.d_model
+          * (cfg.padded_vocab - cfg.vocab_size),
+          f"[lm] {n_params} parameters, param_count {cfg.param_count()}")
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (
+        LM_BATCH, LM_PROMPT)).astype(np.int32), device=dev)
+    prefill, decode = make_prefill(cfg), make_decode(cfg)
+
+    def generate():
+        """(tokens (B, 1 + LM_NEW), the first decode step's logits,
+        prefill ms, decode ms a step)."""
+        cache = init_cache(cfg, LM_BATCH, LM_PROMPT + LM_NEW, device=dev)
+        t0 = sync()
+        logits, cache = prefill(params, cache, {"tokens": prompt})
+        tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+        t1 = sync()
+        toks = [tok]
+        for step in range(LM_NEW):
+            logits, cache = decode(params, cache, tok)
+            if step == 0:
+                first = logits[:, 0].float()
+            tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+            toks.append(tok)
+        t2 = sync()
+        return (torch.cat(toks, dim=1), first, 1e3 * (t1 - t0),
+                1e3 * (t2 - t1) / LM_NEW)
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    runs = [generate() for _ in range(2)]
+    peak_gb = (torch.cuda.max_memory_allocated(dev) / 2**30
+               if dev.type == "cuda" else 0.0)
+    check(torch.equal(runs[0][0], runs[1][0]),
+          "[lm] the greedy tokens differ between two runs")
+    v = cfg.vocab_size
+    toks, first = runs[1][0], runs[1][1][:, :v]
+    full_last = forward(params, cfg, tokens=torch.cat(
+        [prompt, toks[:, :1]], dim=1))[0][:, -1, :v].float()
+    top = float(full_last.abs().max())
+    tol16 = TOLERANCES["bf16"]
+    derr = close(first, full_last, f"{LM_ARCH} bf16: the first decode "
+                 f"step vs the full forward", atol=tol16["atol"] * max(
+                     1.0, top), rtol=tol16["rtol"])
+    agree = int((first.argmax(-1) == full_last.argmax(-1)).sum())
+    for i, (_, _, pre_ms, dec_ms) in enumerate(runs):
+        say(f"[lm] {LM_ARCH} full width bf16 run {i + 1}: prefill "
+            f"B={LM_BATCH} x {LM_PROMPT} tokens ms={pre_ms:.2f} "
+            f"({LM_BATCH * LM_PROMPT / pre_ms * 1e3:.0f} tokens/s); decode "
+            f"{LM_NEW} steps: ms/step={dec_ms:.2f} ms/token="
+            f"{dec_ms / LM_BATCH:.3f}")
+    say(f"[lm] {LM_ARCH} bf16: {n_params} parameters "
+        f"({2 * n_params / 1e9:.2f} GB), init seconds={init_s:.2f}, peak "
+        f"allocated {peak_gb:.2f} GiB; greedy tokens equal across the two "
+        f"runs; first sequence {toks[0].tolist()}")
+    say(f"[lm] {LM_ARCH} bf16: the first decode step vs the full forward "
+        f"of prompt + token: max_abs_diff={derr:.3e} (max |logit| "
+        f"{top:.3f}; atol {tol16['atol'] * max(1.0, top):.3f} rtol "
+        f"{tol16['rtol']}); argmax equal in {agree}/{LM_BATCH}")
+
+    # -- the slab on pooled hidden states at d = d_model ----------------
+    def features(toks):
+        out = []
+        for i in range(0, toks.shape[0], LM_FEAT_BATCH):
+            h, _, _ = forward(params, cfg, return_hidden=True,
+                              tokens=torch.as_tensor(
+                                  toks[i:i + LM_FEAT_BATCH], device=dev))
+            out.append(pool_features(h.float(), "mean"))
+        return torch.cat(out)
+
+    hi = cfg.vocab_size - LM_SLAB_IDS
+    t0 = sync()
+    F = features(rng.integers(0, LM_SLAB_IDS, (LM_SLAB_M, LM_SLAB_S)))
+    Q_in = features(rng.integers(0, LM_SLAB_IDS, (LM_SLAB_Q, LM_SLAB_S)))
+    Q_out = features(rng.integers(hi, cfg.vocab_size,
+                                  (LM_SLAB_Q, LM_SLAB_S)))
+    feat_s = sync() - t0
+    # whitened by the training features' mean and std, as fit_head does
+    mean, scale = F.mean(dim=0), F.std(dim=0, correction=0) + 1e-6
+    F, Q_in, Q_out = ((x - mean) / scale for x in (F, Q_in, Q_out))
+    d = cfg.d_model
+    spec = SlabSpec(nu1=0.2, nu2=0.1, eps=0.3, kernel=rbf(1.0 / d))
+    reset_counts()
+    t0 = sync()
+    sm = repro_torch.serve(F.cpu().numpy(), spec, strategy="pallas",
+                           precision="bf16", P=16, tol=TOL)
+    s_in, s_out = sm.score(Q_in), sm.score(Q_out)
+    slab_s = sync() - t0
+    launches = {"fupdate": fupdate_classes(),
+                "decision": dec.DECISION.launches}
+    check(launches["fupdate"]["narrow"] > 0
+          and launches["fupdate"]["wide"] > 0
+          and launches["decision"] == 2,
+          f"[lm] slab launches {launches}: the fit's narrow hot loop and "
+          f"wide init pass, one decision launch for each score")
+    auc = float((s_in[:, None] > s_out[None, :]).float().mean())
+    kern = sm.spec.kernel
+    r1, r2 = float(sm.rho1), float(sm.rho2)
+    bucket = bucket_for(LM_SLAB_Q)
+    cfg_dec = tiling.packed_decision_config(bucket, "bf16",
+                                            sm.t_pad.shape[1])
+    tol32 = TOLERANCES["f32"]
+    worst = {"decision": 0.0, "fupdate": 0.0}
+    for what, Q, s in (("held-out", Q_in, s_in), ("OOD", Q_out, s_out)):
+        q = torch.zeros((bucket, sm.t_pad.shape[1]), device=dev)
+        q[:LM_SLAB_Q, :d] = Q
+        ops = dec.prepare_packed(q, sm.t_pad, sm.gamma_pad, sm.t_norms,
+                                 tm=min(bucket, 256), tn=sm.tn,
+                                 precision="bf16")
+        plain = decision_plain(*ops, r1, r2, kind="rbf",
+                               gamma=kern.gamma)[:LM_SLAB_Q]
+        top = float(plain.abs().max())
+        err = close(s, plain, f"slab {what} scores vs the plain decision",
+                    atol=tol32["atol"] * max(1.0, top), rtol=tol32["rtol"])
+        worst["decision"] = max(worst["decision"], err)
+        sure = plain.abs() > 1e-2 * top
+        flips = int((torch.sign(s[sure]) != torch.sign(plain[sure])).sum())
+        check(flips == 0, f"[lm] slab {what}: {flips} labels differ from "
+              f"the plain decision")
+    say(f"[lm] slab on pooled hidden states: m={LM_SLAB_M} x {LM_SLAB_S} "
+        f"tokens (ids < {LM_SLAB_IDS}), d={d}, rbf(1/{d}), bf16, "
+        f"strategy=pallas: fit iters={sm.fit_iters} n_sv={sm.n_sv}; "
+        f"features seconds={feat_s:.2f} ({LM_SLAB_M + 2 * LM_SLAB_Q} "
+        f"sequences), fit + 2 scores seconds={slab_s:.2f}; launches "
+        f"{launches}; decision entry {cfg_dec.entry} "
+        f"({tiling.kernel_of('decision', cfg_dec)}) at bucket {bucket}; "
+        f"scores vs plain max_abs_diff={worst['decision']:.3e}, no label "
+        f"flipped; AUC(held-out > OOD)={auc:.4f}; inside the slab: "
+        f"held-out {int((s_in >= 0).sum())}/{LM_SLAB_Q}, OOD "
+        f"{int((s_out >= 0).sum())}/{LM_SLAB_Q}")
+
+    # The two kernels at the fit's and the score's shapes: held against
+    # their plain versions and timed (launches made here do not count).
+    def bound(nbytes, flops):
+        t = terms(flops, nbytes, 0.0, 1, "bf16")
+        return (1e3 * t.step_time_s,
+                "bytes" if t.memory_s >= t.compute_s else "operations")
+
+    rows = []
+    m = LM_SLAB_M
+    for s_sel in (32, m):          # the hot loop (2P), the init pass
+        xsel = F[torch.as_tensor(rng.choice(m, s_sel, replace=False),
+                                 device=dev)]
+        delta = torch.as_tensor(rng.standard_normal(s_sel)
+                                .astype(np.float32), device=dev)
+        f0 = torch.as_tensor(rng.uniform(-1, 1, m).astype(np.float32),
+                             device=dev)
+        ops = fup.prepare(F, xsel, delta, torch.zeros_like(f0),
+                          precision="bf16")
+        step = fupdate_plain(*ops, kind="rbf", gamma=kern.gamma).abs().max()
+        ops = fup.prepare(F, xsel, delta / step, f0, precision="bf16")
+        c = fup.tiles(ops[0], s_sel)
+        out = fup.launch(*ops, kern, c)()
+        plain = fupdate_plain(*ops, kind="rbf", gamma=kern.gamma)
+        top = float(plain.abs().max())
+        err = close(out, plain, f"fupdate m={m} S={s_sel} d={d} bf16",
+                    atol=tol32["atol"] * max(1.0, top), rtol=tol32["rtol"])
+        worst["fupdate"] = max(worst["fupdate"], err)
+        ms = time_ms(lambda: fup.launch(*ops, kern, c)(), iters=20)
+        plain_ms = time_ms(lambda: fupdate_plain(
+            *ops, kind="rbf", gamma=kern.gamma), iters=20)
+        b_ms, b_by = bound((m + s_sel) * d * 2 + 4 * (3 * m + 2 * s_sel),
+                           2 * m * s_sel * d + 2 * m * s_sel)
+        cls = "narrow" if s_sel <= tiling.FUPDATE_NARROW_MAX_S else "wide"
+        rows.append({
+            "name": f"fupdate_{'wide_' * (cls == 'wide')}lm_bf16_d{d}",
+            "route": "cuda", "source": "src/repro_torch/csrc/fupdate.cu",
+            "replaces": "src/repro/kernels/fupdate/kernel.py:30",
+            "launches": launches["fupdate"][cls], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "pass": True,
+            "shape": f"m={m} S={s_sel} d={d} rbf bf16 ({cls} class, entry "
+                     f"{c.entry}; [lm] slab fit on pooled hidden states)"})
+        say(f"[timing] fupdate m={m} S={s_sel} d={d} rbf bf16 config "
+            f"{c.entry} ({tiling.kernel_of('fupdate', c)}) kernel_ms="
+            f"{ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({b_by})"
+            f" bound_share={b_ms / ms:.3f} max_abs_err={err:.3e}")
+    nt, dp = sm.t_pad.shape
+    q = torch.zeros((bucket, dp), device=dev)
+    q[:LM_SLAB_Q, :d] = Q_out
+    ops = dec.prepare_packed(q, sm.t_pad, sm.gamma_pad, sm.t_norms,
+                             tm=min(bucket, 256), tn=sm.tn, precision="bf16")
+    ms = time_ms(lambda: dec.launch(*ops, r1, r2, kern, cfg_dec)(), iters=20)
+    plain_ms = time_ms(lambda: decision_plain(
+        *ops, r1, r2, kind="rbf", gamma=kern.gamma), iters=20)
+    b_ms, b_by = bound((bucket + nt) * dp * 2 + 4 * (2 * nt + 2 * bucket),
+                       2 * bucket * nt * dp + 2 * bucket * nt)
+    rows.append({
+        "name": f"decision_lm_bf16_d{d}", "route": "cuda",
+        "source": "src/repro_torch/csrc/decision.cu",
+        "replaces": "src/repro/kernels/decision/kernel.py:27",
+        "launches": launches["decision"], "max_abs_err": worst["decision"],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "pass": True,
+        "shape": f"queries={bucket} support={nt} d={d} rbf bf16 (entry "
+                 f"{cfg_dec.entry}; [lm] slab scores)"})
+    say(f"[timing] decision bf16 d={d} bucket={bucket} support={nt} config "
+        f"{cfg_dec.entry} ({tiling.kernel_of('decision', cfg_dec)}) "
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} "
+        f"({b_by}) bound_share={b_ms / ms:.3f}")
+    del params, F, Q_in, Q_out, sm
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- the CLI, in a process of its own -------------------------------
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *LM_CLI_ARGS],
+        capture_output=True, text=True, timeout=LM_CLI_TIMEOUT_S,
+        env=dict(os.environ, PYTHONPATH=str(src)))
+    check(out.returncode == 0, f"[lm] the CLI exited with {out.returncode}:"
+          f" {out.stderr[-2000:]}")
+    lines = out.stdout.strip().splitlines()
+    check(len(lines) == 2 and lines[0].startswith(
+        f"generated ({LM_BATCH}, {LM_NEW}) in ")
+        and lines[1].startswith("first sequence: ["),
+        f"[lm] the CLI printed {lines}")
+    for line in lines:
+        say(f"[lm] cli | {line}")
+    say(f"[lm] cli: {' '.join(LM_CLI_ARGS)}, process seconds="
+        f"{time.perf_counter() - t0:.2f}")
+    say(f"[lm] phase seconds={time.perf_counter() - phase_t0:.2f}")
+    return {"launches": launches, "rows": rows}
 
 
 def _served(sm) -> dict:
@@ -2035,6 +2434,10 @@ def main() -> int:
     cli_launches = _cli_phase(src)
     path_launches["cli"] = cli_launches["fupdate"]
 
+    # -- 3k. [lm]: the LM serving path and the slab on its features -------
+    lm = _lm_phase(dev, src, reset_counts, fupdate_classes, autotune.graph_ms)
+    path_launches["lm"] = lm["launches"]["fupdate"]
+
     # -- 4. the autotune path ----------------------------------------------
     for kern_ in (fup.FUPDATE, dec.DECISION, gram_ops.GRAM):
         kern_.launches = 0
@@ -2395,7 +2798,8 @@ def main() -> int:
                               "fleet": path_launches["fleet"]["decision"],
                               "dist": dist_decision, "ckpt": ckpt_decision,
                               "head": head_launches["decision"],
-                              "cli": cli_launches["decision"]},
+                              "cli": cli_launches["decision"],
+                              "lm": lm["launches"]["decision"]},
          "shape": f"queries={BUCKETS[-1]} support={SUPPORT} d={D} rbf f32"},
         {"name": "gram", "route": "cuda",
          "source": "src/repro_torch/csrc/gram.cu",
@@ -2411,7 +2815,7 @@ def main() -> int:
          "max_abs_err": worst["gram_bf16"], "ms": h_ms, "plain_ms": h_plain,
          "bound_ms": h_b, "bound_by": h_by, "library_ms": h_lib,
          "pass": True, "shape": f"m=n={M} d={D} linear bf16 (wgmma class)"},
-    ]}))
+    ] + lm["rows"]}))
     _say_cards_and_result()
     return 0
 

@@ -1,0 +1,267 @@
+"""The decoder stack over an arch's heterogeneous layer pattern (the JAX
+package's ``repro.models.transformer``, single device).
+
+``init_params`` builds a ``Decoder``: an ``nn.Module`` holding the
+embedding, the final norm, the unembedding and a ``ModuleList`` of
+``DecoderLayer``s in stack order. Each layer holds its parameters under
+the JAX package's names (``norm1``, ``attn``/``mamba``/``rwkv``,
+``mlp``/``moe``/``dense_res``/``cmix``), so ``params.layers[i]["attn"]["wq"]``
+is the JAX tree's ``segments["l{i % period}"]["attn"]["wq"][i // period]``
+(or ``tail[...]`` past the whole periods). The JAX package scans over
+the stacked periods; here the layers run in a loop.
+
+Modes (one code path, the cache decides):
+  * train:   cache=None, full sequence
+  * prefill: cache=zero buffers, full sequence, returns the filled cache
+  * decode:  cache=filled, single-token step from position cache["pos"]
+
+The KV buffers of a cache are written in place; the returned cache holds
+them with the new position and the new SSM/RWKV states. Modality
+frontends are stubs: audio supplies frame embeddings in place of the
+token embedding, vision supplies patch embeddings prepended to the text.
+Parameters carry no gradient: this is the serving path.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig, LayerSpec
+from repro_torch.models.attention import (attn_init, attention_forward,
+                                          make_kv_cache)
+from repro_torch.models.layers import (dense_init, embed_init, mlp_forward,
+                                       mlp_init, rms_norm)
+from repro_torch.models.mamba import (make_mamba_state, mamba_forward,
+                                      mamba_init)
+from repro_torch.models.moe import moe_forward, moe_init
+from repro_torch.models.rwkv import (RWKVState, channel_mix_init,
+                                     make_rwkv_state, rwkv_channel_mix,
+                                     rwkv_init, rwkv_time_mix)
+
+Tensor = torch.Tensor
+
+
+def _param(t: Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class _Named(nn.Module):
+    """Parameters by the JAX package's key: ``p["attn"]["wq"]``."""
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+
+class DecoderLayer(_Named):
+    """One layer's parameters; its ``spec`` says which mixer and MLP."""
+
+    def __init__(self, spec: LayerSpec, tree: dict):
+        super().__init__()
+        self.spec = spec
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                setattr(self, key, nn.ParameterDict(
+                    {k: _param(v) for k, v in val.items()}))
+            else:
+                setattr(self, key, _param(val))
+
+
+class Decoder(_Named):
+    """The whole stack's parameters; ``Decoder(...)(tokens=...)`` runs
+    ``forward``."""
+
+    def __init__(self, cfg: ArchConfig, tree: dict):
+        super().__init__()
+        if len(tree["layers"]) != cfg.n_layers:
+            raise ValueError(f"{len(tree['layers'])} layers for "
+                             f"{cfg.name}'s {cfg.n_layers}")
+        self.cfg = cfg
+        self.embed = _param(tree["embed"])
+        self.final_norm = _param(tree["final_norm"])
+        self.unembed = _param(tree["unembed"])
+        self.layers = nn.ModuleList(
+            DecoderLayer(cfg.layer_spec(i), t)
+            for i, t in enumerate(tree["layers"]))
+
+    def forward(self, **kwargs):
+        return forward(self, self.cfg, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _layer_init(gen: torch.Generator, cfg: ArchConfig,
+                spec: LayerSpec) -> dict:
+    dtype, dev = cfg.dtype, gen.device
+    p: dict = {
+        "norm1": torch.zeros((cfg.d_model,), dtype=torch.float32,
+                             device=dev),
+        "norm2": torch.zeros((cfg.d_model,), dtype=torch.float32,
+                             device=dev),
+    }
+    if spec.mixer in ("full", "swa"):
+        p["attn"] = attn_init(gen, cfg.d_model, cfg.n_heads,
+                              cfg.n_kv_heads, cfg.head_dim, dtype)
+    elif spec.mixer == "mamba":
+        p["mamba"] = mamba_init(gen, cfg, dtype)
+    elif spec.mixer == "rwkv":
+        p["rwkv"] = rwkv_init(gen, cfg, dtype)
+    else:
+        raise ValueError(spec.mixer)
+
+    if spec.mixer == "rwkv":
+        p["cmix"] = channel_mix_init(gen, cfg, dtype)
+    elif spec.moe:
+        p["moe"] = moe_init(gen, cfg.d_model, cfg.n_experts, cfg.moe_ff,
+                            cfg.mlp_type, dtype)
+        if cfg.dense_residual_ff:
+            p["dense_res"] = mlp_init(gen, cfg.d_model,
+                                      cfg.dense_residual_ff, cfg.mlp_type,
+                                      dtype)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype)
+    return p
+
+
+def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
+                *, device=None) -> Decoder:
+    """Random parameters drawn from ``generator`` (default: one seeded 0)
+    on ``device`` (default: the CUDA card; ``"cpu"`` on the CPU)."""
+    from repro_torch.api import resolve_device
+    dev = resolve_device(device)
+    gen = generator if generator is not None \
+        else torch.Generator(device=dev).manual_seed(0)
+    if gen.device.type != dev.type:
+        raise ValueError(f"a generator on {gen.device} cannot draw the "
+                         f"parameters on {dev}")
+    tree = {
+        "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, cfg.dtype),
+        "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32,
+                                  device=dev),
+        "unembed": dense_init(gen, (cfg.d_model, cfg.padded_vocab),
+                              cfg.dtype),
+        "layers": [_layer_init(gen, cfg, cfg.layer_spec(i))
+                   for i in range(cfg.n_layers)],
+    }
+    return Decoder(cfg, tree)
+
+
+# ---------------------------------------------------------------------------
+# per-layer state (KV cache / SSM state)
+# ---------------------------------------------------------------------------
+
+def _layer_state(cfg: ArchConfig, spec: LayerSpec, batch: int, seq_len: int,
+                 dtype, device):
+    if spec.mixer in ("full", "swa"):
+        return make_kv_cache(cfg, spec.mixer, batch, seq_len, dtype, device)
+    if spec.mixer == "mamba":
+        return make_mamba_state(cfg, batch, dtype, device)
+    if spec.mixer == "rwkv":
+        return make_rwkv_state(cfg, batch, dtype, device)
+    raise ValueError(spec.mixer)
+
+
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype=None, *,
+               device=None) -> dict:
+    """Empty caches for ``seq_len`` positions: {"pos": 0, "layers": [one
+    state per layer, in stack order]} on ``device`` (default: the CUDA
+    card)."""
+    from repro_torch.api import resolve_device
+    dev = resolve_device(device)
+    dtype = dtype or cfg.dtype
+    return {"pos": 0,
+            "layers": [_layer_state(cfg, cfg.layer_spec(i), batch, seq_len,
+                                    dtype, dev)
+                       for i in range(cfg.n_layers)]}
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _apply_layer(p, x: Tensor, cfg: ArchConfig, spec: LayerSpec, *,
+                 positions: Tensor, state, cache_pos: int, q_chunk: int):
+    """One decoder layer. Returns (x, new_state, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    if spec.mixer in ("full", "swa"):
+        out, new_mix_state = attention_forward(
+            p["attn"], h, cfg, spec.mixer, positions=positions,
+            cache=state, cache_pos=cache_pos, q_chunk=q_chunk)
+    elif spec.mixer == "mamba":
+        out, new_mix_state = mamba_forward(p["mamba"], h, cfg, state=state)
+    elif spec.mixer == "rwkv":
+        out, new_x_tm, new_wkv = rwkv_time_mix(p["rwkv"], h, cfg, state=state)
+        new_mix_state = state
+    else:
+        raise ValueError(spec.mixer)
+    x = x + out
+
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    if spec.mixer == "rwkv":
+        out, new_x_cm = rwkv_channel_mix(
+            p["cmix"], h, x_prev=(state.x_cm if state is not None else None))
+        if state is not None:
+            new_mix_state = RWKVState(x_tm=new_x_tm, x_cm=new_x_cm,
+                                      wkv=new_wkv)
+    elif spec.moe:
+        out, aux = moe_forward(p["moe"], h, n_experts=cfg.n_experts,
+                               top_k=cfg.top_k,
+                               capacity_factor=cfg.capacity_factor,
+                               mlp_type=cfg.mlp_type)
+        if cfg.dense_residual_ff:
+            out = out + mlp_forward(p["dense_res"], h, cfg.mlp_type)
+    else:
+        out = mlp_forward(p["mlp"], h, cfg.mlp_type)
+    x = x + out
+    return x, new_mix_state, aux
+
+
+def forward(params: Decoder, cfg: ArchConfig, *,
+            tokens: Optional[Tensor] = None,
+            embeds: Optional[Tensor] = None,
+            vision_embeds: Optional[Tensor] = None,
+            cache: Optional[dict] = None,
+            q_chunk: int = 2048,
+            return_hidden: bool = False
+            ) -> Tuple[Tensor, Optional[dict], Tensor]:
+    """Returns (logits_or_hidden, new_cache_or_None, aux_loss).
+
+    return_hidden skips the unembedding and returns the final-normed
+    hidden states (B, S, d_model), the features a head pools.
+    """
+    if embeds is not None:                       # audio frontend stub
+        x = embeds.to(cfg.dtype)
+    else:
+        x = params["embed"][tokens.long()]
+    if vision_embeds is not None:                # vision frontend stub
+        x = torch.cat([vision_embeds.to(cfg.dtype), x], dim=1)
+    b, s, _ = x.shape
+
+    pos0 = cache["pos"] if cache is not None else 0
+    positions = (pos0 + torch.arange(s, device=x.device))[None, :] \
+        .expand(b, s)
+
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_states = []
+    for i, layer in enumerate(params.layers):
+        st = cache["layers"][i] if cache is not None else None
+        x, nst, aux = _apply_layer(layer, x, cfg, layer.spec,
+                                   positions=positions, state=st,
+                                   cache_pos=pos0, q_chunk=q_chunk)
+        aux_total = aux_total + aux
+        new_states.append(nst)
+    new_cache = ({"pos": pos0 + s, "layers": new_states}
+                 if cache is not None else None)
+
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if return_hidden:
+        return x, new_cache, aux_total
+    logits = x @ params["unembed"]
+    if cfg.padded_vocab != cfg.vocab_size:
+        # Megatron-style vocab padding: pad columns never win.
+        logits[..., cfg.vocab_size:] = -1e30
+    return logits, new_cache, aux_total
