@@ -100,6 +100,15 @@ without printing the result line:
               against their plain versions and timed) scoring held-out
               and OOD text (AUC printed); ``repro_torch.launch.serve`` in
               a subprocess;
+   lm-train — the LM training step (see ``_lm_train_phase``): the ten
+              archs reduced, two steps on the card against the CPU (and
+              twice on the card: bitwise or not); llama3.2-3b at full
+              width, 2 layers, f32, one step's loss, grad norm and
+              gradients against the CPU; at full width and depth in bf16
+              (AdamW, remat "full"), 6 steps of 4 x 512 tokens: step time,
+              tokens/s, MFU, peak memory, the step's split and a profiler
+              window; the fault-tolerant loop with two injected failures;
+              ``repro_torch.launch.train`` in a subprocess;
 4. autotune — the autotuner's path, with the counts set to 0 just before
               and read just after: a quick sweep on the card over
               ``QUICK_CELLS`` and the main path's fupdate and gram cells,
@@ -265,6 +274,24 @@ LM_ATOL, LM_RTOL = 5e-4, 1e-3
 LM_CLI_ARGS = ["--arch", LM_ARCH, "--batch", str(LM_BATCH), "--prompt-len",
                str(LM_PROMPT), "--new-tokens", str(LM_NEW)]
 LM_CLI_TIMEOUT_S = 300
+# [lm-train]: the LM training step. The ten archs reduced, two steps of
+# LMT_STEP_KW on the card against the CPU: loss, ce and aux within
+# LMT_LOSS_ATOL / LMT_LOSS_RTOL, the grad norm within LMT_NORM_RTOL, the
+# lr equal, the parameters as ``_params_close`` says. LM_ARCH at full
+# width, LMT_PARITY_LAYERS layers, f32, B = 1, LMT_PARITY_S tokens: loss
+# and grad norm as above, the gradients of wq / w1 / unembed within
+# LMT_GRAD_RTOL and LMT_GRAD_ATOL of the leaf's largest value. At full
+# width and depth in bf16: LMT_STEPS steps of LMT_BATCH x LMT_SEQ tokens
+# (the median of steps 2.. timed) with ``make_train_step``'s defaults
+# (the reference's: peak lr 3e-4 after 100 warm-up steps).
+LMT_STEP_KW = dict(peak_lr=1e-3, warmup_steps=2, total_steps=10)
+LMT_LOSS_ATOL, LMT_LOSS_RTOL, LMT_NORM_RTOL = 1e-5, 1e-4, 1e-4
+LMT_PARAM_ATOL, LMT_PARAM_RTOL, LMT_PARAM_FRAC = 1e-6, 1e-4, 1e-4
+LMT_PARITY_LAYERS, LMT_PARITY_S = 2, 64
+LMT_GRAD_ATOL, LMT_GRAD_RTOL = 1e-4, 1e-3
+LMT_STEPS, LMT_BATCH, LMT_SEQ = 6, 4, 512
+LMT_CLI_ARGS = ["--arch", LM_ARCH, "--reduced", "--steps", "20"]
+BF16_PEAK_FLOPS = 989e12  # the H100 SXM data sheet's dense bf16 rate
 QP_SIZES = 4              # [paper] runs the QP at the first QP_SIZES sizes
 PROFILE_ITERS = 100       # solver iterations inside the profiler window
 # gram: the kernel matrix of the main path's rows, a ragged shape and one
@@ -1315,6 +1342,339 @@ def _lm_phase(dev, src: Path, reset_counts, fupdate_classes,
         f"{time.perf_counter() - t0:.2f}")
     say(f"[lm] phase seconds={time.perf_counter() - phase_t0:.2f}")
     return {"launches": launches, "rows": rows}
+
+
+def _params_close(got, want, lr: float, what: str) -> float:
+    """Parameters after the second step, card against CPU: every entry
+    within LMT_PARAM_ATOL + LMT_PARAM_RTOL |p|, but for at most
+    LMT_PARAM_FRAC of a leaf's entries, which stay within 3 lr (AdamW
+    normalises a gradient near zero to a step of about the lr, so a
+    difference in its last bits can move such an entry by up to twice
+    the lr). Returns the largest difference in units of the lr."""
+    import torch
+    worst = 0.0
+    for a, b in zip(got, want):
+        a, b = a.detach().float().cpu(), b.detach().float()
+        diff = (a - b).abs()
+        n_out = int((diff > LMT_PARAM_ATOL + LMT_PARAM_RTOL * b.abs()).sum())
+        check(n_out <= LMT_PARAM_FRAC * b.numel()
+              and bool((diff <= 3 * lr).all())
+              and bool(torch.isfinite(a).all()),
+              f"[lm-train] {what}: {n_out} of {b.numel()} entries outside "
+              f"atol {LMT_PARAM_ATOL} rtol {LMT_PARAM_RTOL}, max diff "
+              f"{float(diff.max()):.3e} (lr {lr:.3e})")
+        worst = max(worst, float(diff.max()) / lr)
+    return worst
+
+
+def _lm_train_phase(dev, src: Path, reset_counts, launch_counts) -> dict:
+    """[lm-train]: the LM training step (``repro_torch.train.train_step``,
+    ``repro_torch.optim``, ``launch.train``), with the kernels' counts
+    set to 0 just before and read just after: no Pallas kernel lies on
+    this path, so it launches none of them. In order: the ten archs at
+    their ``reduced()`` sizes, two ``make_train_step`` steps on the card
+    against the same steps on the CPU, the card's run made twice (bitwise
+    or not, printed: the embedding's and the MoE's backward scatter-add);
+    LM_ARCH at full width and LMT_PARITY_LAYERS layers in f32, one step's
+    loss, grad norm and gradients of wq / w1 / unembed against the CPU
+    (the fused CE at the full vocab); LM_ARCH at full width and depth in
+    bf16 (AdamW, remat "full"): LMT_STEPS steps of LMT_BATCH x LMT_SEQ
+    tokens, ``make_train_step``'s default schedule (each step's loss, grad
+    norm, lr and ms; the median of steps
+    2.., tokens/s, MFU, the peak allocated memory), then one step taken
+    apart (forward + backward, clip, update) and one under the profiler;
+    ``FaultTolerantLoop`` on reduced LM_ARCH with failures injected at
+    steps 6 and 11; ``repro_torch.launch.train`` in a subprocess."""
+    import dataclasses
+    import statistics
+    import tempfile
+    import types
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS, get_arch
+    from repro_torch.data.synthetic import SyntheticPipeline
+    from repro_torch.models.transformer import init_params, param_tree
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.runtime.fault_tolerance import FaultTolerantLoop
+    from repro_torch.train import train_step as tts
+    from repro_torch.utils.tree import leaves, map_tree, unflatten
+    phase_t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+
+    def sync():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def to(tree, device):
+        return map_tree(lambda t: t.to(device, copy=True), tree)
+
+    def close(got, want, what, atol, rtol):
+        got, want = got.detach().float().cpu(), want.detach().float().cpu()
+        diff = (got - want).abs()
+        bad = int((diff > atol + rtol * want.abs()).sum())
+        check(got.shape == want.shape and bad == 0
+              and bool(torch.isfinite(got).all()),
+              f"[lm-train] {what}: {bad} values outside atol {atol:.3g} "
+              f"rtol {rtol:.3g} (max abs diff {float(diff.max()):.3e})")
+        return float(diff.max())
+
+    def held(m, want, what):
+        for k in ("loss", "ce", "aux"):
+            close(m[k], want[k], f"{what} {k}", LMT_LOSS_ATOL, LMT_LOSS_RTOL)
+        close(m["grad_norm"], want["grad_norm"], f"{what} grad norm", 0.0,
+              LMT_NORM_RTOL)
+        check(float(m["lr"]) == float(want["lr"]),
+              f"[lm-train] {what}: lr {float(m['lr'])} against "
+              f"{float(want['lr'])}")
+
+    reset_counts()
+
+    # -- the ten archs, reduced: two steps on the card against the CPU ----
+    t0 = sync()
+    varying = []
+    for name in sorted(ARCHS):
+        cfg = ARCHS[name].reduced()
+        host = tts.init_train_state(cfg, init_params(
+            cfg, torch.Generator().manual_seed(SEED), device=cpu))
+        cards = [to(host, dev) for _ in range(2)]
+        pipe = SyntheticPipeline(cfg, batch=2, seq_len=16, seed=SEED,
+                                 device=cpu)
+        step = tts.make_train_step(cfg, **LMT_STEP_KW)
+        for i in range(2):
+            batch = pipe.next_batch()
+            host, want = step(host, batch)
+            on_card = {k: v.to(dev) for k, v in batch.items()}
+            runs = [step(st, on_card) for st in cards]
+            cards = [st for st, _ in runs]
+            held(runs[0][1], want, f"{name} reduced step {i}")
+        lr = float(want["lr"])
+        ratio = _params_close(leaves(cards[0].params), leaves(host.params),
+                              lr, f"{name} reduced: the parameters after 2 "
+                              f"steps")
+        same = all(torch.equal(a, b) for a, b in zip(leaves(cards[0]),
+                                                      leaves(cards[1])))
+        if not same:
+            varying.append(name)
+        say(f"[lm-train] reduced {name} ({cfg.optimizer}): 2 steps card vs "
+            f"cpu held: loss={float(want['loss']):.6f} grad_norm="
+            f"{float(want['grad_norm']):.6f}; parameters max diff "
+            f"{ratio:.3e} lr; the card's two runs bitwise equal: {same}")
+    say(f"[lm-train] reduced archs: all {len(ARCHS)} held, seconds="
+        f"{sync() - t0:.2f}; not bitwise across two runs on the card: "
+        f"{varying or 'none'}")
+
+    # -- full width, LMT_PARITY_LAYERS layers, f32: one step card vs cpu --
+    full_cfg = get_arch(LM_ARCH)
+    cfg = dataclasses.replace(full_cfg, n_layers=LMT_PARITY_LAYERS,
+                              param_dtype="float32")
+    check(cfg.padded_vocab >= tts.FUSED_CE_MIN_VOCAB,
+          "[lm-train] the full-width step does not take the fused CE")
+    card = param_tree(init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev))
+    host = to(card, cpu)
+    toks = np.random.default_rng(SEED + 21).integers(
+        0, cfg.vocab_size, (1, LMT_PARITY_S + 1)).astype(np.int32)
+
+    def grads(params, device):
+        live = map_tree(lambda t: t.detach().requires_grad_(True), params)
+        loss, _ = tts.loss_fn(live, cfg, {
+            "tokens": torch.as_tensor(toks[:, :-1], device=device),
+            "labels": torch.as_tensor(toks[:, 1:], device=device)})
+        g = unflatten(params, torch.autograd.grad(loss, leaves(live)))
+        return loss.detach(), tts.global_norm(g), g
+
+    t0 = sync()
+    loss, gnorm, g = grads(card, dev)
+    card_ms = 1e3 * (sync() - t0)
+    t0 = time.perf_counter()
+    loss_w, gnorm_w, g_w = grads(host, cpu)
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    close(loss, loss_w, f"{LM_ARCH} full width f32 loss", LMT_LOSS_ATOL,
+          LMT_LOSS_RTOL)
+    close(gnorm, gnorm_w, f"{LM_ARCH} full width f32 grad norm", 0.0,
+          LMT_NORM_RTOL)
+    errs = {}
+    for what, a, b in (
+            [(f"{k} layer {r}", g["segments"]["l0"][blk][k][r],
+              g_w["segments"]["l0"][blk][k][r])
+             for blk, k in (("attn", "wq"), ("mlp", "w1"))
+             for r in range(LMT_PARITY_LAYERS)]
+            + [("unembed", g["unembed"], g_w["unembed"])]):
+        top = float(b.abs().max())
+        errs[what] = close(a, b, f"{LM_ARCH} full width f32 d/d{what}",
+                           LMT_GRAD_ATOL * top, LMT_GRAD_RTOL) / top
+    say(f"[lm-train] {LM_ARCH} full width (d={cfg.d_model}, vocab "
+        f"{cfg.padded_vocab}: fused CE), {LMT_PARITY_LAYERS} layers, f32, "
+        f"B=1 S={LMT_PARITY_S}: loss card={float(loss):.6f} "
+        f"cpu={float(loss_w):.6f}, grad norm card={float(gnorm):.6f} "
+        f"cpu={float(gnorm_w):.6f}; gradients max diff / max |grad|: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; forward + backward ms card={card_ms:.1f} (first call) "
+        f"cpu={cpu_ms:.1f}")
+    del card, host, g, g_w
+
+    # -- full width and depth, bf16, AdamW, remat "full" ------------------
+    cfg = full_cfg
+    check(cfg.remat == "full" and cfg.optimizer == "adamw"
+          and cfg.dtype == torch.bfloat16,
+          f"[lm-train] {LM_ARCH}: remat {cfg.remat}, {cfg.optimizer}, "
+          f"{cfg.dtype}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = sync()
+    state = tts.init_train_state(cfg, init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev))
+    init_s = sync() - t0
+    ps = leaves(state.params)
+    n_params = sum(t.numel() for t in ps)
+    # the matmul weights: every matrix but the embedding table (a gather)
+    n_mm = sum(t.numel() for t in ps if t.dim() >= 2) \
+        - state.params["embed"].numel()
+    state_gib = sum(t.numel() * t.element_size()
+                    for t in leaves(state)) / 2**30
+    watch = {"wq layer 0": state.params["segments"]["l0"]["attn"]["wq"][0],
+             "final_norm": state.params["final_norm"],
+             "unembed": state.params["unembed"]}
+    before = {k: v.clone() for k, v in watch.items()}
+    pipe = SyntheticPipeline(cfg, batch=LMT_BATCH, seq_len=LMT_SEQ,
+                             seed=SEED, device=dev)
+    step = tts.make_train_step(cfg)
+    tokens = LMT_BATCH * LMT_SEQ
+    secs = []
+    for i in range(LMT_STEPS):
+        batch = pipe.next_batch()
+        t0 = sync()
+        state, m = step(state, batch)
+        vals = {k: float(v) for k, v in m.items()}
+        secs.append(sync() - t0)
+        check(all(np.isfinite(v) for v in vals.values()),
+              f"[lm-train] {LM_ARCH} bf16 step {i}: {vals}")
+        say(f"[lm-train] {LM_ARCH} full width bf16 step {i}: loss="
+            f"{vals['loss']:.6f} grad_norm={vals['grad_norm']:.6f} lr="
+            f"{vals['lr']:.3e} ms={1e3 * secs[-1]:.2f}")
+        if i == 1:
+            moved = {k: float((v != before[k]).float().mean())
+                     for k, v in watch.items()}
+            check(all(moved.values()), f"[lm-train] {LM_ARCH} bf16: the "
+                  f"parameters did not move after step 2: {moved}")
+    med = statistics.median(secs[2:])
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    card_gib = torch.cuda.get_device_properties(dev).total_memory / 2**30
+    check(peak_gib < card_gib, f"[lm-train] peak {peak_gib:.2f} GiB")
+    mfu = 6 * n_mm * tokens / med / BF16_PEAK_FLOPS
+    # remat re-runs each layer's forward, the fused CE its unembed matmul
+    hfu = 8 * n_mm * tokens / med / BF16_PEAK_FLOPS
+    say(f"[lm-train] {LM_ARCH} full width and depth, bf16, AdamW, remat "
+        f"full, B={LMT_BATCH} x S={LMT_SEQ}: {n_params} parameters "
+        f"({n_mm} in matmuls), state {state_gib:.2f} GiB, init seconds="
+        f"{init_s:.2f}; median step of steps 2..{LMT_STEPS - 1} ms="
+        f"{1e3 * med:.2f} (steps ms {[round(1e3 * s, 2) for s in secs]}), "
+        f"tokens/s={tokens / med:.0f}, MFU={mfu:.4f} (6 N tokens; with the "
+        f"remat forward and the CE's recomputed unembed, 8 N tokens: "
+        f"{hfu:.4f}) against {BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16; "
+        f"peak allocated {peak_gib:.2f} GiB of {card_gib:.2f}; share of "
+        f"the entries moved by step 2: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in moved.items()))
+
+    # one step taken apart: forward + backward, clip, update
+    batch = pipe.next_batch()
+    t0 = sync()
+    live = map_tree(lambda t: t.detach().requires_grad_(True), state.params)
+    loss, _ = tts.loss_fn(live, cfg, batch)
+    g = unflatten(state.params, torch.autograd.grad(loss, leaves(live)))
+    del live, loss
+    t1 = sync()
+    g, _ = tts.clip_by_global_norm(g, 1.0)
+    t2 = sync()
+    lr = warmup_cosine(state.step, peak_lr=3e-4, warmup_steps=100,
+                       total_steps=10_000)
+    params, opt_state = adamw.update(g, state.opt_state, state.params,
+                                     lr=lr)
+    t3 = sync()
+    del g
+    state = tts.TrainState(params, opt_state, state.step + 1)
+    split = {"forward+backward": t1 - t0, "clip": t2 - t1,
+             "update": t3 - t2}
+    say(f"[lm-train] {LM_ARCH} bf16 one step taken apart, ms: "
+        + ", ".join(f"{k}={1e3 * v:.2f}" for k, v in split.items())
+        + f"; the AdamW update moves {22 * n_params / 1e9:.1f} GB at "
+        f"least (22 B a parameter): bound ms="
+        f"{1e3 * 22 * n_params / 3.35e12:.2f} at 3.35 TB/s")
+
+    def one_step():
+        nonlocal state
+        state, m = step(state, pipe.next_batch())
+        float(m["loss"])
+        return types.SimpleNamespace(iters=1)
+
+    _say_trace("[lm-train]", f"{LM_ARCH} bf16 one step under the profiler:",
+               _traced(one_step))
+    del state, watch, before, params, opt_state
+    torch.cuda.empty_cache()
+
+    # -- the fault-tolerant loop, reduced, on the card --------------------
+    cfg = ARCHS[LM_ARCH].reduced()
+    fails = {6, 11}
+
+    def injector(s):
+        if s in fails:
+            fails.discard(s)
+            raise RuntimeError("injected")
+
+    t0 = sync()
+    with tempfile.TemporaryDirectory() as d:
+        loop = FaultTolerantLoop(
+            tts.make_train_step(cfg, peak_lr=1e-3, warmup_steps=2,
+                                total_steps=100),
+            tts.init_train_state(cfg, init_params(
+                cfg, torch.Generator(device=dev).manual_seed(SEED),
+                device=dev)),
+            SyntheticPipeline(cfg, batch=2, seq_len=16, seed=SEED,
+                              device=dev),
+            d, save_every=4, failure_injector=injector)
+        loop.run(14)
+    by_step, worst = {}, 0.0
+    for m in loop.metrics_log:
+        if m["step"] in by_step:
+            worst = max(worst, abs(by_step[m["step"]] - m["loss"]))
+        by_step[m["step"]] = m["loss"]
+    check(loop.restarts == 2 and set(by_step) == set(range(14))
+          and worst < 1e-5 and len(loop.metrics_log) > 14,
+          f"[lm-train] loop: restarts {loop.restarts}, steps "
+          f"{sorted(by_step)}, replayed loss diff {worst:.3e}")
+    say(f"[lm-train] FaultTolerantLoop reduced {LM_ARCH} on the card, "
+        f"failures at steps 6 and 11: restarts={loop.restarts}, "
+        f"{len(loop.metrics_log)} steps run for 14, replayed losses max "
+        f"diff {worst:.3e}, seconds={sync() - t0:.2f}")
+
+    # -- the CLI, in a process of its own --------------------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *LMT_CLI_ARGS,
+             "--ckpt-dir", d], capture_output=True, text=True,
+            timeout=LM_CLI_TIMEOUT_S, env=dict(os.environ,
+                                                PYTHONPATH=str(src)))
+    check(out.returncode == 0, f"[lm-train] the CLI exited with "
+          f"{out.returncode}: {out.stderr[-2000:]}")
+    lines = out.stdout.strip().splitlines()
+    check(len(lines) == 2 and re.fullmatch(r"step 0: loss \d+\.\d{4}",
+                                           lines[0]) is not None
+          and re.fullmatch(r"step 19: loss \d+\.\d{4} \(\d+ ms/step, "
+                           r"restarts=0\)", lines[1]) is not None,
+          f"[lm-train] the CLI printed {lines}")
+    for line in lines:
+        say(f"[lm-train] cli | {line}")
+    say(f"[lm-train] cli: {' '.join(LMT_CLI_ARGS)}, process seconds="
+        f"{time.perf_counter() - t0:.2f}")
+
+    launches = launch_counts()
+    check(not any(launches.values()), f"[lm-train] the training path "
+          f"launched slab kernels: {launches}")
+    say(f"[lm-train] launches {launches} (no Pallas kernel lies on the "
+        f"training path); phase seconds={time.perf_counter() - phase_t0:.2f}")
+    return {"launches": launches}
 
 
 def _served(sm) -> dict:
@@ -2437,6 +2797,12 @@ def main() -> int:
     # -- 3k. [lm]: the LM serving path and the slab on its features -------
     lm = _lm_phase(dev, src, reset_counts, fupdate_classes, autotune.graph_ms)
     path_launches["lm"] = lm["launches"]["fupdate"]
+
+    # -- 3l. [lm-train]: the LM training step ------------------------------
+    lm_train = _lm_train_phase(dev, src, reset_counts, lambda: {
+        "fupdate": fup.FUPDATE.launches, "decision": dec.DECISION.launches,
+        "gram": gram_ops.GRAM.launches})
+    path_launches["lm-train"] = lm_train["launches"]
 
     # -- 4. the autotune path ----------------------------------------------
     for kern_ in (fup.FUPDATE, dec.DECISION, gram_ops.GRAM):

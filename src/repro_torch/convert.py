@@ -12,7 +12,8 @@ package's ``init_params`` tree as numpy arrays, whose whole pattern
 periods are stacked (R, ...) per period position under "segments" and
 whose partial period is the list "tail", becomes the port's ``Decoder``,
 one module per layer in stack order (``layers_of`` is that re-indexing,
-for caches too).
+for caches too). A training state crosses with ``train_state_from_numpy``
+/ ``train_state_to_numpy``.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch
 from repro_torch.core.engine.types import SMOResult
 from repro_torch.core.kernel_fn import KernelFn
 from repro_torch.core.ocssvm import OCSSVMModel, SlabSpec
+from repro_torch.utils.tree import Stacked, map_tree
 
 
 def spec_from_params(*, nu1: float, nu2: float, eps: float, kernel: str,
@@ -65,27 +67,6 @@ def result_from_params(*, model: OCSSVMModel, iters: int, n_viol: int,
         f=None if f is None else _f32(f, dev).reshape(-1))
 
 
-def _map(fn, tree):
-    """``fn`` over the leaves of nested dicts, lists and (named) tuples."""
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_map(fn, v) for v in tree]
-    if isinstance(tree, tuple):
-        vals = [_map(fn, v) for v in tree]
-        return type(tree)(*vals) if hasattr(tree, "_fields") \
-            else tuple(vals)
-    return fn(tree)
-
-
-def _stack(trees: list):
-    """Equal-structure dicts of arrays -> one dict of arrays stacked on a
-    new leading axis."""
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return np.stack(trees)
-
-
 def layers_of(tree: dict, cfg) -> list:
     """The per-layer subtrees of a JAX-layout tree (parameters or a
     cache), in stack order: layer j is period position j % period of
@@ -94,7 +75,8 @@ def layers_of(tree: dict, cfg) -> list:
     for j in range(cfg.n_layers):
         r, i = divmod(j, cfg.period)
         if r < cfg.n_repeats:
-            out.append(_map(lambda a, r=r: a[r], tree["segments"][f"l{i}"]))
+            out.append(map_tree(lambda a, r=r: a[r],
+                                tree["segments"][f"l{i}"]))
         else:
             out.append(tree["tail"][j - cfg.n_repeats * cfg.period])
     return out
@@ -119,29 +101,91 @@ def lm_params_from_numpy(tree: dict, cfg, device=None):
     return Decoder(cfg, {
         "embed": to(tree["embed"]), "final_norm": to(tree["final_norm"]),
         "unembed": to(tree["unembed"]),
-        "layers": [_map(to, t) for t in layers_of(tree, cfg)]})
+        "layers": [map_tree(to, t) for t in layers_of(tree, cfg)]})
 
 
 def lm_params_to_numpy(params, cfg) -> dict:
     """The inverse of ``lm_params_from_numpy``: the JAX package's tree of
     numpy arrays (bf16 leaves come back as f32: numpy has no bf16)."""
+    from repro_torch.models.transformer import param_tree
+    return param_tree_to_numpy(param_tree(params))
+
+
+def param_tree_from_numpy(tree: dict, cfg, device=None) -> dict:
+    """The port's ``param_tree`` (``Stacked`` per-layer tensors under
+    "segments") from a tree of numpy arrays in the JAX layout: the
+    parameters, or anything shaped like them (gradients)."""
+    from repro_torch.models.transformer import param_tree
+    return param_tree(lm_params_from_numpy(tree, cfg, device=device))
+
+
+def _stacked_from(a, device):
+    """A stacked (R, ...) numpy leaf as a ``Stacked`` of R tensors."""
+    t = _tensor(a, device)
+    return Stacked(t[r].clone() for r in range(t.shape[0]))
+
+
+def _jax_layout(fn_stacked, fn_leaf, tree: dict) -> dict:
+    """``tree`` (the JAX layout) with ``fn_stacked`` over the leaves under
+    "segments" and ``fn_leaf`` over every other leaf."""
+    out = {k: map_tree(fn_leaf, v) for k, v in tree.items()
+           if k != "segments"}
+    if "segments" in tree:
+        out["segments"] = map_tree(fn_stacked, tree["segments"])
+    return out
+
+
+def train_state_from_numpy(state, cfg, device=None):
+    """The port's ``TrainState`` from the JAX package's, as numpy (any
+    named tuples with its fields: ``params``, ``opt_state`` — an
+    ``AdamWState`` (step, m, v) or ``AdafactorState`` (step, vr, vc) —
+    and ``step``). Parameters and AdamW's moments become ``Stacked``
+    per-layer tensors under "segments"; Adafactor's ``vr`` / ``vc`` stay
+    whole (R, ...) tensors there, as the state of one stacked leaf
+    (ROADMAP C.16)."""
+    from repro_torch.api import resolve_device
+    from repro_torch.optim import adafactor, adamw
+    from repro_torch.train.train_step import TrainState
+    dev = resolve_device(device)
+    params = param_tree_from_numpy(state.params, cfg, device=dev)
+    to = lambda a: _tensor(a, dev)                        # noqa: E731
+    stacked = lambda a: _stacked_from(a, dev)             # noqa: E731
+    opt = state.opt_state
+    step = lambda s: torch.tensor(int(np.asarray(s)),     # noqa: E731
+                                  dtype=torch.int32, device=dev)
+    if hasattr(opt, "vr"):
+        opt_state = adafactor.AdafactorState(
+            step=step(opt.step), vr=_jax_layout(to, to, opt.vr),
+            vc=_jax_layout(to, to, opt.vc))
+    else:
+        opt_state = adamw.AdamWState(
+            step=step(opt.step), m=_jax_layout(stacked, to, opt.m),
+            v=_jax_layout(stacked, to, opt.v))
+    return TrainState(params=params, opt_state=opt_state,
+                      step=step(state.step))
+
+
+def param_tree_to_numpy(tree) -> dict:
+    """The inverse of ``param_tree_from_numpy``: a tree of tensors in the
+    JAX layout (a ``param_tree``, its gradients, an optimizer's moments)
+    as numpy, each ``Stacked`` stacked again (bf16 leaves come back as
+    f32: numpy has no bf16)."""
     def leaf(t):
+        if isinstance(t, Stacked):
+            t = t.stack()
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
-    layers = []
-    for layer in params.layers:
-        t = {k: leaf(v) for k, v in layer.named_parameters(recurse=False)}
-        t.update({k: {n: leaf(w) for n, w in m.items()}
-                  for k, m in layer.named_children()})
-        layers.append(t)
-    tree = {"embed": leaf(params.embed), "final_norm":
-            leaf(params.final_norm), "unembed": leaf(params.unembed)}
-    if cfg.n_repeats:
-        tree["segments"] = {
-            f"l{i}": _stack([layers[r * cfg.period + i]
-                             for r in range(cfg.n_repeats)])
-            for i in range(cfg.period)}
-    if cfg.n_tail:
-        tree["tail"] = layers[cfg.n_repeats * cfg.period:]
-    return tree
+    return map_tree(leaf, tree, stacked=True)
+
+
+def train_state_to_numpy(state, cfg):
+    """The inverse of ``train_state_from_numpy``: the port's
+    ``TrainState``, ``AdamWState`` / ``AdafactorState`` named tuples over
+    numpy trees in the JAX layout (``param_tree_to_numpy``)."""
+    opt = state.opt_state
+    return type(state)(
+        params=param_tree_to_numpy(state.params),
+        opt_state=type(opt)(*(param_tree_to_numpy(getattr(opt, f))
+                              for f in opt._fields)),
+        step=param_tree_to_numpy(state.step))

@@ -14,10 +14,13 @@ menu of launch shapes and the tuned table ``tuned_configs.json``;
 that writes the table: ``python -m repro_torch.kernels.autotune``, not
 re-exported here).
 
-``gram`` is re-exported, as in the JAX package, so the attribute
-``repro_torch.kernels.gram`` is the function; its modules are reached by
-``from repro_torch.kernels.gram import ops, ref``.
+The three functions are re-exported, as in the JAX package, so the
+attribute ``repro_torch.kernels.fupdate`` is the function; a family's
+modules are reached by ``from repro_torch.kernels.fupdate import ops,
+ref`` (or ``importlib.import_module``), never as attributes.
 """
 from repro_torch.kernels.gram.ops import gram
+from repro_torch.kernels.fupdate.ops import fupdate
+from repro_torch.kernels.decision.ops import decision
 
-__all__ = ["gram"]
+__all__ = ["gram", "fupdate", "decision"]

@@ -19,14 +19,23 @@ The KV buffers of a cache are written in place; the returned cache holds
 them with the new position and the new SSM/RWKV states. Modality
 frontends are stubs: audio supplies frame embeddings in place of the
 token embedding, vision supplies patch embeddings prepended to the text.
-Parameters carry no gradient: this is the serving path.
+
+A ``Decoder``'s parameters carry no gradient: it serves. Training runs
+``forward`` on ``param_tree(decoder)``, the same tensors in the JAX
+package's layout (``utils.tree.Stacked`` for the stacked leaves), whose
+leaves the train step makes require gradients. Where the forward records
+a graph (train mode, gradients enabled, some input requiring them) each
+layer is rematerialised by ``cfg.remat``, as the JAX package's
+``_remat_wrap`` does per layer.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models.attention import (attn_init, attention_forward,
@@ -39,6 +48,7 @@ from repro_torch.models.moe import moe_forward, moe_init
 from repro_torch.models.rwkv import (RWKVState, channel_mix_init,
                                      make_rwkv_state, rwkv_channel_mix,
                                      rwkv_init, rwkv_time_mix)
+from repro_torch.utils.tree import Stacked, leaves, map_tree
 
 Tensor = torch.Tensor
 
@@ -149,6 +159,51 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     return Decoder(cfg, tree)
 
 
+def param_tree(params: Decoder) -> dict:
+    """The JAX package's parameter tree over a ``Decoder``'s tensors
+    (detached, sharing their storage): "embed", "final_norm", "unembed",
+    "segments" {"l{i}": the period position's layers, each leaf a
+    ``Stacked`` of its R per-layer tensors} and "tail" [per-layer
+    dicts]."""
+    cfg = params.cfg
+
+    def layer(m: nn.Module) -> dict:
+        t = {k: v.detach() for k, v in m.named_parameters(recurse=False)}
+        t.update({k: {n: w.detach() for n, w in c.items()}
+                  for k, c in m.named_children()})
+        return t
+
+    layers = [layer(m) for m in params.layers]
+    tree = {"embed": params.embed.detach(),
+            "final_norm": params.final_norm.detach(),
+            "unembed": params.unembed.detach()}
+    if cfg.n_repeats:
+        tree["segments"] = {
+            f"l{i}": map_tree(lambda *ts: Stacked(ts), *[
+                layers[r * cfg.period + i] for r in range(cfg.n_repeats)])
+            for i in range(cfg.period)}
+    if cfg.n_tail:
+        tree["tail"] = layers[cfg.n_repeats * cfg.period:]
+    return tree
+
+
+def layer_params(params, cfg: ArchConfig) -> list:
+    """Each layer's parameters in stack order: a ``Decoder``'s modules,
+    or the per-layer views of a ``param_tree`` (repeat r of period
+    position i for layer r * period + i, then the tail)."""
+    if isinstance(params, Decoder):
+        return list(params.layers)
+    out = []
+    for j in range(cfg.n_layers):
+        r, i = divmod(j, cfg.period)
+        if r < cfg.n_repeats:
+            out.append(map_tree(lambda s, r=r: s[r],
+                                params["segments"][f"l{i}"], stacked=True))
+        else:
+            out.append(params["tail"][j - cfg.n_repeats * cfg.period])
+    return out
+
+
 # ---------------------------------------------------------------------------
 # per-layer state (KV cache / SSM state)
 # ---------------------------------------------------------------------------
@@ -182,24 +237,32 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype=None, *,
 # forward
 # ---------------------------------------------------------------------------
 
-def _apply_layer(p, x: Tensor, cfg: ArchConfig, spec: LayerSpec, *,
-                 positions: Tensor, state, cache_pos: int, q_chunk: int):
-    """One decoder layer. Returns (x, new_state, aux)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+def _mix(p, x: Tensor, cfg: ArchConfig, spec: LayerSpec, *,
+         positions: Tensor, state, cache_pos: int, q_chunk: int):
+    """The layer's first half, norm1 and the mixer: (x + out, the
+    mixer's new state parts)."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if spec.mixer in ("full", "swa"):
         out, new_mix_state = attention_forward(
             p["attn"], h, cfg, spec.mixer, positions=positions,
             cache=state, cache_pos=cache_pos, q_chunk=q_chunk)
+        mixed = (new_mix_state, None, None)
     elif spec.mixer == "mamba":
         out, new_mix_state = mamba_forward(p["mamba"], h, cfg, state=state)
+        mixed = (new_mix_state, None, None)
     elif spec.mixer == "rwkv":
         out, new_x_tm, new_wkv = rwkv_time_mix(p["rwkv"], h, cfg, state=state)
-        new_mix_state = state
+        mixed = (state, new_x_tm, new_wkv)
     else:
         raise ValueError(spec.mixer)
-    x = x + out
+    return x + out, mixed
 
+
+def _ffn(p, x: Tensor, cfg: ArchConfig, spec: LayerSpec, *, state, mixed):
+    """The layer's second half, norm2 and the MLP / MoE / channel mix:
+    (x + out, the layer's new state, aux)."""
+    new_mix_state, new_x_tm, new_wkv = mixed
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     if spec.mixer == "rwkv":
         out, new_x_cm = rwkv_channel_mix(
@@ -216,11 +279,64 @@ def _apply_layer(p, x: Tensor, cfg: ArchConfig, spec: LayerSpec, *,
             out = out + mlp_forward(p["dense_res"], h, cfg.mlp_type)
     else:
         out = mlp_forward(p["mlp"], h, cfg.mlp_type)
-    x = x + out
-    return x, new_mix_state, aux
+    return x + out, new_mix_state, aux
 
 
-def forward(params: Decoder, cfg: ArchConfig, *,
+def _apply_layer(p, x: Tensor, cfg: ArchConfig, spec: LayerSpec, *,
+                 positions: Tensor, state, cache_pos: int, q_chunk: int):
+    """One decoder layer. Returns (x, new_state, aux)."""
+    x, mixed = _mix(p, x, cfg, spec, positions=positions, state=state,
+                    cache_pos=cache_pos, q_chunk=q_chunk)
+    return _ffn(p, x, cfg, spec, state=state, mixed=mixed)
+
+
+def _save_weight_matmuls(ctx, op, *args, **kwargs):
+    """"dots": keep the outputs of the weight matmuls (``aten.mm``; 3-D
+    activations reach it folded to 2-D) and recompute the rest, the
+    batched products of attention and of the experts (``aten.bmm``)
+    among it, as ``dots_with_no_batch_dims_saveable`` does."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_layer(p, x: Tensor, cfg: ArchConfig, spec: LayerSpec, *,
+                 positions: Tensor, q_chunk: int, mode: str):
+    """One train-mode layer under ``mode`` (the JAX package's
+    ``_remat_wrap``): "none" keeps every intermediate; "full" keeps only
+    the layer's input and re-runs the layer in the backward pass; "dots"
+    keeps the weight matmuls' outputs besides; "boundaries" checkpoints
+    the mixer half and the MLP half apart, so the residual stream after
+    the mixer (x + mixer_out) is kept and neither half is re-run for the
+    other. Remat changes no value. Returns (x, None, aux)."""
+    kw = dict(positions=positions, state=None, cache_pos=0,
+              q_chunk=q_chunk)
+    if mode == "none":
+        return _apply_layer(p, x, cfg, spec, **kw)
+    if mode == "boundaries":
+        x, mixed = ckpt.checkpoint(
+            lambda x: _mix(p, x, cfg, spec, **kw), x, use_reentrant=False)
+        return ckpt.checkpoint(
+            lambda x: _ffn(p, x, cfg, spec, state=None, mixed=mixed), x,
+            use_reentrant=False)
+    extra = {}
+    if mode == "dots":
+        extra["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_weight_matmuls)
+    elif mode != "full":
+        raise ValueError(f"remat {mode!r}")
+    return ckpt.checkpoint(lambda x: _apply_layer(p, x, cfg, spec, **kw), x,
+                           use_reentrant=False, **extra)
+
+
+def _records_graph(p, x: Tensor) -> bool:
+    """Whether a train-mode layer records an autograd graph."""
+    if not torch.is_grad_enabled():
+        return False
+    ts = p.parameters() if isinstance(p, nn.Module) else leaves(p)
+    return x.requires_grad or any(t.requires_grad for t in ts)
+
+def forward(params, cfg: ArchConfig, *,
             tokens: Optional[Tensor] = None,
             embeds: Optional[Tensor] = None,
             vision_embeds: Optional[Tensor] = None,
@@ -230,8 +346,9 @@ def forward(params: Decoder, cfg: ArchConfig, *,
             ) -> Tuple[Tensor, Optional[dict], Tensor]:
     """Returns (logits_or_hidden, new_cache_or_None, aux_loss).
 
-    return_hidden skips the unembedding and returns the final-normed
-    hidden states (B, S, d_model), the features a head pools.
+    ``params`` is a ``Decoder`` or its ``param_tree``. return_hidden skips
+    the unembedding and returns the final-normed hidden states (B, S,
+    d_model), the features a head pools (and the fused loss takes).
     """
     if embeds is not None:                       # audio frontend stub
         x = embeds.to(cfg.dtype)
@@ -247,11 +364,17 @@ def forward(params: Decoder, cfg: ArchConfig, *,
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_states = []
-    for i, layer in enumerate(params.layers):
-        st = cache["layers"][i] if cache is not None else None
-        x, nst, aux = _apply_layer(layer, x, cfg, layer.spec,
-                                   positions=positions, state=st,
-                                   cache_pos=pos0, q_chunk=q_chunk)
+    for i, layer in enumerate(layer_params(params, cfg)):
+        spec = cfg.layer_spec(i)
+        if cache is None and _records_graph(layer, x):
+            x, nst, aux = _remat_layer(layer, x, cfg, spec,
+                                       positions=positions, q_chunk=q_chunk,
+                                       mode=cfg.remat)
+        else:
+            st = cache["layers"][i] if cache is not None else None
+            x, nst, aux = _apply_layer(layer, x, cfg, spec,
+                                       positions=positions, state=st,
+                                       cache_pos=pos0, q_chunk=q_chunk)
         aux_total = aux_total + aux
         new_states.append(nst)
     new_cache = ({"pos": pos0 + s, "layers": new_states}

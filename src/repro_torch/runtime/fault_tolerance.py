@@ -8,6 +8,12 @@ checkpoint (state and data cursor) and replays. At 1000+ nodes the same
 structure holds — the checkpoint store becomes a distributed FS and the
 heartbeat table a side-channel service; both are injected here as
 interfaces.
+
+The loop snapshots its initial state in host memory (every tensor copied
+to the CPU, its device noted) and copies it back on a restart before the
+first checkpoint: a step may update the live state in place, and a
+snapshot on the card would double a full-width train state there
+(about 40 GiB for llama3.2-3b with AdamW).
 """
 from __future__ import annotations
 
@@ -57,6 +63,25 @@ class HeartbeatTable:
                 if m > self.straggler_factor * global_median]
 
 
+class _OnHost:
+    """A tensor's host copy and the device it came from."""
+
+    def __init__(self, t: torch.Tensor):
+        self.t = t.detach().to("cpu", copy=True)
+        self.device = t.device
+
+
+def _to_host(tree):
+    return _map(lambda path, leaf: _OnHost(leaf)
+                if isinstance(leaf, torch.Tensor) else copy.deepcopy(leaf),
+                tree)
+
+
+def _from_host(tree):
+    return _map(lambda path, leaf: leaf.t.to(leaf.device, copy=True)
+                if isinstance(leaf, _OnHost) else copy.deepcopy(leaf), tree)
+
+
 def _first_leaf(tree):
     leaves = []
     _map(lambda path, leaf: leaves.append(leaf), tree)
@@ -76,9 +101,9 @@ class FaultTolerantLoop:
                  failure_injector: Optional[Callable[[int], None]] = None):
         self.step_fn = step_fn
         self.state = init_state
-        # A true snapshot (every tensor copied, its dtype and device kept):
-        # a step may update the live state in place.
-        self._init_state = copy.deepcopy(init_state)
+        # A true snapshot, in host memory (every tensor copied, its dtype
+        # and device kept): a step may update the live state in place.
+        self._init_state = _to_host(init_state)
         self.pipeline = pipeline
         self._init_pipeline_state = dict(pipeline.state_dict())
         self.ckpt = AsyncCheckpointer(ckpt_dir, keep=keep)
@@ -101,7 +126,7 @@ class FaultTolerantLoop:
             # No checkpoint yet: restart from the TRUE initial state (the
             # live state has already been mutated by the failed attempt),
             # copied again so a later attempt cannot mutate the snapshot.
-            self.state = copy.deepcopy(self._init_state)
+            self.state = _from_host(self._init_state)
             self.pipeline.load_state_dict(dict(self._init_pipeline_state))
             return 0
         self.state = restored

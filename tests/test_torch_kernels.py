@@ -364,3 +364,19 @@ def test_launches_are_counted_by_menu_entry():
     assert k.by_entry == {narrow.entry: 1, wide.entry: 2, wide16.entry: 1}
     k.reset_counts()
     assert k.launches == 0 and not k.by_entry
+
+
+def test_kernels_package_exports_the_three_functions():
+    """ROADMAP C.15: ``from repro_torch.kernels import gram, fupdate,
+    decision`` gives the three wrappers, as in the JAX package."""
+    import repro.kernels as jkernels
+    import repro_torch.kernels as tkernels
+    from repro_torch.kernels import decision, fupdate, gram
+    from repro_torch.kernels.decision import ops as dops
+    from repro_torch.kernels.fupdate import ops as fops
+    from repro_torch.kernels.gram import ops as gops
+    assert tkernels.__all__ == jkernels.__all__ == ["gram", "fupdate",
+                                                    "decision"]
+    assert (gram, fupdate, decision) == (gops.gram, fops.fupdate,
+                                         dops.decision)
+    assert all(callable(f) for f in (gram, fupdate, decision))

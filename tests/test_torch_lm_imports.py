@@ -86,3 +86,35 @@ def test_lm_path_leaves_jax_unloaded():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+TRAIN_MODULES = ("optim/__init__.py", "optim/schedules.py",
+                 "optim/adamw.py", "optim/adafactor.py", "utils/tree.py",
+                 "train/train_step.py", "launch/train.py",
+                 "runtime/fault_tolerance.py")
+
+
+def test_train_modules_are_among_the_walked_files():
+    files = set(PORT.rglob("*.py"))
+    assert {PORT / m for m in TRAIN_MODULES} <= files
+    bad = [f"{m}:{line}: {mod}" for m in TRAIN_MODULES
+           for line, mod in _imported(PORT / m, _package(PORT / m))
+           if mod.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_train_path_leaves_jax_unloaded(tmp_path):
+    code = (
+        "import sys, torch\n"
+        "import repro_torch.optim.adamw, repro_torch.optim.adafactor\n"
+        "from repro_torch.launch import train\n"
+        f"train.main(['--arch', 'arctic-480b', '--reduced', '--steps', '2',"
+        f" '--batch', '2', '--seq-len', '8', '--device', 'cpu',"
+        f" '--ckpt-dir', {str(tmp_path)!r}])\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad); sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
