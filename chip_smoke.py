@@ -109,6 +109,15 @@ without printing the result line:
               tokens/s, MFU, peak memory, the step's split and a profiler
               window; the fault-tolerant loop with two injected failures;
               ``repro_torch.launch.train`` in a subprocess;
+   lm-dist  — the sharded LM training step (see ``_lm_dist_phase``): four
+              gloo ranks sharing the card on a (2, 2) mesh, the ten archs
+              reduced ("tp" with fsdp, two steps) and llama3.2-3b at full
+              width, 2 layers, f32 (tp with fsdp and Megatron's MLP, tp,
+              fsdp: one step), each held against the single-device step
+              on the card; then one NCCL rank on the (1, 1) mesh with
+              [lm-train]'s configuration through the sharded code path:
+              step ms, tokens/s, peak memory and host ms in collectives
+              beside [lm-train]'s;
 4. autotune — the autotuner's path, with the counts set to 0 just before
               and read just after: a quick sweep on the card over
               ``QUICK_CELLS`` and the main path's fupdate and gram cells,
@@ -148,7 +157,8 @@ JAX.
 
 runs [dist] alone over N NCCL ranks, one card each (the cross-card path
 a one-card run cannot reach), held against single-device fits of the
-same rows on the first card; it needs N cards.
+same rows on the first card, then [lm-dist] over N NCCL ranks (llama3.2-3b
+at full width and depth, bf16, on a (2, N/2) mesh); it needs N cards.
 """
 from __future__ import annotations
 
@@ -291,6 +301,19 @@ LMT_PARITY_LAYERS, LMT_PARITY_S = 2, 64
 LMT_GRAD_ATOL, LMT_GRAD_RTOL = 1e-4, 1e-3
 LMT_STEPS, LMT_BATCH, LMT_SEQ = 6, 4, 512
 LMT_CLI_ARGS = ["--arch", LM_ARCH, "--reduced", "--steps", "20"]
+# [lm-dist]: the sharded step. (a) LMD_RANKS gloo ranks on the card, the
+# ten archs reduced and LM_ARCH at full width (LMD_FULL_LAYERS layers,
+# f32, LMD_FULL_B x LMD_FULL_S tokens), held against the single-device
+# step within LMD_RTOL (loss, ce, aux, grad norm); (b) one NCCL rank,
+# [lm-train]'s configuration, seed and batches, each step's loss and grad
+# norm within LMD_BF16_LOSS_RTOL / LMD_BF16_NORM_RTOL of [lm-train]'s
+# (bf16 parameters: a sum run in another order moves an update's bf16
+# rounding, and the steps drift apart; 1e-2 is ~2.5 bf16 ulps), the lr
+# equal. LMD_CARDS_STEPS steps a rank with --cards.
+LMD_RANKS, LMD_RTOL, LMD_TIMEOUT_S = 4, 1e-5, 600
+LMD_BF16_LOSS_RTOL, LMD_BF16_NORM_RTOL = 1e-3, 1e-2
+LMD_FULL_LAYERS, LMD_FULL_B, LMD_FULL_S = 2, 4, 64
+LMD_CARDS_STEPS = 4
 BF16_PEAK_FLOPS = 989e12  # the H100 SXM data sheet's dense bf16 rate
 QP_SIZES = 4              # [paper] runs the QP at the first QP_SIZES sizes
 PROFILE_ITERS = 100       # solver iterations inside the profiler window
@@ -1541,13 +1564,14 @@ def _lm_train_phase(dev, src: Path, reset_counts, launch_counts) -> dict:
                              seed=SEED, device=dev)
     step = tts.make_train_step(cfg)
     tokens = LMT_BATCH * LMT_SEQ
-    secs = []
+    secs, bf16_metrics = [], []
     for i in range(LMT_STEPS):
         batch = pipe.next_batch()
         t0 = sync()
         state, m = step(state, batch)
         vals = {k: float(v) for k, v in m.items()}
         secs.append(sync() - t0)
+        bf16_metrics.append(vals)
         check(all(np.isfinite(v) for v in vals.values()),
               f"[lm-train] {LM_ARCH} bf16 step {i}: {vals}")
         say(f"[lm-train] {LM_ARCH} full width bf16 step {i}: loss="
@@ -1674,7 +1698,209 @@ def _lm_train_phase(dev, src: Path, reset_counts, launch_counts) -> dict:
           f"launched slab kernels: {launches}")
     say(f"[lm-train] launches {launches} (no Pallas kernel lies on the "
         f"training path); phase seconds={time.perf_counter() - phase_t0:.2f}")
-    return {"launches": launches}
+    return {"launches": launches, "step_ms": 1e3 * med,
+            "tokens_s": tokens / med, "peak_gib": peak_gib,
+            "metrics": bf16_metrics}
+
+
+def _lm_dist_cases():
+    """[lm-dist] (a)'s cases: the ten archs reduced on (2, 2) "tp" with
+    fsdp, two steps, the parameters gathered; LM_ARCH at full width and
+    LMD_FULL_LAYERS layers, f32, one step of LMD_FULL_B x LMD_FULL_S
+    tokens, on (2, 2) "tp" with fsdp (``tp_mlp`` on: Megatron's MLP),
+    "tp" without fsdp and "fsdp"."""
+    from repro_torch.configs import ARCHS
+    mesh = [(2, 2), ("data", "model")]
+    cases = [dict(key=f"{name} reduced tp fsdp", arch=name, mesh=mesh,
+                  layout="tp", fsdp=True, steps=2, batch=4, seq=16,
+                  params=True, step_kw=LMT_STEP_KW) for name in sorted(ARCHS)]
+    full = dict(reduced=False, mesh=mesh, steps=1, batch=LMD_FULL_B,
+                seq=LMD_FULL_S, step_kw=LMT_STEP_KW, arch=LM_ARCH)
+    over = dict(n_layers=LMD_FULL_LAYERS, param_dtype="float32")
+    for key, layout, fsdp, tp_mlp in (("tp fsdp tp_mlp", "tp", True, True),
+                                      ("tp", "tp", False, False),
+                                      ("fsdp", "fsdp", False, False)):
+        cases.append(dict(full, key=f"{LM_ARCH} full width {key}",
+                          layout=layout, fsdp=fsdp,
+                          overrides=dict(over, tp_mlp=tp_mlp)))
+    return cases
+
+
+def _lm_dist_phase(dev, lm_train: dict, reset_counts, launch_counts) -> dict:
+    """[lm-dist]: the sharded LM training step (``repro_torch.sharding``,
+    ``make_train_step(cfg, constrain=make_constrain(...))``) in spawned
+    rank processes. Each rank sets the kernels' counts to 0 at its start
+    and returns them at its end; the path's launches are their sum over
+    the ranks of (a) and (b), and must be 0 (no Pallas kernel lies on the
+    path). The parent's own counts, set to 0 before (a) and read at the
+    end, cover the single-device oracle alone and are kept apart. The
+    rank functions are ``tests/torch_dist_ranks.py``'s (torch and the
+    port only), as the CPU tests run them.
+
+    (a) four gloo ranks sharing the card, a (2, 2) ("data", "model")
+    mesh (``_lm_dist_cases``), each case held against the port's
+    single-device step on the card in f32 on the same parameters and
+    batches (an MoE arch's capacity factor E on both sides; under "tp"
+    the oracle's MoE aux is the mean over the data shards, as the
+    sharded step's is): loss, ce, aux and grad norm within LMD_RTOL, the
+    lr equal, the reduced archs' parameters after two steps as
+    ``_params_close`` says. (b) one NCCL rank on the (1, 1) mesh:
+    LM_ARCH at full width and depth in bf16 (AdamW, remat "full"),
+    LMT_STEPS steps of LMT_BATCH x LMT_SEQ tokens through the sharded
+    code path, on [lm-train]'s seed, parameters, batches and schedule:
+    each step's loss and grad norm held against [lm-train]'s
+    (``lm_train["metrics"]``) within LMD_BF16_LOSS_RTOL /
+    LMD_BF16_NORM_RTOL, the lr equal; its median step (steps 2..),
+    tokens/s, peak memory and host seconds in collectives beside
+    [lm-train]'s, and beside the single-device step's run after it in
+    the same rank process (``plain``: the same steps, timed alike); then
+    one step of each under the profiler (``_traced``), in the rank."""
+    import statistics
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.launch import spawn_ranks
+    from repro_torch.utils.tree import leaves
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_dist_ranks as ranks_mod
+    phase_t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reset_counts()
+
+    # -- (a) four gloo ranks sharing the card ------------------------------
+    cases = _lm_dist_cases()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        got = spawn_ranks(ranks_mod.lm_dist_steps, LMD_RANKS,
+                          backend="gloo",
+                          args=(dict(device="cuda", seed=SEED,
+                                     cases=cases),),
+                          timeout_s=LMD_TIMEOUT_S, dir=tmp)
+    ranks_s = time.perf_counter() - t0
+    by_call = {"a": _summed_launches(got)}
+    oracles = {}
+    for case in cases:
+        res = got[0][case["key"]]
+        check(all(r[case["key"]]["metrics"] == res["metrics"]
+                  for r in got[1:]),
+              f"[lm-dist] {case['key']}: the ranks report different values")
+        cfg = ranks_mod.lm_dist_cfg(case)
+        okey = (case["arch"], case.get("reduced", True),
+                ranks_mod.aux_groups(case) if cfg.n_experts else 1)
+        if okey not in oracles:
+            torch.cuda.empty_cache()
+            oracles[okey] = ranks_mod.lm_oracle(case, dev, SEED)
+        want, state = oracles[okey]
+        for i, (g, w) in enumerate(zip(res["metrics"], want)):
+            for k in ("loss", "ce", "aux", "grad_norm"):
+                check(abs(g[k] - w[k]) <= LMD_RTOL * abs(w[k]),
+                      f"[lm-dist] {case['key']} step {i} {k}: {g[k]!r} "
+                      f"against the single-device {w[k]!r}")
+            check(g["lr"] == w["lr"], f"[lm-dist] {case['key']}: lr")
+        worst = None
+        if case.get("params"):
+            worst = _params_close(
+                [torch.as_tensor(p) for p in res["params"]],
+                [t.cpu() for t in leaves(state.params)], want[-1]["lr"],
+                f"[lm-dist] {case['key']}")
+        m = res["metrics"][-1]
+        say(f"[lm-dist] (a) {case['key']} on 4 gloo ranks: "
+            f"{len(res['metrics'])} step(s) held: loss={m['loss']:.6f} "
+            f"grad_norm={m['grad_norm']:.6f} aux={m['aux']:.6f}"
+            + ("" if worst is None else
+               f"; parameters max diff {worst:.3e} lr")
+            + f"; collectives a step {res['collective_calls']} "
+            f"({res['ops']} in all), host ms in them "
+            f"{[round(x, 1) for x in res['collective_ms']]}, step ms "
+            f"{[round(x, 1) for x in res['ms']]}")
+    del oracles, state
+    torch.cuda.empty_cache()
+    say(f"[lm-dist] (a) {len(cases)} cases held; ranks seconds="
+        f"{ranks_s:.2f}")
+
+    # -- (b) one NCCL rank, (1, 1), full width and depth, bf16 ------------
+    case = dict(key="full", arch=LM_ARCH, reduced=False,
+                mesh=[(1, 1), ("data", "model")], layout="tp", fsdp=False,
+                steps=LMT_STEPS, batch=LMT_BATCH, seq=LMT_SEQ, plain=True,
+                trace=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        got = spawn_ranks(ranks_mod.lm_dist_steps, 1, backend="nccl",
+                          args=(dict(device="cuda", seed=SEED,
+                                     cases=[case], tracer=_traced),),
+                          timeout_s=LMD_TIMEOUT_S, dir=tmp)
+    by_call["b"] = _summed_launches(got)
+    res = got[0]["full"]
+    want = lm_train["metrics"]
+    check(len(res["metrics"]) == len(want) == LMT_STEPS,
+          f"[lm-dist] (b): {len(res['metrics'])} steps against "
+          f"[lm-train]'s {len(want)}")
+    worst = {"loss": 0.0, "grad_norm": 0.0}
+    for i, (g, w) in enumerate(zip(res["metrics"], want)):
+        for k, rtol in (("loss", LMD_BF16_LOSS_RTOL),
+                        ("grad_norm", LMD_BF16_NORM_RTOL)):
+            rel = abs(g[k] - w[k]) / abs(w[k])
+            worst[k] = max(worst[k], rel)
+            check(np.isfinite(g[k]) and rel <= rtol,
+                  f"[lm-dist] (b) step {i} {k}: {g[k]!r} against "
+                  f"[lm-train]'s {w[k]!r} (rtol {rtol})")
+        check(g["lr"] == w["lr"], f"[lm-dist] (b) step {i}: lr {g['lr']} "
+              f"against [lm-train]'s {w['lr']}")
+    med = statistics.median(res["ms"][2:])
+    plain_med = statistics.median(res["plain_ms"][2:])
+    tokens = LMT_BATCH * LMT_SEQ
+    coll_ms = statistics.median(res["collective_ms"][2:])
+    calls = statistics.median(res["collective_calls"][2:])
+    say(f"[lm-dist] (b) {LM_ARCH} full width and depth, bf16, AdamW, remat "
+        f"full, 1 NCCL rank on (1, 1), B={LMT_BATCH} x S={LMT_SEQ}, "
+        f"[lm-train]'s seed and batches: losses "
+        f"{[round(m['loss'], 6) for m in res['metrics']]}, grad norms "
+        f"{[round(m['grad_norm'], 6) for m in res['metrics']]}; held "
+        f"against [lm-train]'s: max rel diff loss {worst['loss']:.3e} "
+        f"(rtol {LMD_BF16_LOSS_RTOL}), grad norm {worst['grad_norm']:.3e} "
+        f"(rtol {LMD_BF16_NORM_RTOL}); the single-device step after it in "
+        f"the same process: losses "
+        f"{[round(m['loss'], 6) for m in res['plain_metrics']]}; median "
+        f"step of steps 2..{LMT_STEPS - 1} ms={med:.2f} (steps ms "
+        f"{[round(x, 2) for x in res['ms']]}; [lm-train] "
+        f"{lm_train['step_ms']:.2f}; the single-device step in the same "
+        f"process {plain_med:.2f}, steps ms "
+        f"{[round(x, 2) for x in res['plain_ms']]}), tokens/s="
+        f"{tokens / med * 1e3:.0f} ([lm-train] {lm_train['tokens_s']:.0f})"
+        f", peak allocated {res['peak_gib']:.2f} GiB ([lm-train] "
+        f"{lm_train['peak_gib']:.2f}; the single-device step in the same "
+        f"process {res['plain_peak_gib']:.2f});"
+        f" collectives a step {calls:.0f} ({res['ops']} in all, "
+        f"{res['ledger'].get('step_bytes', 0) / len(res['ms']) / 2**30:.2f}"
+        f" GiB a step), host ms in them a step (median of steps 2..) "
+        f"{coll_ms:.2f} (each step "
+        f"{[round(x, 2) for x in res['collective_ms']]}); process seconds="
+        f"{time.perf_counter() - t0:.2f}")
+    _say_trace("[lm-dist]", "(b) one sharded step under the profiler:",
+               res["trace"])
+    _say_trace("[lm-dist]", "(b) one single-device step under the "
+               "profiler, same process:", res["plain_trace"])
+
+    launches = {k: by_call["a"][k] + by_call["b"][k] for k in by_call["a"]}
+    oracle = launch_counts()
+    check(not any(launches.values()), f"[lm-dist] the sharded training "
+          f"path launched slab kernels in its ranks: {by_call}")
+    check(not any(oracle.values()), f"[lm-dist] the single-device oracle "
+          f"launched slab kernels: {oracle}")
+    say(f"[lm-dist] launches on the sharded path, the ranks' counts summed: "
+        f"{launches} ((a) {by_call['a']}, (b) {by_call['b']}; no Pallas "
+        f"kernel lies on the sharded training path); the parent's "
+        f"single-device oracle, apart: {oracle}; phase seconds="
+        f"{time.perf_counter() - phase_t0:.2f}")
+    return {"launches": launches, "step_ms": med, "coll_ms": coll_ms}
+
+
+def _summed_launches(got) -> dict:
+    """The slab kernels' launches that spawned ``lm_dist_steps`` ranks
+    report, summed over the ranks."""
+    return {k: sum(r["launches"][k] for r in got)
+            for k in got[0]["launches"]}
 
 
 def _served(sm) -> dict:
@@ -1755,9 +1981,56 @@ def cards_main(cards: int) -> int:
     fup_l, dec_l = _dist_phase(jobs, dict(
         dev=dev, spec=spec, sm=sm, X=X_np, X_shr=X_shr, X_new=X_new,
         main=fits, shrink=shrink, warm=warm))
+    _lm_dist_cards(cards)
     say(json.dumps({"dist_launches": {"fupdate": fup_l, "decision": dec_l}}))
     _say_cards_and_result()
     return 0
+
+
+def _lm_dist_cards(cards: int) -> None:
+    """[lm-dist] (c): LM_ARCH at full width and depth in bf16 (AdamW,
+    remat "full") on a (2, cards / 2) mesh of NCCL ranks, one card each,
+    "tp" (fsdp off below 4e9 parameters, as the JAX launcher has it),
+    LMD_CARDS_STEPS steps of LMT_BATCH x LMT_SEQ tokens: the ranks agree,
+    the losses are finite; step ms, tokens/s, peak memory a rank and host
+    ms in collectives."""
+    import statistics
+    import tempfile
+    import numpy as np
+    from repro_torch.launch import spawn_ranks
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_dist_ranks as ranks_mod
+    check(cards % 2 == 0, f"--cards {cards}: [lm-dist] needs an even count")
+    case = dict(key="full", arch=LM_ARCH, reduced=False,
+                mesh=[(2, cards // 2), ("data", "model")], layout="tp",
+                fsdp=False, steps=LMD_CARDS_STEPS, batch=LMT_BATCH,
+                seq=LMT_SEQ)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        got = spawn_ranks(ranks_mod.lm_dist_steps, cards, backend="nccl",
+                          args=(dict(device="cuda", seed=SEED, cases=[case],
+                                     card_per_rank=True),),
+                          timeout_s=LMD_TIMEOUT_S, dir=tmp)
+    res = got[0]["full"]
+    check(all(r["full"]["metrics"] == res["metrics"] for r in got[1:])
+          and all(np.isfinite(v) for m in res["metrics"] for v in m.values()),
+          f"[lm-dist] (c): {[r['full']['metrics'] for r in got]}")
+    launches = _summed_launches(got)
+    check(not any(launches.values()), f"[lm-dist] (c): the ranks launched "
+          f"slab kernels: {launches}")
+    med = statistics.median(res["ms"][1:])
+    coll_ms = statistics.median(res["collective_ms"][1:])
+    say(f"[lm-dist] (c) {LM_ARCH} full width and depth, bf16, {cards} NCCL "
+        f"ranks on (2, {cards // 2}) tp: losses "
+        f"{[round(m['loss'], 6) for m in res['metrics']]}; median step of "
+        f"steps 1..{LMD_CARDS_STEPS - 1} ms={med:.2f} (steps ms "
+        f"{[round(x, 2) for x in res['ms']]}), tokens/s="
+        f"{LMT_BATCH * LMT_SEQ / med * 1e3:.0f}, peak allocated a rank "
+        f"{max(r['full']['peak_gib'] for r in got):.2f} GiB, collectives a "
+        f"step {res['collective_calls']}, host ms in them a step (median "
+        f"of steps 1..) {coll_ms:.2f} (each step "
+        f"{[round(x, 2) for x in res['collective_ms']]}); seconds="
+        f"{time.perf_counter() - t0:.2f}")
 
 
 def main() -> int:
@@ -2803,6 +3076,12 @@ def main() -> int:
         "fupdate": fup.FUPDATE.launches, "decision": dec.DECISION.launches,
         "gram": gram_ops.GRAM.launches})
     path_launches["lm-train"] = lm_train["launches"]
+
+    # -- 3m. [lm-dist]: the sharded LM training step -----------------------
+    lm_dist = _lm_dist_phase(dev, lm_train, reset_counts, lambda: {
+        "fupdate": fup.FUPDATE.launches, "decision": dec.DECISION.launches,
+        "gram": gram_ops.GRAM.launches})
+    path_launches["lm-dist"] = lm_dist["launches"]
 
     # -- 4. the autotune path ----------------------------------------------
     for kern_ in (fup.FUPDATE, dec.DECISION, gram_ops.GRAM):

@@ -20,6 +20,10 @@ packages:
   package registers them. The same tree gives the same keys, and
   ``arrays.npz`` byte for byte the JAX package's file (the zip entries
   carry the time of writing, as ``np.savez`` stamps them);
+* a ``utils.tree.Stacked`` (the per-layer tensors of one JAX leaf) is
+  written as the stacked (R, ...) array the JAX tree holds, and read back
+  into per-layer tensors, so a ``TrainState``'s checkpoint is the JAX
+  package's;
 * a bf16 leaf is written as its 2-byte bits under the descriptor "<V2",
   as numpy writes ml_dtypes' bfloat16, and read back into
   ``torch.bfloat16`` through an int16 view. (The JAX package writes its
@@ -46,6 +50,9 @@ import torch
 
 from repro_torch.core.kernel_fn import KernelFn
 from repro_torch.core.ocssvm import SlabSpec
+from repro_torch.sharding.collectives import shard
+from repro_torch.sharding.specs import NamedSharding
+from repro_torch.utils.tree import Stacked
 
 # numpy's descriptor of ml_dtypes' bfloat16: a 2-byte void, little-endian.
 _BF16_DESCR = "<V2"
@@ -63,6 +70,8 @@ def _map(fn: Callable, tree, path: tuple = ()):
     str. Dicts keep their own key order."""
     if tree is None:
         return None
+    if isinstance(tree, Stacked):
+        return fn(path, tree)
     if isinstance(tree, SlabSpec):
         return dataclasses.replace(
             tree, kernel=_map(fn, tree.kernel, path + ("0",)))
@@ -92,6 +101,9 @@ def _host(leaf, *, copy: bool) -> np.ndarray:
     """One leaf as a host array, bf16 as its bits (a 2-byte void array).
     ``copy``: never share memory with the leaf (a CUDA tensor's transfer
     is a copy already)."""
+    if isinstance(leaf, Stacked):
+        leaf = torch.stack([t.detach() for t in leaf])
+        copy = False
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         if t.device.type != "cpu":
@@ -174,9 +186,18 @@ def latest_step(directory: str) -> Optional[int]:
 
 def _leaf_from(arr: np.ndarray, like, device):
     """A stored array in the form of the ``like`` leaf: a tensor with its
-    dtype, on ``device`` (default: its device); a numpy array with its
-    dtype; a number of its type (host floats, as ``concrete_spec``
-    wants)."""
+    dtype, on ``device`` (default: its device) or laid out by a
+    ``NamedSharding`` (this rank's shard); a ``Stacked`` of per-layer
+    tensors (``device`` then a ``Stacked`` too, or None); a numpy array
+    with its dtype; a number of its type (host floats, as
+    ``concrete_spec`` wants)."""
+    if isinstance(like, Stacked):
+        return Stacked(_leaf_from(arr[r], like[r], None if device is None
+                                  else device[r])
+                       for r in range(len(like)))
+    if isinstance(device, NamedSharding):
+        full = _leaf_from(arr, like, None)
+        return shard(full, device.spec, device.mesh)
     t = None
     if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:    # bf16 bits
         t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
@@ -203,7 +224,10 @@ def restore(directory: str, step: int, like: Any, *,
     ``shardings``: optional matching tree of ``torch.device`` (a ``None``
     keeps the ``like`` leaf's device; a leaf that is no tensor comes back
     as one on its device) — the same checkpoint restored onto other
-    devices.
+    devices — or of ``sharding.specs.NamedSharding`` (each leaf comes
+    back as this rank's shard of the stored full array, on the ``like``
+    leaf's device: ``checkpoint.reshard``); a ``Stacked`` leaf takes a
+    ``Stacked`` of them.
     """
     path = os.path.join(directory, f"step_{step:09d}")
     with open(os.path.join(path, "manifest.json")) as f:

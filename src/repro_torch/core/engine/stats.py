@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -41,7 +42,8 @@ class CollectiveRecord:
     """One collective: op kind, solve phase, the per-device payload bytes
     and the iter epoch (which solve's loop it belongs to)."""
 
-    op: str       # "psum" | "pmax" | "all_gather" | "broadcast"
+    op: str       # "psum" | "pmax" | "all_gather" | "broadcast" |
+    #               "reduce_scatter" | "all_to_all"
     phase: str    # "init" (once per solve) | "iter" (once per iteration)
     nbytes: int   # per-device payload estimate
     epoch: int = 0   # distinguishes iter phases of successive solves
@@ -171,8 +173,9 @@ class MeshComm:
     Both backends take the operands where they lie: NCCL on the card,
     gloo on the host or on the card (on an H100 with torch 2.11 gloo
     took CUDA tensors for every call made here — all_reduce SUM and MAX,
-    all_gather, broadcast — staging them through the host itself), so no
-    operand is copied to the host here.
+    all_gather, broadcast, all_to_all_single, reduce_scatter_tensor —
+    staging them through the host itself), so no operand is copied to
+    the host here.
 
     With ``ledger`` set, every call records its per-device payload there
     (gathered-output bytes for ``all_gather``: local bytes x n_shards) and
@@ -228,8 +231,9 @@ class MeshComm:
     def pmax(self, x: Tensor) -> Tensor:
         return self._reduce("pmax", x, dist.ReduceOp.MAX)
 
-    def all_gather(self, x: Tensor, *, tiled: bool = True) -> Tensor:
-        """Every rank's ``x`` in rank order: concatenated along axis 0
+    def all_gather(self, x: Tensor, *, tiled: bool = True,
+                   dim: int = 0) -> Tensor:
+        """Every rank's ``x`` in rank order: concatenated along ``dim``
         (``tiled``) or stacked on a new leading axis."""
         n = self.n_shards
         self._record("all_gather",
@@ -241,7 +245,52 @@ class MeshComm:
         parts = [torch.empty_like(y)
                  for _ in range(dist.get_world_size(self.group))]
         dist.all_gather(parts, y, group=self.group)
-        out = torch.cat(parts) if tiled else torch.stack(parts)
+        out = torch.cat(parts, dim=dim) if tiled else torch.stack(parts)
+        self._timed(t0)
+        return out
+
+    @property
+    def index(self) -> int:
+        """This rank's place in the group (row-major over ``axes``)."""
+        if self.group is None:
+            return 0
+        return dist.get_group_rank(self.group, dist.get_rank())
+
+    def reduce_scatter(self, x: Tensor, *, dim: int = 0) -> Tensor:
+        """The sum over the group of ``x``, this rank's block of it along
+        ``dim`` (``reduce_scatter_tensor``; the sharded LM path's
+        gradient of a gather)."""
+        self._record("reduce_scatter", _payload_bytes(x))
+        if self.group is None:
+            return x
+        t0 = time.perf_counter()
+        n = dist.get_world_size(self.group)
+        y = x.movedim(dim, 0).contiguous()
+        out = torch.empty((y.shape[0] // n,) + tuple(y.shape[1:]),
+                          dtype=y.dtype, device=y.device)
+        with warnings.catch_warnings():
+            # deprecated by name in later torch; the same collective
+            warnings.simplefilter("ignore", FutureWarning)
+            dist.reduce_scatter_tensor(out, y, group=self.group)
+        out = out.movedim(0, dim)
+        self._timed(t0)
+        return out
+
+    def all_to_all(self, x: Tensor, *, split_dim: int,
+                   concat_dim: int) -> Tensor:
+        """Tiled all-to-all (``jax.lax.all_to_all(..., tiled=True)``):
+        ``x`` cut into n blocks along ``split_dim``, block j sent to the
+        group's rank j, the blocks received concatenated along
+        ``concat_dim`` in rank order (``all_to_all_single``)."""
+        self._record("all_to_all", _payload_bytes(x))
+        if self.group is None:
+            return x
+        t0 = time.perf_counter()
+        n = dist.get_world_size(self.group)
+        y = torch.stack(x.chunk(n, dim=split_dim)).contiguous()
+        out = torch.empty_like(y)
+        dist.all_to_all_single(out, y, group=self.group)
+        out = torch.cat(out.unbind(0), dim=concat_dim)
         self._timed(t0)
         return out
 

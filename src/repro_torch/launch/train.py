@@ -1,16 +1,26 @@
-"""LM training launcher on one device.
+"""LM training launcher (the JAX package's ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
         --steps 100 --batch 8 --seq-len 256 [--reduced] [--device cpu] \
-        --ckpt-dir DIR
+        [--layout tp|fsdp] [--multi-pod] --ckpt-dir DIR
 
+``--reduced`` takes the arch's reduced config on the (1, 1) mesh;
+without it the production mesh, (16, 16) or (2, 16, 16) with
+``--multi-pod``, over the process group (started as that many
+processes: ``WORLD_SIZE`` / ``RANK`` / ``MASTER_ADDR`` / ``MASTER_PORT``
+in the environment, one card a rank, NCCL). With fewer ranks the mesh
+raises, as the JAX package's ``make_production_mesh`` does; with enough,
+the launcher raises too: drawing only this rank's shards of the
+parameters is not ported (ROADMAP A.12b.2s), and every rank drawing the
+whole model does not fit at a production arch's size. FSDP is on from
+4e9 parameters; ``--layout`` picks "tp" or "fsdp" (``sharding.specs``).
 Random parameters (a generator seeded 0) on the device (default: the
-CUDA card), the synthetic pipeline (seed 0) and the fault-tolerant loop
-(checkpoints every ``--save-every`` steps into ``--ckpt-dir``, resumed
-from there); prints the first and the last step's loss as the JAX
-package's ``repro.launch.train`` does. ``--layout`` and ``--multi-pod``
-name that package's production mesh, which belongs to the sharded slice:
-any value but the default is refused.
+CUDA card), sharded onto the mesh; the synthetic pipeline (seed 0) and
+the fault-tolerant loop (checkpoints every ``--save-every`` steps into
+``--ckpt-dir``, resumed from there: on the one-rank mesh a rank's
+shards are the full, mesh-agnostic arrays ``checkpoint.reshard``
+reads); prints the first and the last step's loss as the JAX package's
+launcher does.
 """
 from __future__ import annotations
 
@@ -19,11 +29,15 @@ import os
 import tempfile
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_arch
 from repro_torch.data.synthetic import SyntheticPipeline
+from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
 from repro_torch.models.transformer import init_params
 from repro_torch.runtime.fault_tolerance import FaultTolerantLoop
+from repro_torch.sharding.specs import make_constrain
+from repro_torch.sharding.state import shard_params
 from repro_torch.train.train_step import init_train_state, make_train_step
 
 
@@ -36,13 +50,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--reduced", action="store_true",
-                    help="the arch's reduced config")
+                    help="the arch's reduced config + the (1, 1) mesh")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="refused: the production mesh is the sharded "
-                         "slice's")
-    ap.add_argument("--layout", default="tp", choices=["tp", "fsdp"],
-                    help="refused unless tp: the production mesh is the "
-                         "sharded slice's")
+                    help="the (2, 16, 16) production mesh (512 ranks)")
+    ap.add_argument("--layout", default="tp", choices=["tp", "fsdp"])
     ap.add_argument("--ckpt-dir", default=None,
                     help="default: repro_torch_train in the temp directory")
     ap.add_argument("--save-every", type=int, default=50)
@@ -53,24 +64,34 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     from repro_torch.api import resolve_device
-    ap = _parser()
-    args = ap.parse_args(argv)
-    if args.multi_pod or args.layout != "tp":
-        ap.error("--multi-pod and --layout name the production mesh, which "
-                 "belongs to the sharded slice; this launcher trains on one "
-                 "device")
+    args = _parser().parse_args(argv)
     dev = resolve_device(args.device)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 \
+            and not dist.is_initialized():
+        if dev.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+            dev = torch.device("cuda", torch.cuda.current_device())
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+        mesh = make_test_mesh((1, 1), ("data", "model"))
+    else:
+        mesh = make_production_mesh(multi_pod=args.multi_pod)
+        raise NotImplementedError(
+            f"{args.arch} on the production mesh {dict(mesh.shape)}: "
+            f"drawing only this rank's shards of the parameters is not "
+            f"ported (ROADMAP A.12b.2s)")
+    fsdp = cfg.param_count() >= 4e9
+    constrain = make_constrain(mesh, fsdp=fsdp, layout=args.layout)
     ckpt_dir = args.ckpt_dir or os.path.join(tempfile.gettempdir(),
                                              "repro_torch_train")
 
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          device=dev)
-    state = init_train_state(cfg, params)
+    state = init_train_state(cfg, shard_params(params, cfg, constrain))
     del params
-    step = make_train_step(cfg, peak_lr=args.lr,
+    step = make_train_step(cfg, constrain=constrain, peak_lr=args.lr,
                            warmup_steps=max(1, args.steps // 10),
                            total_steps=args.steps,
                            microbatches=args.microbatches)

@@ -2,8 +2,8 @@
 and the initialisers (the JAX package's ``repro.models.layers``).
 
 Initialisers draw from an explicit ``torch.Generator`` and build on its
-device. The tensor-parallel MLP (``mlp_forward_tp``) belongs to the
-sharding slice and is not here.
+device (or give shapes alone on the meta device). ``mlp_forward_tp`` is
+the tensor-parallel MLP of the sharded path, on this rank's shards.
 """
 from __future__ import annotations
 
@@ -49,22 +49,61 @@ def gelu(x: Tensor) -> Tensor:
 
 def mlp_forward(params, x: Tensor, mlp_type: str) -> Tensor:
     """Gated / plain MLP. params: w1 (d, ff)[, w3 (d, ff)], w2 (ff, d)."""
+    w3 = params["w3"] if mlp_type in ("swiglu", "geglu") else None
+    return _mlp_hidden(x @ params["w1"], x, w3, mlp_type) @ params["w2"]
+
+
+def _mlp_hidden(h1: Tensor, x: Tensor, w3, mlp_type: str) -> Tensor:
+    """The MLP's hidden activation from h1 = x @ w1 (and x @ w3)."""
     if mlp_type == "swiglu":
-        h = F.silu(x @ params["w1"]) * (x @ params["w3"])
-    elif mlp_type == "geglu":
-        h = gelu(x @ params["w1"]) * (x @ params["w3"])
-    elif mlp_type == "relu2":
-        h = torch.square(F.relu(x @ params["w1"]))
-    elif mlp_type == "gelu":
-        h = gelu(x @ params["w1"])
-    else:
-        raise ValueError(mlp_type)
-    return h @ params["w2"]
+        return F.silu(h1) * (x @ w3)
+    if mlp_type == "geglu":
+        return gelu(h1) * (x @ w3)
+    if mlp_type == "relu2":
+        return torch.square(F.relu(h1))
+    if mlp_type == "gelu":
+        return gelu(h1)
+    raise ValueError(mlp_type)
+
+
+def mlp_forward_tp(params, x: Tensor, mlp_type: str, ctx, specs) -> Tensor:
+    """Megatron tensor-parallel MLP (the JAX package's ``mlp_forward_tp``):
+    ``w1``/``w3`` column-parallel and ``w2`` row-parallel over "model",
+    one psum of the activation-dtype partial over "model".
+
+    ``params`` are this rank's shards, ``specs`` their PartitionSpecs and
+    ``ctx`` the layout's ``sharding.collectives.ShardCtx``. With fsdp the
+    weights' dmodel shards are gathered over "data" at use. The partial
+    product is cast to the activation dtype BEFORE the all-reduce (the
+    reference's reason for this path: GSPMD all-reduces the f32
+    accumulator, twice the bytes); the backward's psum of dx at the
+    column-parallel side is in the activation dtype too."""
+    for name, dim in (("w1", 1), ("w2", 0)):
+        if specs[name][dim:dim + 1] != ("model",):
+            raise ValueError(f"mlp_forward_tp: {name} is not split over "
+                             f"'model' on its ff dim: {specs[name]}")
+    w = {k: ctx.gather(v, specs[k], keep=("model",))
+         for k, v in params.items()}
+    xl = ctx.copy_to(x, ("model",))
+    h = _mlp_hidden(xl @ w["w1"], xl, w.get("w3"), mlp_type)
+    part = (h @ w["w2"]).to(x.dtype)       # activation dtype BEFORE the psum
+    return ctx.reduce_from(part, ("model",))
+
+
+class MetaGenerator:
+    """Stands in for a generator on the meta device: the initialisers then
+    give shapes and dtypes, no values (``launch.specs.params_sds``)."""
+
+    device = torch.device("meta")
+
+
+def _gen(gen):
+    return None if isinstance(gen, MetaGenerator) else gen
 
 
 def normal(gen: torch.Generator, shape, scale: float, dtype) -> Tensor:
     """N(0, scale^2) drawn in f32 on the generator's device, then cast."""
-    return (torch.randn(shape, generator=gen, dtype=torch.float32,
+    return (torch.randn(shape, generator=_gen(gen), dtype=torch.float32,
                         device=gen.device) * scale).to(dtype)
 
 

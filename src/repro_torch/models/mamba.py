@@ -6,6 +6,10 @@ plain loop over time in f32, carrying only the (B, inner, N) state.
 (The JAX package chunks its scan under ``jax.checkpoint`` for the
 backward pass; the forward values are the same.) Decode is one step
 with the state's conv tail.
+
+On a sharded layout the block gets its weights gathered at use (its
+"inner" dims are "model"-sharded at rest) and runs replicated over
+"model": no tensor parallelism of its own in the port yet.
 """
 from __future__ import annotations
 

@@ -13,6 +13,10 @@ The scan is a plain loop in f32 over the real steps only, so the returned
 state is the state after the last token for any sequence length. (The
 JAX package pads its chunked scan with zero steps, which wipe the state
 when the length is above 128 and no multiple of it: ROADMAP C.13.)
+
+On a sharded layout both mixes get their weights gathered at use (the
+heads and ff dims are "model"-sharded at rest) and run replicated over
+"model": no tensor parallelism of their own in the port yet.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, normal
+from repro_torch.models.layers import _gen, dense_init, normal
 
 Tensor = torch.Tensor
 LORA_R = 64
@@ -34,7 +38,7 @@ class RWKVState(NamedTuple):
 
 
 def _uniform(gen: torch.Generator, shape, dtype) -> Tensor:
-    return torch.rand(shape, generator=gen, dtype=torch.float32,
+    return torch.rand(shape, generator=_gen(gen), dtype=torch.float32,
                       device=gen.device).to(dtype)
 
 

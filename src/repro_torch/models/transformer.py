@@ -1,5 +1,5 @@
 """The decoder stack over an arch's heterogeneous layer pattern (the JAX
-package's ``repro.models.transformer``, single device).
+package's ``repro.models.transformer``).
 
 ``init_params`` builds a ``Decoder``: an ``nn.Module`` holding the
 embedding, the final norm, the unembedding and a ``ModuleList`` of
@@ -27,9 +27,26 @@ leaves the train step makes require gradients. Where the forward records
 a graph (train mode, gradients enabled, some input requiring them) each
 layer is rematerialised by ``cfg.remat``, as the JAX package's
 ``_remat_wrap`` does per layer.
+
+Sharded (``constrain`` from ``sharding.specs.make_constrain``): ``params``
+are this rank's shards of the ``param_tree`` and the layers fetch their
+weights at use (``ShardCtx.gather``), inside the rematerialised layer,
+so a re-run layer fetches them again in the backward pass (every rank
+re-runs its collectives in the same order). Under the "tp" layout:
+attention is head-parallel over "model" when both the query and the kv
+heads divide it (else its weights are gathered and it runs replicated
+over "model", the values GSPMD's sequence-sharded layout computes); the
+MLP is Megatron's (``mlp_forward_tp``) where ``cfg.tp_mlp`` asks for it;
+the MoE takes its expert-parallel paths; the embedding is looked up by
+vocab range on each "model" rank and summed over "model". Mamba, RWKV,
+the dense MLP without ``tp_mlp``, arctic's dense residual and the
+unembedding gather their weights at use and run replicated over "model"
+(no tensor parallelism of their own yet). Under "fsdp" every weight is
+gathered at use.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Optional, Tuple
 
@@ -40,8 +57,9 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models.attention import (attn_init, attention_forward,
                                           make_kv_cache)
-from repro_torch.models.layers import (dense_init, embed_init, mlp_forward,
-                                       mlp_init, rms_norm)
+from repro_torch.models.layers import (MetaGenerator, dense_init,
+                                       embed_init, mlp_forward,
+                                       mlp_forward_tp, mlp_init, rms_norm)
 from repro_torch.models.mamba import (make_mamba_state, mamba_forward,
                                       mamba_init)
 from repro_torch.models.moe import moe_forward, moe_init
@@ -139,11 +157,14 @@ def _layer_init(gen: torch.Generator, cfg: ArchConfig,
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                 *, device=None) -> Decoder:
     """Random parameters drawn from ``generator`` (default: one seeded 0)
-    on ``device`` (default: the CUDA card; ``"cpu"`` on the CPU)."""
+    on ``device`` (default: the CUDA card; ``"cpu"`` on the CPU). On
+    ``"meta"`` it gives the shapes and dtypes alone."""
     from repro_torch.api import resolve_device
     dev = resolve_device(device)
-    gen = generator if generator is not None \
-        else torch.Generator(device=dev).manual_seed(0)
+    gen = generator
+    if gen is None:
+        gen = MetaGenerator() if dev.type == "meta" \
+            else torch.Generator(device=dev).manual_seed(0)
     if gen.device.type != dev.type:
         raise ValueError(f"a generator on {gen.device} cannot draw the "
                          f"parameters on {dev}")
@@ -237,36 +258,75 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype=None, *,
 # forward
 # ---------------------------------------------------------------------------
 
+def _weights(p, name: str, constrain, pspec):
+    """A layer's sub-dict of weights: as it is on one device, gathered at
+    use when sharded."""
+    sh = getattr(constrain, "sharding", None)
+    if sh is None:
+        return p[name]
+    return sh.gather_all(p[name], pspec[name])
+
+
+def _attention(p, h: Tensor, cfg: ArchConfig, mixer: str, constrain,
+               pspec, **kw):
+    """``attention_forward``, head-parallel over "model" under the "tp"
+    layout when the query and the kv heads both divide it (kv head j
+    serves query heads j*g..(j+1)*g-1, so contiguous blocks of both stay
+    together): the input passes ``copy_to``, the row-parallel ``wo``
+    output ``reduce_from``. Else the weights are gathered."""
+    sh = getattr(constrain, "sharding", None)
+    m = sh.model if sh is not None else 1
+    specs = pspec["attn"] if pspec is not None else None
+    if (sh is not None and sh.layout == "tp"
+            and cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0
+            and all(specs[k][1:2] == ("model",) for k in ("wq", "wk", "wv"))
+            and specs["wo"][:1] == ("model",)):
+        w = sh.gather_all(p["attn"], specs, keep=("model",))
+        local = dataclasses.replace(cfg, n_heads=cfg.n_heads // m,
+                                    n_kv_heads=cfg.n_kv_heads // m)
+        out, st = attention_forward(w, sh.copy_to(h, ("model",)), local,
+                                    mixer, **kw)
+        return sh.reduce_from(out, ("model",)), st
+    return attention_forward(_weights(p, "attn", constrain, pspec), h, cfg,
+                             mixer, **kw)
+
+
 def _mix(p, x: Tensor, cfg: ArchConfig, spec: LayerSpec, *,
-         positions: Tensor, state, cache_pos: int, q_chunk: int):
+         positions: Tensor, state, cache_pos: int, q_chunk: int,
+         constrain=None, pspec=None):
     """The layer's first half, norm1 and the mixer: (x + out, the
-    mixer's new state parts)."""
+    mixer's new state parts). ``pspec``: the layer's specs, sharded."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if spec.mixer in ("full", "swa"):
-        out, new_mix_state = attention_forward(
-            p["attn"], h, cfg, spec.mixer, positions=positions,
+        out, new_mix_state = _attention(
+            p, h, cfg, spec.mixer, constrain, pspec, positions=positions,
             cache=state, cache_pos=cache_pos, q_chunk=q_chunk)
         mixed = (new_mix_state, None, None)
     elif spec.mixer == "mamba":
-        out, new_mix_state = mamba_forward(p["mamba"], h, cfg, state=state)
+        out, new_mix_state = mamba_forward(
+            _weights(p, "mamba", constrain, pspec), h, cfg, state=state)
         mixed = (new_mix_state, None, None)
     elif spec.mixer == "rwkv":
-        out, new_x_tm, new_wkv = rwkv_time_mix(p["rwkv"], h, cfg, state=state)
+        out, new_x_tm, new_wkv = rwkv_time_mix(
+            _weights(p, "rwkv", constrain, pspec), h, cfg, state=state)
         mixed = (state, new_x_tm, new_wkv)
     else:
         raise ValueError(spec.mixer)
     return x + out, mixed
 
 
-def _ffn(p, x: Tensor, cfg: ArchConfig, spec: LayerSpec, *, state, mixed):
+def _ffn(p, x: Tensor, cfg: ArchConfig, spec: LayerSpec, *, state, mixed,
+         constrain=None, pspec=None):
     """The layer's second half, norm2 and the MLP / MoE / channel mix:
     (x + out, the layer's new state, aux)."""
     new_mix_state, new_x_tm, new_wkv = mixed
+    sh = getattr(constrain, "sharding", None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     if spec.mixer == "rwkv":
         out, new_x_cm = rwkv_channel_mix(
-            p["cmix"], h, x_prev=(state.x_cm if state is not None else None))
+            _weights(p, "cmix", constrain, pspec), h,
+            x_prev=(state.x_cm if state is not None else None))
         if state is not None:
             new_mix_state = RWKVState(x_tm=new_x_tm, x_cm=new_x_cm,
                                       wkv=new_wkv)
@@ -274,20 +334,29 @@ def _ffn(p, x: Tensor, cfg: ArchConfig, spec: LayerSpec, *, state, mixed):
         out, aux = moe_forward(p["moe"], h, n_experts=cfg.n_experts,
                                top_k=cfg.top_k,
                                capacity_factor=cfg.capacity_factor,
-                               mlp_type=cfg.mlp_type)
+                               mlp_type=cfg.mlp_type, impl=cfg.moe_impl,
+                               constrain=constrain,
+                               specs=pspec["moe"] if pspec else None)
         if cfg.dense_residual_ff:
-            out = out + mlp_forward(p["dense_res"], h, cfg.mlp_type)
+            out = out + mlp_forward(
+                _weights(p, "dense_res", constrain, pspec), h, cfg.mlp_type)
+    elif cfg.tp_mlp and sh is not None and sh.layout == "tp":
+        out = mlp_forward_tp(p["mlp"], h, cfg.mlp_type, sh, pspec["mlp"])
     else:
-        out = mlp_forward(p["mlp"], h, cfg.mlp_type)
+        out = mlp_forward(_weights(p, "mlp", constrain, pspec), h,
+                          cfg.mlp_type)
     return x + out, new_mix_state, aux
 
 
 def _apply_layer(p, x: Tensor, cfg: ArchConfig, spec: LayerSpec, *,
-                 positions: Tensor, state, cache_pos: int, q_chunk: int):
+                 positions: Tensor, state, cache_pos: int, q_chunk: int,
+                 constrain=None, pspec=None):
     """One decoder layer. Returns (x, new_state, aux)."""
     x, mixed = _mix(p, x, cfg, spec, positions=positions, state=state,
-                    cache_pos=cache_pos, q_chunk=q_chunk)
-    return _ffn(p, x, cfg, spec, state=state, mixed=mixed)
+                    cache_pos=cache_pos, q_chunk=q_chunk,
+                    constrain=constrain, pspec=pspec)
+    return _ffn(p, x, cfg, spec, state=state, mixed=mixed,
+                constrain=constrain, pspec=pspec)
 
 
 def _save_weight_matmuls(ctx, op, *args, **kwargs):
@@ -301,7 +370,8 @@ def _save_weight_matmuls(ctx, op, *args, **kwargs):
 
 
 def _remat_layer(p, x: Tensor, cfg: ArchConfig, spec: LayerSpec, *,
-                 positions: Tensor, q_chunk: int, mode: str):
+                 positions: Tensor, q_chunk: int, mode: str,
+                 constrain=None, pspec=None):
     """One train-mode layer under ``mode`` (the JAX package's
     ``_remat_wrap``): "none" keeps every intermediate; "full" keeps only
     the layer's input and re-runs the layer in the backward pass; "dots"
@@ -310,14 +380,15 @@ def _remat_layer(p, x: Tensor, cfg: ArchConfig, spec: LayerSpec, *,
     the mixer (x + mixer_out) is kept and neither half is re-run for the
     other. Remat changes no value. Returns (x, None, aux)."""
     kw = dict(positions=positions, state=None, cache_pos=0,
-              q_chunk=q_chunk)
+              q_chunk=q_chunk, constrain=constrain, pspec=pspec)
     if mode == "none":
         return _apply_layer(p, x, cfg, spec, **kw)
     if mode == "boundaries":
         x, mixed = ckpt.checkpoint(
             lambda x: _mix(p, x, cfg, spec, **kw), x, use_reentrant=False)
         return ckpt.checkpoint(
-            lambda x: _ffn(p, x, cfg, spec, state=None, mixed=mixed), x,
+            lambda x: _ffn(p, x, cfg, spec, state=None, mixed=mixed,
+                           constrain=constrain, pspec=pspec), x,
             use_reentrant=False)
     extra = {}
     if mode == "dots":
@@ -336,24 +407,65 @@ def _records_graph(p, x: Tensor) -> bool:
     ts = p.parameters() if isinstance(p, nn.Module) else leaves(p)
     return x.requires_grad or any(t.requires_grad for t in ts)
 
+def _embed(params, tokens: Tensor, cfg: ArchConfig, constrain,
+           specs) -> Tensor:
+    """The token embedding. Sharded, with the vocab over "model" under the
+    "tp" layout, each "model" rank looks up the tokens of its vocab range
+    (zero rows for the others; dmodel gathered over "data" with fsdp) and
+    the rows are summed over "model": one term is non-zero, so the sum is
+    the lookup exactly. Else the table is gathered at use. (The JAX
+    package leaves this gather to GSPMD, which refuses it under jax 0.9.0
+    on a mesh with Explicit axes: ROADMAP C.3.)"""
+    tokens = tokens.long()
+    sh = getattr(constrain, "sharding", None)
+    if sh is None:
+        return params["embed"][tokens]
+    spec = specs["embed"]
+    if sh.layout == "tp" and spec[:1] == ("model",):
+        table = sh.gather(params["embed"], spec, keep=("model",))
+        n = table.shape[0]
+        ids = tokens - sh.index(("model",)) * n
+        inside = (ids >= 0) & (ids < n)
+        rows = table[ids.clamp(0, n - 1)] * inside[..., None].to(table.dtype)
+        return sh.reduce_from(rows, ("model",))
+    return sh.gather(params["embed"], spec)[tokens]
+
+
+def unembed_weight(params, cfg: ArchConfig, constrain=None) -> Tensor:
+    """The (d_model, padded vocab) unembedding; sharded, gathered at use
+    (the logits and the loss then run replicated over "model")."""
+    sh = getattr(constrain, "sharding", None)
+    if sh is None:
+        return params["unembed"]
+    return sh.gather(params["unembed"], sh.param_specs(cfg)["unembed"])
+
+
 def forward(params, cfg: ArchConfig, *,
             tokens: Optional[Tensor] = None,
             embeds: Optional[Tensor] = None,
             vision_embeds: Optional[Tensor] = None,
             cache: Optional[dict] = None,
             q_chunk: int = 2048,
-            return_hidden: bool = False
+            return_hidden: bool = False,
+            constrain=None
             ) -> Tuple[Tensor, Optional[dict], Tensor]:
     """Returns (logits_or_hidden, new_cache_or_None, aux_loss).
 
-    ``params`` is a ``Decoder`` or its ``param_tree``. return_hidden skips
-    the unembedding and returns the final-normed hidden states (B, S,
-    d_model), the features a head pools (and the fused loss takes).
+    ``params`` is a ``Decoder`` or its ``param_tree`` (this rank's shards
+    of it when ``constrain`` carries a sharded layout; train mode only).
+    return_hidden skips the unembedding and returns the final-normed
+    hidden states (B, S, d_model), the features a head pools (and the
+    fused loss takes).
     """
+    sh = getattr(constrain, "sharding", None)
+    specs = sh.param_specs(cfg) if sh is not None else None
+    if sh is not None and cache is not None:
+        raise NotImplementedError("sharded prefill and decode are not "
+                                  "ported; the sharded forward trains")
     if embeds is not None:                       # audio frontend stub
         x = embeds.to(cfg.dtype)
     else:
-        x = params["embed"][tokens.long()]
+        x = _embed(params, tokens, cfg, constrain, specs)
     if vision_embeds is not None:                # vision frontend stub
         x = torch.cat([vision_embeds.to(cfg.dtype), x], dim=1)
     b, s, _ = x.shape
@@ -364,17 +476,21 @@ def forward(params, cfg: ArchConfig, *,
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_states = []
+    pspecs = (layer_params(specs, cfg) if specs is not None
+              else [None] * cfg.n_layers)
     for i, layer in enumerate(layer_params(params, cfg)):
         spec = cfg.layer_spec(i)
         if cache is None and _records_graph(layer, x):
             x, nst, aux = _remat_layer(layer, x, cfg, spec,
                                        positions=positions, q_chunk=q_chunk,
-                                       mode=cfg.remat)
+                                       mode=cfg.remat, constrain=constrain,
+                                       pspec=pspecs[i])
         else:
             st = cache["layers"][i] if cache is not None else None
             x, nst, aux = _apply_layer(layer, x, cfg, spec,
                                        positions=positions, state=st,
-                                       cache_pos=pos0, q_chunk=q_chunk)
+                                       cache_pos=pos0, q_chunk=q_chunk,
+                                       constrain=constrain, pspec=pspecs[i])
         aux_total = aux_total + aux
         new_states.append(nst)
     new_cache = ({"pos": pos0 + s, "layers": new_states}
@@ -383,7 +499,7 @@ def forward(params, cfg: ArchConfig, *,
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:
         return x, new_cache, aux_total
-    logits = x @ params["unembed"]
+    logits = x @ unembed_weight(params, cfg, constrain)
     if cfg.padded_vocab != cfg.vocab_size:
         # Megatron-style vocab padding: pad columns never win.
         logits[..., cfg.vocab_size:] = -1e30

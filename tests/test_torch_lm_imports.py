@@ -118,3 +118,52 @@ def test_train_path_leaves_jax_unloaded(tmp_path):
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+SHARDED_MODULES = ("sharding/__init__.py", "sharding/specs.py",
+                   "sharding/collectives.py", "sharding/state.py",
+                   "launch/specs.py", "optim/compression.py",
+                   "checkpoint/reshard.py", "checkpoint/manager.py",
+                   "core/engine/stats.py", "launch/mesh.py")
+
+
+def test_sharded_modules_are_among_the_walked_files():
+    files = set(PORT.rglob("*.py"))
+    assert {PORT / m for m in SHARDED_MODULES} <= files
+    bad = [f"{m}:{line}: {mod}" for m in SHARDED_MODULES
+           for line, mod in _imported(PORT / m, _package(PORT / m))
+           if mod.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_sharded_path_leaves_jax_unloaded(tmp_path):
+    """Two gloo ranks of the sharded step (tp with fsdp, reduced mixtral:
+    the expert-parallel MoE) from a fresh process that also imports the
+    sharding, resharding and compression modules: no rank and not the
+    parent loads JAX."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'tests')!r})\n"
+        "import torch_dist_ranks as R\n"
+        "from repro_torch.launch import spawn_ranks\n"
+        "import repro_torch.checkpoint.reshard, repro_torch.launch.specs\n"
+        "import repro_torch.optim.compression\n"
+        "def main():\n"
+        "    case = dict(key='k', arch='mixtral-8x22b', mesh=[(1, 2),"
+        " ('data', 'model')], layout='tp', fsdp=True, steps=1, batch=2,"
+        " seq=8)\n"
+        "    out = spawn_ranks(R.lm_dist_loaded, 2, args=(dict(device='cpu',"
+        " seed=0, cases=[case]),), timeout_s=240,"
+        f" dir={str(tmp_path)!r})\n"
+        "    bad = sorted(m for m in sys.modules\n"
+        "                 if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "    bad += [m for r in out for m in r['loaded']]\n"
+        "    print(bad); sys.exit(1 if bad else 0)\n"
+        "if __name__ == '__main__':\n"
+        "    main()\n")
+    script = tmp_path / "run.py"
+    script.write_text(code)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, str(script)], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr

@@ -15,8 +15,11 @@ fault-tolerant loop, the ``repro_torch.launch.train`` CLI and
   carried across) and the same batch within 1e-4 (it prints four
   decimals). The JAX package's own ``repro.launch.train --reduced`` fails
   under jax 0.9.0 (ROADMAP C.17), so its ``make_train_step`` is called
-  directly. ``--layout`` / ``--multi-pod`` other than the default are
-  refused.
+  directly. ``--layout fsdp --reduced`` gives the "tp" layout's first
+  loss on the (1, 1) mesh; without ``--reduced`` the production mesh
+  ((16, 16), or (2, 16, 16) with ``--multi-pod``) raises for want of
+  ranks, and with all its ranks the launcher refuses (sharded
+  initialisation is not ported).
 * The example trains a few steps on the CPU and its loss falls.
 """
 import dataclasses
@@ -174,13 +177,48 @@ def test_cli_prints_the_reference_lines_and_its_first_loss(tmp_path,
     assert float(last.group(1)) < float(first.group(1))
 
 
-@pytest.mark.parametrize("flag", [["--layout", "fsdp"], ["--multi-pod"]])
-def test_cli_refuses_the_production_mesh(flag, capsys):
+@pytest.mark.parametrize("flag", [[], ["--multi-pod"]])
+def test_cli_refuses_the_production_mesh(flag):
+    """Without ``--reduced`` the launcher builds the production mesh over
+    the process group, (16, 16) or (2, 16, 16) with ``--multi-pod``: one
+    process has too few ranks, and it raises as the JAX package's
+    ``make_production_mesh`` does."""
     from repro_torch.launch import train
-    with pytest.raises(SystemExit) as e:
-        train.main(["--arch", LLAMA, "--reduced", "--device", "cpu", *flag])
-    assert e.value.code == 2
-    assert "production mesh" in capsys.readouterr().err
+    n = 512 if flag else 256
+    with pytest.raises(RuntimeError, match=f"needs {n} ranks, found 1"):
+        train.main(["--arch", LLAMA, "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("flag", [[], ["--multi-pod"]])
+def test_cli_refuses_a_full_production_mesh(monkeypatch, flag):
+    """With every rank of the production mesh there, the launcher still
+    refuses: drawing only this rank's shards is not ported, and each rank
+    drawing the whole model would not fit."""
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import SolverMesh
+    shape = (2, 16, 16) if flag else (16, 16)
+    axes = ("pod", "data", "model") if flag else ("data", "model")
+    mesh = SolverMesh(axes, shape, tuple(range(int(np.prod(shape)))), 0)
+    monkeypatch.setattr(train, "make_production_mesh",
+                        lambda *, multi_pod: mesh)
+    with pytest.raises(NotImplementedError, match="only this rank's shards"):
+        train.main(["--arch", LLAMA, "--device", "cpu", *flag])
+
+
+def test_cli_fsdp_layout_matches_the_tp_layout(tmp_path, capsys):
+    """``--layout fsdp --reduced`` trains on the (1, 1) mesh; its first
+    loss is the "tp" layout's."""
+    from repro_torch.launch import train
+    first = {}
+    for layout in ("tp", "fsdp"):
+        train.main(["--arch", LLAMA, "--reduced", "--steps", "2",
+                    "--batch", "2", "--seq-len", "16", "--device", "cpu",
+                    "--layout", layout, "--ckpt-dir",
+                    str(tmp_path / layout)])
+        lines = capsys.readouterr().out.strip().splitlines()
+        first[layout] = re.fullmatch(r"step 0: loss (\d+\.\d{4})",
+                                     lines[0]).group(1)
+    assert first["fsdp"] == first["tp"]
 
 
 # -- the example -----------------------------------------------------------

@@ -166,3 +166,452 @@ def card_fit(rank: int, world: int, job: dict) -> dict:
     return dict(_summary(res), launches=fup.FUPDATE.launches,
                 device=str(res.model.gamma.device))
 
+
+
+# -- the sharded LM training step (tests/test_torch_lm_dist.py and
+# chip_smoke.py [lm-dist]) ------------------------------------------------
+
+def lm_dist_cfg(case: dict):
+    """A case's ArchConfig: the arch (reduced unless ``reduced`` is
+    False) with ``overrides``; an MoE arch's capacity factor is E, so the
+    global path drops no token (the JAX package's MoE tests do the same)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cfg = get_arch(case["arch"])
+    if case.get("reduced", True):
+        cfg = cfg.reduced()
+    over = dict(case.get("overrides", {}))
+    if cfg.n_experts:
+        over.setdefault("capacity_factor", float(cfg.n_experts))
+    return dataclasses.replace(cfg, **over)
+
+
+def aux_groups(case: dict) -> int:
+    """How many per-shard aux losses the sharded step averages: the data
+    shards of the "tp" layout's batch (GShard's per-group balance loss);
+    1 under "fsdp", where the global path runs on the gathered tokens."""
+    import math
+    if case["layout"] != "tp":
+        return 1
+    shape = dict(zip(case["mesh"][1], case["mesh"][0]))
+    axes = [ax for ax in ("pod", "data") if ax in shape]
+    while axes and case["batch"] % math.prod(shape[a] for a in axes):
+        axes = axes[:-1]
+    return math.prod(shape[a] for a in axes)
+
+
+class grouped_aux:
+    """Within it, the single-device forward's MoE aux is the mean of the
+    aux of each of ``n`` equal batch groups (its output stays the global
+    call's): the sharded "tp" step's aux, on one device."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import transformer
+        self.real = real = transformer.moe_forward
+        n = self.n
+
+        def moe_forward(params, x, **kw):
+            y, aux = real(params, x, **kw)
+            if n > 1:
+                aux = torch.stack([real(params, xg, **kw)[1]
+                                   for xg in x.chunk(n, 0)]).mean()
+            return y, aux
+        transformer.moe_forward = moe_forward
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer
+        transformer.moe_forward = self.real
+
+
+def lm_oracle(case: dict, device, seed: int):
+    """The port's single-device step on the case's parameters and
+    batches: (per-step metrics, the final TrainState)."""
+    import torch
+    from repro_torch.data.synthetic import SyntheticPipeline
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import train_step as tts
+    cfg = lm_dist_cfg(case)
+    dev = torch.device(device)
+    state = tts.init_train_state(cfg, init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev))
+    pipe = SyntheticPipeline(cfg, batch=case["batch"], seq_len=case["seq"],
+                             seed=seed, device=dev)
+    step = tts.make_train_step(cfg, **case.get("step_kw", {}))
+    metrics = []
+    with grouped_aux(aux_groups(case)):
+        for _ in range(case["steps"]):
+            state, m = step(state, pipe.next_batch())
+            metrics.append({k: float(v) for k, v in m.items()})
+    return metrics, state
+
+
+def lm_dist_steps(rank: int, world: int, job: dict) -> dict:
+    """The sharded train step for each case of ``job["cases"]``: the
+    parameters drawn from ``job["seed"]`` on ``job["device"]`` (every rank
+    the same; on CUDA the first card, or card ``rank`` with
+    ``job["card_per_rank"]``), sharded onto the case's mesh (``make_test_mesh``), the
+    optimizer started on the shards, ``steps`` steps of the synthetic
+    batches (seed ``job["seed"]``). Per case: each step's metrics, ms,
+    collective calls and host ms in them, the peak memory, the ledger's
+    summary and its op counts over the steps; with ``params``, the first
+    rank also returns the parameters after the steps, gathered (numpy f32,
+    ``leaves`` order); with ``plain``, the single-device step's too
+    (``_plain_steps``); with ``trace`` and a ``job["tracer"]`` (a
+    function that runs a one-step callable under the profiler), one more
+    step traced ("trace", and "plain_trace" with ``plain``). Under
+    "launches": this rank's launches of each slab kernel over all the
+    cases, the counts set to 0 at the start."""
+    import time
+    import types
+    import torch
+    from repro_torch.api import resolve_device
+    from repro_torch.core.engine import CollectiveLedger
+    from repro_torch.data.synthetic import SyntheticPipeline
+    from repro_torch.kernels.decision import ops as dec
+    from repro_torch.kernels.fupdate import ops as fup
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.launch import make_test_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.sharding import make_constrain
+    from repro_torch.sharding.state import shard_params, unshard_train_state
+    from repro_torch.train import train_step as tts
+    from repro_torch.utils.tree import leaves
+    kernels = {"fupdate": fup.FUPDATE, "decision": dec.DECISION,
+               "gram": gram_ops.GRAM}
+    for k in kernels.values():
+        k.reset_counts()
+    torch.set_num_threads(job.get("threads", 1))
+    dev = resolve_device(job["device"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(rank if job.get("card_per_rank") else 0)
+        dev = torch.device("cuda", torch.cuda.current_device())
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    out = {}
+    for case in job["cases"]:
+        cfg = lm_dist_cfg(case)
+        mesh = make_test_mesh(tuple(case["mesh"][0]), tuple(case["mesh"][1]))
+        led = CollectiveLedger()
+        led.set_phase(None)
+        constrain = make_constrain(mesh, fsdp=case["fsdp"],
+                                   layout=case["layout"], ledger=led)
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        state = tts.init_train_state(cfg, shard_params(init_params(
+            cfg, torch.Generator(device=dev).manual_seed(job["seed"]),
+            device=dev), cfg, constrain))
+        pipe = SyntheticPipeline(cfg, batch=case["batch"],
+                                 seq_len=case["seq"], seed=job["seed"],
+                                 device=dev)
+        step = tts.make_train_step(cfg, constrain=constrain,
+                                   **case.get("step_kw", {}))
+        metrics, ms, coll_ms, calls = [], [], [], []
+        led.set_phase("step")
+        for _ in range(case["steps"]):
+            batch = pipe.next_batch()
+            c0, n0 = led.seconds, led.calls
+            t0 = sync()
+            state, m = step(state, batch)
+            m = {k: float(v) for k, v in m.items()}
+            ms.append(1e3 * (sync() - t0))
+            coll_ms.append(1e3 * (led.seconds - c0))
+            calls.append(led.calls - n0)
+            metrics.append(m)
+        led.set_phase(None)
+        tracer = job.get("tracer") if case.get("trace") else None
+        if tracer is not None:
+            def one_step():
+                nonlocal state
+                state, m = step(state, pipe.next_batch())
+                float(m["loss"])
+                return types.SimpleNamespace(iters=1)
+            trace = tracer(one_step)
+        ops: dict = {}
+        for r in led.records:
+            ops[r.op] = ops.get(r.op, 0) + 1
+        res = {"metrics": metrics, "ms": ms, "ledger": led.summary(),
+               "ops": ops, "collective_ms": coll_ms,
+               "collective_calls": calls,
+               "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                            if cuda else None)}
+        if tracer is not None:
+            res["trace"] = trace
+        if case.get("params"):
+            full_state = unshard_train_state(state, cfg, constrain)
+            if rank == 0:
+                res["params"] = [t.detach().float().cpu().numpy()
+                                 for t in leaves(full_state.params)]
+            del full_state
+        del state, step
+        if case.get("plain"):
+            res.update(_plain_steps(case, cfg, dev, job["seed"], sync,
+                                    tracer))
+        out[case["key"]] = res
+    out["launches"] = {n: k.launches for n, k in kernels.items()}
+    return out
+
+
+def _plain_steps(case: dict, cfg, dev, seed: int, sync,
+                 tracer=None) -> dict:
+    """The single-device ``make_train_step`` on the case's parameters and
+    batches, timed as ``lm_dist_steps`` times the sharded one: each
+    step's ms and metrics, the peak memory and, with ``tracer``, one more
+    step traced ("plain_" keys)."""
+    import types
+    import torch
+    from repro_torch.data.synthetic import SyntheticPipeline
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import train_step as tts
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    state = tts.init_train_state(cfg, init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev))
+    pipe = SyntheticPipeline(cfg, batch=case["batch"], seq_len=case["seq"],
+                             seed=seed, device=dev)
+    step = tts.make_train_step(cfg, **case.get("step_kw", {}))
+    ms, metrics = [], []
+    for _ in range(case["steps"]):
+        batch = pipe.next_batch()
+        t0 = sync()
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+        ms.append(1e3 * (sync() - t0))
+    out = {"plain_ms": ms, "plain_metrics": metrics,
+           "plain_peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                              if cuda else None)}
+    if tracer is not None:
+        def one_step():
+            nonlocal state
+            state, m = step(state, pipe.next_batch())
+            float(m["loss"])
+            return types.SimpleNamespace(iters=1)
+        out["plain_trace"] = tracer(one_step)
+    del state, step
+    return out
+
+
+def lm_dist_functions(rank: int, world: int, job: dict) -> dict:
+    """The sharded functions on this rank's shards of ``job``'s numpy
+    inputs, their outputs gathered (returned by the first rank):
+    ``mlp_forward_tp`` and ``moe_forward`` on a (2, 2) mesh per
+    ``job["cells"]``, ``psum_compressed`` on a (4, 1) mesh; and a
+    checkpoint of a sharded reduced-llama state saved on (2, 2)
+    (``save_sharded`` into ``job["ckpt"]``, after one step) and
+    restored with ``reshard_checkpoint`` onto (4, 1), (1, 4) and, on the
+    first rank, (1, 1): each restored leaf (and ``reshard_live``'s of the
+    saved full state) against ``shard`` of the saved state, bitwise."""
+    import hashlib
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.reshard import (reshard_checkpoint,
+                                                reshard_live, save_sharded,
+                                                shardings_for)
+    from repro_torch.core.engine import CollectiveLedger, MeshComm
+    from repro_torch.data.synthetic import SyntheticPipeline
+    from repro_torch.launch import make_test_mesh
+    from repro_torch.models.layers import mlp_forward_tp
+    from repro_torch.models.moe import moe_forward
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.compression import (init_error_state,
+                                               psum_compressed)
+    from repro_torch.sharding import (NamedSharding, make_constrain, shard,
+                                      spec_for_param, unshard)
+    from repro_torch.sharding.specs import P, map_specs
+    from repro_torch.sharding.state import (shard_train_state, state_specs,
+                                            unshard_train_state)
+    from repro_torch.train import train_step as tts
+    from repro_torch.utils.tree import Stacked, leaves, map_tree
+    torch.set_num_threads(1)
+    out: dict = {}
+    T = torch.as_tensor
+
+    # -- a sharded state saved on (2, 2), restored onto other meshes -----
+    cfg = lm_dist_cfg({"arch": "llama3.2-3b"})
+    mesh = make_test_mesh((2, 2), ("data", "model"))
+    constrain = make_constrain(mesh, fsdp=True)
+    full = tts.init_train_state(cfg, init_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    state = shard_train_state(full, cfg, constrain)
+    step = tts.make_train_step(cfg, constrain=constrain, peak_lr=1e-3,
+                               warmup_steps=1, total_steps=10)
+    pipe = SyntheticPipeline(cfg, batch=4, seq_len=16, device="cpu")
+    for _ in range(2):
+        state, _ = step(state, pipe.next_batch())
+    specs = state_specs(state, cfg, constrain.sharding)
+    save_sharded(job["ckpt"], 2, state,
+                 map_specs(lambda s: NamedSharding(mesh, s), specs))
+    saved = unshard_train_state(state, cfg, constrain)
+    like = full
+
+    def digest(t):
+        if isinstance(t, Stacked):
+            t = torch.stack(list(t))
+        return hashlib.sha256(t.contiguous().numpy().tobytes()).hexdigest()
+    out["saved"] = {}
+    _walk(saved, (), lambda path, t: out["saved"].__setitem__(
+        "/".join(path), digest(t)))
+    targets = [((4, 1), ("data", "model")), ((1, 4), ("data", "model"))]
+    if rank == 0:
+        targets.append(((1, 1), ("data", "model")))
+    out["reshard"] = {}
+    for shape, axes in targets:
+        if shape == (1, 1):
+            from repro_torch.launch.mesh import SolverMesh
+            m = SolverMesh(axes, shape, (rank,), rank)
+        else:
+            m = make_test_mesh(shape, axes)
+        back = reshard_checkpoint(job["ckpt"], 2, like, m)
+        want = map_tree(lambda t, s: shard(t, s.spec, m), saved,
+                        shardings_for(like, m))
+        live = reshard_live(saved, m)
+        same = all(a.dtype == b.dtype and torch.equal(a, b)
+                   and torch.equal(c, b) for a, b, c in zip(
+                       leaves(back), leaves(want), leaves(live)))
+        out["reshard"][f"{shape[0]}x{shape[1]}"] = same
+
+    # -- mlp_forward_tp and the MoE paths on (2, 2) -----------------------
+    def run(fn, params, x, fsdp, names, moe_layout="psum"):
+        led = CollectiveLedger()
+        led.set_phase("step")
+        constrain = make_constrain(mesh, fsdp=fsdp, ledger=led)
+        sh = constrain.sharding
+        specs = {k: spec_for_param([names, k], v.shape, mesh, fsdp=fsdp,
+                                   moe_layout=moe_layout)
+                 for k, v in params.items()}
+        local = {k: shard(T(v), specs[k], mesh) for k, v in params.items()}
+        xl = sh.shard_batch({"x": T(x)})["x"]
+        y, aux = fn(local, xl, constrain, sh, specs)
+        y = unshard(y, P(sh.split), mesh)
+        ops = sorted({r.op for r in led.records})
+        return {"y": y.numpy(), "aux": None if aux is None else float(aux),
+                "ops": ops}
+
+    for cell in job["cells"]:
+        kind, fsdp = cell["kind"], cell["fsdp"]
+        if kind == "mlp":
+            out[cell["key"]] = run(
+                lambda p, x, c, sh, sp: (mlp_forward_tp(p, x, "swiglu", sh,
+                                                        sp), None),
+                job["mlp"], job["x"], fsdp, "mlp")
+        else:
+            out[cell["key"]] = run(
+                lambda p, x, c, sh, sp: moe_forward(
+                    p, x, n_experts=job["E"], top_k=2,
+                    capacity_factor=float(job["E"]), mlp_type="swiglu",
+                    impl=kind, constrain=c, specs=sp),
+                job["moe"], job["x"], fsdp, "moe", moe_layout=kind)
+
+    # -- psum_compressed over the data axis of a (4, 1) mesh --------------
+    m41 = make_test_mesh((4, 1), ("data", "model"))
+    g = T(job["g"])
+    spec = P("data", None)
+    local = {"w": shard(g, spec, m41)}
+    mean, err = psum_compressed(local, init_error_state(local),
+                                MeshComm(("data",), mesh=m41))
+    out["compressed"] = {"mean": unshard(mean["w"], spec, m41).numpy(),
+                         "err": unshard(err["w"], spec, m41).numpy()}
+    return out
+
+
+def _walk(tree, path, fn):
+    """``fn(path, leaf)`` over a TrainState-like tree in the checkpoint
+    manager's order (a ``Stacked`` one leaf)."""
+    from repro_torch.utils.tree import Stacked
+    if isinstance(tree, Stacked) or not isinstance(tree, (dict, list, tuple)):
+        fn(path, tree)
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            _walk(tree[k], path + (str(k),), fn)
+    elif hasattr(tree, "_fields"):
+        for f in tree._fields:
+            _walk(getattr(tree, f), path + (f,), fn)
+    else:
+        for i, t in enumerate(tree):
+            _walk(t, path + (str(i),), fn)
+
+
+def lm_dist_all(rank: int, world: int, job: dict) -> dict:
+    """``lm_dist_functions`` then ``lm_dist_steps`` (one spawn)."""
+    return {"functions": lm_dist_functions(rank, world, job),
+            "steps": lm_dist_steps(rank, world, job)}
+
+
+def lm_dist_loaded(rank: int, world: int, job: dict) -> dict:
+    """``lm_dist_steps``, then the JAX modules this rank has loaded."""
+    import sys
+    out = lm_dist_steps(rank, world, job)
+    return {"steps": out, "loaded": sorted(
+        m for m in sys.modules
+        if m.split(".")[0] in ("jax", "jaxlib", "repro"))}
+
+
+def collectives_on_card(rank: int, world: int) -> dict:
+    """Every collective of the sharded path on CUDA tensors of a
+    (world, 1) mesh ("data" = the ranks), each against the arithmetic on
+    one tensor; returns the names of those that disagree."""
+    import torch
+    from repro_torch.api import resolve_device
+    from repro_torch.core.engine import MeshComm
+    from repro_torch.launch import make_test_mesh
+    from repro_torch.sharding.collectives import ShardCtx
+    torch.cuda.set_device(0)
+    dev = resolve_device("cuda")
+    mesh = make_test_mesh((world, 1), ("data", "model"))
+    comm = MeshComm(("data",), mesh=mesh)
+    sh = ShardCtx(mesh, layout="tp")
+    n = world
+    # rank r's operand: small integers, exact in f32
+    full = torch.arange(n * 4 * 6, dtype=torch.float32,
+                        device=dev).reshape(n * 4, 6)
+    mine = full[rank * 4:(rank + 1) * 4]
+    total = sum(full[r * 4:(r + 1) * 4] for r in range(n))
+    failed = []
+
+    def same(name, got, want):
+        if not (got.is_cuda and torch.equal(got, want)):
+            failed.append(name)
+
+    same("psum", comm.psum(mine), total)
+    same("all_gather dim 0", comm.all_gather(mine), full)
+    same("all_gather dim 1", comm.all_gather(mine, dim=1),
+         torch.cat([full[r * 4:(r + 1) * 4] for r in range(n)], dim=1))
+    same("reduce_scatter", comm.reduce_scatter(full, dim=0),
+         sum(full for _ in range(n))[rank * 4:(rank + 1) * 4])
+    blocks = [full[r * 4:(r + 1) * 4] + 100 * rank for r in range(n)]
+    a2a = comm.all_to_all(torch.cat(blocks), split_dim=0, concat_dim=1)
+    same("all_to_all", a2a, torch.cat(
+        [full[rank * 4:(rank + 1) * 4] + 100 * r for r in range(n)], dim=1))
+    # the autograd operators and their backward passes
+    x = mine.clone().requires_grad_(True)
+    y = sh.gather(x, ("data",))                   # batch axis: split
+    y.backward(torch.ones_like(y))
+    same("gather", y.detach(), full)
+    same("gather backward (reduce-scatter)", x.grad,
+         torch.full_like(mine, float(n)))
+    x = mine.clone().requires_grad_(True)
+    sh.copy_to(x, ("data",)).backward(torch.ones_like(x))
+    same("copy_to backward (psum)", x.grad, torch.full_like(mine, float(n)))
+    x = mine.clone().requires_grad_(True)
+    y = sh.reduce_from(x, ("data",))
+    y.backward(torch.ones_like(y))
+    same("reduce_from", y.detach(), total)
+    same("reduce_from backward (identity)", x.grad, torch.ones_like(mine))
+    x = mine.clone().requires_grad_(True)
+    y = sh.pmean(x, ("data",))
+    y.backward(torch.ones_like(y))
+    same("pmean", y.detach(), total / n)
+    same("pmean backward", x.grad, torch.full_like(mine, 1.0 / n))
+    return {"device": mine.device.type, "failed": failed}
