@@ -99,7 +99,7 @@ without printing the result line:
               (d = 3072, bf16, fupdate and decision launched, held
               against their plain versions and timed) scoring held-out
               and OOD text (AUC printed); ``repro_torch.launch.serve`` in
-              a subprocess;
+              a subprocess (its production path, on the (1, 1) mesh);
    lm-train — the LM training step (see ``_lm_train_phase``): the ten
               archs reduced, two steps on the card against the CPU (and
               twice on the card: bitwise or not); llama3.2-3b at full
@@ -118,6 +118,17 @@ without printing the result line:
               [lm-train]'s configuration through the sharded code path:
               step ms, tokens/s, peak memory and host ms in collectives
               beside [lm-train]'s;
+   lm-serve-dist — sharded LM serving (see ``_lm_serve_dist_phase``):
+              four gloo ranks sharing the card on a (2, 2) mesh, the ten
+              archs reduced, B = 1, a short SWA prompt and llama3.2-3b at
+              full width, 2 layers, f32, prefill + 8 greedy decode steps
+              each held against the single-device run on the card
+              (logits, tokens, every rank's cache shard); then one NCCL
+              rank on the (1, 1) mesh with [lm]'s configuration, seed and
+              prompt through the sharded path and the per-rank draw,
+              held step by step against the single-device run in the
+              same process: prefill ms, decode ms a step, peak memory,
+              collectives and host ms in them beside it;
 4. autotune — the autotuner's path, with the counts set to 0 just before
               and read just after: a quick sweep on the card over
               ``QUICK_CELLS`` and the main path's fupdate and gram cells,
@@ -157,8 +168,10 @@ JAX.
 
 runs [dist] alone over N NCCL ranks, one card each (the cross-card path
 a one-card run cannot reach), held against single-device fits of the
-same rows on the first card, then [lm-dist] over N NCCL ranks (llama3.2-3b
-at full width and depth, bf16, on a (2, N/2) mesh); it needs N cards.
+same rows on the first card, then [lm-dist] and [lm-serve-dist] over N
+NCCL ranks (llama3.2-3b at full width and depth, bf16, on a (2, N/2)
+mesh: training steps, then prefill and decode with the cache sharded);
+it needs N cards.
 """
 from __future__ import annotations
 
@@ -284,6 +297,15 @@ LM_ATOL, LM_RTOL = 5e-4, 1e-3
 LM_CLI_ARGS = ["--arch", LM_ARCH, "--batch", str(LM_BATCH), "--prompt-len",
                str(LM_PROMPT), "--new-tokens", str(LM_NEW)]
 LM_CLI_TIMEOUT_S = 300
+# The LM CLI serves a full-width arch on its production mesh (256 ranks);
+# on one card its child stands the (1, 1) mesh in for that mesh.
+LM_CLI_CHILD = """
+import sys
+from repro_torch.launch import mesh, serve
+serve.make_production_mesh = lambda multi_pod=False: mesh.make_test_mesh(
+    (1, 1), ("data", "model"))
+serve.main(sys.argv[1:])
+"""
 # [lm-train]: the LM training step. The ten archs reduced, two steps of
 # LMT_STEP_KW on the card against the CPU: loss, ce and aux within
 # LMT_LOSS_ATOL / LMT_LOSS_RTOL, the grad norm within LMT_NORM_RTOL, the
@@ -314,6 +336,22 @@ LMD_RANKS, LMD_RTOL, LMD_TIMEOUT_S = 4, 1e-5, 600
 LMD_BF16_LOSS_RTOL, LMD_BF16_NORM_RTOL = 1e-3, 1e-2
 LMD_FULL_LAYERS, LMD_FULL_B, LMD_FULL_S = 2, 4, 64
 LMD_CARDS_STEPS = 4
+# [lm-serve-dist]: sharded serving. (a) LMS_RANKS gloo ranks on the card,
+# (2, 2) "tp": the ten archs reduced with fsdp (LMS_B x LMS_PROMPT, then
+# LMS_STEPS greedy decode steps, a cache of LMS_CACHE), llama at B = 1,
+# mixtral after a prompt shorter than its window, LM_ARCH at full width
+# (LMS_FULL_LAYERS layers, f32, LMS_B x LMS_FULL_PROMPT), each held
+# against the single-device run on the card: the logits of every step
+# within LMS_ATOL, the greedy tokens equal, every rank's cache leaf the
+# single-device cache's cut for it within LMS_ATOL. (b) one NCCL rank on
+# (1, 1): [lm]'s configuration, seed and prompt (LM_BATCH x LM_PROMPT,
+# LM_NEW steps, bf16) through the sharded path and the per-rank draw,
+# then the single-device run in the same process fed its tokens: each
+# step's logits within [lm]'s bf16 check (TOLERANCES["bf16"], atol
+# scaled by the largest |logit|).
+LMS_RANKS, LMS_ATOL, LMS_TIMEOUT_S = 4, 5e-4, 600
+LMS_B, LMS_PROMPT, LMS_STEPS, LMS_CACHE = 4, 16, 8, 32
+LMS_FULL_LAYERS, LMS_FULL_PROMPT = 2, 64
 BF16_PEAK_FLOPS = 989e12  # the H100 SXM data sheet's dense bf16 rate
 QP_SIZES = 4              # [paper] runs the QP at the first QP_SIZES sizes
 PROFILE_ITERS = 100       # solver iterations inside the profiler window
@@ -1349,7 +1387,7 @@ def _lm_phase(dev, src: Path, reset_counts, fupdate_classes,
     # -- the CLI, in a process of its own -------------------------------
     t0 = time.perf_counter()
     out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", *LM_CLI_ARGS],
+        [sys.executable, "-c", LM_CLI_CHILD, *LM_CLI_ARGS],
         capture_output=True, text=True, timeout=LM_CLI_TIMEOUT_S,
         env=dict(os.environ, PYTHONPATH=str(src)))
     check(out.returncode == 0, f"[lm] the CLI exited with {out.returncode}:"
@@ -1364,7 +1402,10 @@ def _lm_phase(dev, src: Path, reset_counts, fupdate_classes,
     say(f"[lm] cli: {' '.join(LM_CLI_ARGS)}, process seconds="
         f"{time.perf_counter() - t0:.2f}")
     say(f"[lm] phase seconds={time.perf_counter() - phase_t0:.2f}")
-    return {"launches": launches, "rows": rows}
+    pre_ms, dec_ms = runs[1][2], runs[1][3]
+    return {"launches": launches, "rows": rows,
+            "prompt": prompt.cpu().numpy(), "prefill_ms": pre_ms,
+            "decode_ms": dec_ms, "peak_gib": peak_gb}
 
 
 def _params_close(got, want, lr: float, what: str) -> float:
@@ -1730,12 +1771,13 @@ def _lm_dist_phase(dev, lm_train: dict, reset_counts, launch_counts) -> dict:
     """[lm-dist]: the sharded LM training step (``repro_torch.sharding``,
     ``make_train_step(cfg, constrain=make_constrain(...))``) in spawned
     rank processes. Each rank sets the kernels' counts to 0 at its start
-    and returns them at its end; the path's launches are their sum over
-    the ranks of (a) and (b), and must be 0 (no Pallas kernel lies on the
-    path). The parent's own counts, set to 0 before (a) and read at the
-    end, cover the single-device oracle alone and are kept apart. The
-    rank functions are ``tests/torch_dist_ranks.py``'s (torch and the
-    port only), as the CPU tests run them.
+    and returns them read before any single-device run in it; the
+    path's launches are their sum over the ranks of (a) and (b), and must
+    be 0 (no Pallas kernel lies on the path). The single-device runs'
+    launches are counted apart: (b)'s in its rank, the parent's (its
+    counts set to 0 before (a) and read at the end) for the oracle of
+    (a). The rank functions are ``tests/torch_dist_ranks.py``'s (torch
+    and the port only), as the CPU tests run them.
 
     (a) four gloo ranks sharing the card, a (2, 2) ("data", "model")
     mesh (``_lm_dist_cases``), each case held against the port's
@@ -1831,6 +1873,7 @@ def _lm_dist_phase(dev, lm_train: dict, reset_counts, launch_counts) -> dict:
                                      cases=[case], tracer=_traced),),
                           timeout_s=LMD_TIMEOUT_S, dir=tmp)
     by_call["b"] = _summed_launches(got)
+    plain_b = _summed_launches(got, "oracle_launches")
     res = got[0]["full"]
     want = lm_train["metrics"]
     check(len(res["metrics"]) == len(want) == LMT_STEPS,
@@ -1886,21 +1929,300 @@ def _lm_dist_phase(dev, lm_train: dict, reset_counts, launch_counts) -> dict:
     oracle = launch_counts()
     check(not any(launches.values()), f"[lm-dist] the sharded training "
           f"path launched slab kernels in its ranks: {by_call}")
-    check(not any(oracle.values()), f"[lm-dist] the single-device oracle "
-          f"launched slab kernels: {oracle}")
+    check(not any(oracle.values()) and not any(plain_b.values()),
+          f"[lm-dist] the single-device runs launched slab kernels: the "
+          f"parent's oracle {oracle}, (b)'s in its rank {plain_b}")
     say(f"[lm-dist] launches on the sharded path, the ranks' counts summed: "
         f"{launches} ((a) {by_call['a']}, (b) {by_call['b']}; no Pallas "
-        f"kernel lies on the sharded training path); the parent's "
-        f"single-device oracle, apart: {oracle}; phase seconds="
-        f"{time.perf_counter() - phase_t0:.2f}")
+        f"kernel lies on the sharded training path); the single-device "
+        f"runs, apart: the parent's oracle {oracle}, (b)'s in its rank "
+        f"{plain_b}; phase seconds={time.perf_counter() - phase_t0:.2f}")
     return {"launches": launches, "step_ms": med, "coll_ms": coll_ms}
 
 
-def _summed_launches(got) -> dict:
-    """The slab kernels' launches that spawned ``lm_dist_steps`` ranks
-    report, summed over the ranks."""
-    return {k: sum(r["launches"][k] for r in got)
-            for k in got[0]["launches"]}
+def _lm_serve_dist_cases():
+    """[lm-serve-dist] (a)'s cases on (2, 2) "tp": the ten archs reduced
+    with fsdp, llama at B = 1 (positions over data + model), mixtral
+    after a prompt of 5 (its ring longer than the prompt: C.12; the ten's
+    mixtral fills its ring), LM_ARCH at full width, LMS_FULL_LAYERS
+    layers, f32 (fsdp off below 4e9 parameters, as the launcher has it)."""
+    from repro_torch.configs import ARCHS
+    mesh = [(2, 2), ("data", "model")]
+    base = dict(mesh=mesh, fsdp=True, batch=LMS_B, prompt=LMS_PROMPT,
+                steps=LMS_STEPS, cache_len=LMS_CACHE)
+    cases = [dict(base, key=f"{name} reduced", arch=name)
+             for name in sorted(ARCHS)]
+    cases.append(dict(base, key=f"{LM_ARCH} reduced B=1", arch=LM_ARCH,
+                      batch=1))
+    cases.append(dict(base, key="mixtral-8x22b reduced prompt=5",
+                      arch="mixtral-8x22b", prompt=5))
+    cases.append(dict(base, key=f"{LM_ARCH} full width", arch=LM_ARCH,
+                      reduced=False, fsdp=False, prompt=LMS_FULL_PROMPT,
+                      cache_len=LMS_FULL_PROMPT + 2 * LMS_STEPS,
+                      overrides=dict(n_layers=LMS_FULL_LAYERS,
+                                     param_dtype="float32")))
+    return cases
+
+
+def _lm_serve_dist_phase(dev, lm: dict, reset_counts, launch_counts) -> dict:
+    """[lm-serve-dist]: sharded LM serving (``train.serve_step`` with
+    ``constrain=make_constrain(...)``, ``init_params_sharded``,
+    ``sharding.state.init_cache_sharded``) in spawned rank processes,
+    with ``tests/torch_dist_ranks.py``'s rank functions. Each rank sets
+    the kernels' counts to 0 at its start and returns them read before
+    any single-device run in it; the path's launches are their sum over
+    the ranks of (a) and (b) and must be 0 (no Pallas kernel lies on the
+    path). The single-device runs' launches are counted apart: (b)'s in
+    its rank, the parent's (its counts set to 0 before (a) and read at
+    the end) for the oracle of (a).
+
+    (a) four gloo ranks sharing the card, (2, 2) "tp"
+    (``_lm_serve_dist_cases``), each case held against the single-device
+    run on the card (``lm_serve_oracle``, same parameters and prompt;
+    an MoE arch's capacity factor E on both sides): every step's logits
+    within LMS_ATOL, the greedy tokens equal, the ranks alike, every
+    rank's cache leaf the single-device leaf cut for that rank within
+    LMS_ATOL. (b) one NCCL rank on the (1, 1) mesh: LM_ARCH at full width
+    and depth in bf16, [lm]'s seed and prompt (``lm["prompt"]``),
+    prefill then LM_NEW greedy steps through the sharded path, then the
+    single-device run in the same process fed the same tokens: prefill
+    and each step's logits within the bf16 TOLERANCES (``_held_bf16``),
+    the margin reported; prefill ms, tokens/s, decode ms a step (median of steps
+    2..), peak memory, the draw's seconds and peak, collectives a step
+    and host ms in them, beside the single-device run's and [lm]'s."""
+    import statistics
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.launch import spawn_ranks
+    from repro_torch.launch.mesh import SolverMesh
+    from repro_torch.sharding import shard
+    from repro_torch.sharding.state import cache_specs
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_dist_ranks as ranks_mod
+    phase_t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reset_counts()
+
+    def worst_diff(got, want, atol, rtol, what):
+        """The largest |got - want| and its share of the allowed band;
+        raises past it."""
+        want = np.asarray(want, np.float32)
+        diff = np.abs(np.asarray(got, np.float32) - want)
+        band = atol + rtol * np.abs(want)
+        bad = int((diff > band).sum())
+        check(np.isfinite(got).all() and bad == 0,
+              f"[lm-serve-dist] {what}: {bad} values outside atol "
+              f"{atol:.3g} rtol {rtol:.3g} (max abs diff "
+              f"{float(diff.max()):.3e})")
+        return float(diff.max()), float((diff / band).max())
+
+    # -- (a) four gloo ranks sharing the card ------------------------------
+    cases = _lm_serve_dist_cases()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        got = spawn_ranks(ranks_mod.lm_serve_steps, LMS_RANKS,
+                          backend="gloo",
+                          args=(dict(device="cuda", seed=SEED,
+                                     cases=cases),),
+                          timeout_s=LMS_TIMEOUT_S, dir=tmp)
+    ranks_s = time.perf_counter() - t0
+    by_call = {"a": _summed_launches(got)}
+    for case in cases:
+        res = got[0][case["key"]]
+        check(all(np.array_equal(r[case["key"]]["tokens"], res["tokens"])
+                  and all(np.array_equal(a, b) for a, b in zip(
+                      r[case["key"]]["logits"], res["logits"]))
+                  for r in got[1:]),
+              f"[lm-serve-dist] {case['key']}: the ranks disagree")
+        want = ranks_mod.lm_serve_oracle(case, dev, SEED)
+        err = max(worst_diff(g, w, LMS_ATOL, 0.0, f"{case['key']} step {i}")
+                  [0] for i, (g, w) in enumerate(zip(res["logits"],
+                                                     want["logits"])))
+        check(np.array_equal(res["tokens"], want["tokens"]),
+              f"[lm-serve-dist] {case['key']}: greedy tokens differ from "
+              f"the single-device run")
+        cfg = ranks_mod.lm_dist_cfg(case)
+        shape, axes = case["mesh"]
+        n = int(np.prod(shape))
+        specs = [sp for st in cache_specs(
+            cfg, case["batch"], case["cache_len"],
+            SolverMesh(tuple(axes), tuple(shape), tuple(range(n)), 0))
+            for sp in st]
+        cerr = 0.0
+        for rank, r in enumerate(got):
+            mesh = SolverMesh(tuple(axes), tuple(shape), tuple(range(n)),
+                              rank)
+            for j, (leaf, full, sp) in enumerate(zip(
+                    r[case["key"]]["cache"], want["cache"], specs)):
+                cut = shard(torch.as_tensor(full), sp, mesh).numpy()
+                check(leaf.shape == cut.shape, f"[lm-serve-dist] "
+                      f"{case['key']} rank {rank} cache leaf {j}: shape "
+                      f"{leaf.shape} against {cut.shape}")
+                cerr = max(cerr, worst_diff(
+                    leaf, cut, LMS_ATOL, 0.0,
+                    f"{case['key']} rank {rank} cache leaf {j}")[0])
+        say(f"[lm-serve-dist] (a) {case['key']} on 4 gloo ranks, (2, 2) tp"
+            f"{' fsdp' * case['fsdp']}, B={case['batch']} prompt "
+            f"{case['prompt']}, {case['steps']} decode steps: logits max "
+            f"abs diff {err:.3e}, cache max abs diff {cerr:.3e} (atol "
+            f"{LMS_ATOL}), tokens equal; draw s {res['draw_s']:.2f}, "
+            f"prefill ms {res['prefill_ms']:.1f}, decode ms "
+            f"{[round(x, 1) for x in res['ms']]}, collectives a decode "
+            f"step {res['calls'][-1]} ({res['bytes'][-1]} bytes, host ms "
+            f"{res['coll_ms'][-1]:.1f}); ops {res['ops']}")
+        del want
+    torch.cuda.empty_cache()
+    say(f"[lm-serve-dist] (a) {len(cases)} cases held; ranks seconds="
+        f"{ranks_s:.2f}")
+
+    # -- (b) one NCCL rank, (1, 1), [lm]'s configuration ------------------
+    case = dict(key="full", arch=LM_ARCH, reduced=False,
+                mesh=[(1, 1), ("data", "model")], fsdp=False,
+                batch=LM_BATCH, prompt=LM_PROMPT, steps=LM_NEW,
+                cache_len=LM_PROMPT + LM_NEW, plain=True, no_cache=True,
+                runs=2, inputs={"tokens": lm["prompt"]})
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        got = spawn_ranks(ranks_mod.lm_serve_steps, 1, backend="nccl",
+                          args=(dict(device="cuda", seed=SEED,
+                                     cases=[case]),),
+                          timeout_s=LMS_TIMEOUT_S, dir=tmp)
+    b_s = time.perf_counter() - t0
+    by_call["b"] = _summed_launches(got)
+    plain_b = _summed_launches(got, "oracle_launches")
+    res = got[0]["full"]
+    plain = res["plain"]
+    check(res["repeat_equal"], "[lm-serve-dist] (b): the two sharded runs "
+          "gave different tokens")
+    errs, shares, agree = _held_bf16(res, plain, case, "(b)")
+    med = statistics.median(res["ms"][2:])
+    plain_med = statistics.median(plain["ms"][2:])
+    coll_ms = statistics.median(res["coll_ms"][2:])
+    calls = statistics.median(res["calls"][2:])
+    say(f"[lm-serve-dist] (b) {LM_ARCH} full width and depth, bf16, 1 NCCL "
+        f"rank on (1, 1) tp, [lm]'s seed and prompt (B={LM_BATCH} x "
+        f"{LM_PROMPT}), {LM_NEW} greedy decode steps through the sharded "
+        f"path; the single-device run after it in the same process, fed "
+        f"its tokens: logits max abs diff prefill {errs[0]:.3e}, decode "
+        f"{max(errs[1:]):.3e} (largest share of the bf16 band "
+        f"{max(shares):.3f}: margin {1 - max(shares):.1%}); argmax equal "
+        f"in {agree}/{res['tokens'].size}; the two sharded runs' tokens "
+        f"equal; first sequence {res['tokens'][0].tolist()}")
+    say(f"[lm-serve-dist] (b) sharded, the second of two runs (the first: "
+        f"prefill ms {res['first']['prefill_ms']:.2f}, decode ms/step "
+        f"{statistics.median(res['first']['ms'][2:]):.2f}): prefill ms="
+        f"{res['prefill_ms']:.2f} "
+        f"({LM_BATCH * LM_PROMPT / res['prefill_ms'] * 1e3:.0f} tokens/s), "
+        f"decode ms/step (median of steps 2..)={med:.2f} (steps "
+        f"{[round(x, 2) for x in res['ms']]}), peak allocated "
+        f"{res['peak_gib']:.2f} GiB; the per-rank draw seconds="
+        f"{res['draw_s']:.2f}, peak {res['draw_gib']:.2f} GiB; collectives "
+        f"a decode step {calls:.0f} ({res['ops']} in all; "
+        f"{res['bytes'][-1] / 2**30:.3f} GiB a step), host ms in them a "
+        f"step {coll_ms:.2f} (each step "
+        f"{[round(x, 2) for x in res['coll_ms']]})")
+    plain_tps = LM_BATCH * LM_PROMPT / plain["prefill_ms"] * 1e3
+    say(f"[lm-serve-dist] (b) single-device, same process, the second of "
+        f"two runs: prefill ms={plain['prefill_ms']:.2f} ({plain_tps:.0f} "
+        f"tokens/s), decode ms/step={plain_med:.2f} (steps "
+        f"{[round(x, 2) for x in plain['ms']]}), peak allocated "
+        f"{plain['peak_gib']:.2f} GiB; [lm]: prefill ms="
+        f"{lm['prefill_ms']:.2f}, decode ms/step={lm['decode_ms']:.2f}, "
+        f"peak {lm['peak_gib']:.2f} GiB; process seconds={b_s:.2f}")
+
+    launches = {k: by_call["a"][k] + by_call["b"][k] for k in by_call["a"]}
+    oracle = launch_counts()
+    check(not any(launches.values()), f"[lm-serve-dist] the sharded serving "
+          f"path launched slab kernels in its ranks: {by_call}")
+    check(not any(oracle.values()) and not any(plain_b.values()),
+          f"[lm-serve-dist] the single-device runs launched slab kernels: "
+          f"the parent's oracle {oracle}, (b)'s in its rank {plain_b}")
+    say(f"[lm-serve-dist] launches on the sharded path, the ranks' counts "
+        f"summed: {launches} ((a) {by_call['a']}, (b) {by_call['b']}; no "
+        f"Pallas kernel lies on the sharded serving path); the "
+        f"single-device runs, apart: the parent's oracle {oracle}, (b)'s "
+        f"in its rank {plain_b}; phase seconds="
+        f"{time.perf_counter() - phase_t0:.2f}")
+    return {"launches": launches, "decode_ms": med, "coll_ms": coll_ms}
+
+
+def _held_bf16(res: dict, plain: dict, case: dict, what: str):
+    """A bf16 sharded serving run's logits (``res``) held step by step
+    against the single-device run fed its tokens (``plain``), over the
+    real vocab, within the bf16 TOLERANCES with atol scaled by the step's
+    largest |logit| ([lm]'s decode check; ROADMAP C.9). Says every step's
+    numbers, then raises if a logit lies past the band; returns (each
+    step's max abs diff, each step's largest share of the band, the
+    places where the argmaxes agree)."""
+    import numpy as np
+    from repro_torch.kernels.precision import TOLERANCES
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_dist_ranks as ranks_mod
+    tol = TOLERANCES["bf16"]
+    vocab = ranks_mod.lm_dist_cfg(case).vocab_size
+    check(len(res["logits"]) == len(plain["logits"]),
+          f"[lm-serve-dist] {what}: {len(res['logits'])} steps against "
+          f"{len(plain['logits'])}")
+    errs, shares, bad = [], [], []
+    for g, w in zip(res["logits"], plain["logits"]):
+        w = np.asarray(w[:, :vocab], np.float32)
+        g = np.asarray(g[:, :vocab], np.float32)
+        band = tol["atol"] * max(1.0, float(np.abs(w).max())) \
+            + tol["rtol"] * np.abs(w)
+        diff = np.abs(g - w)
+        bad.append(int((diff > band).sum()) + int((~np.isfinite(g)).sum()))
+        errs.append(float(diff.max()))
+        shares.append(float((diff / band).max()))
+    agree = int((res["tokens"] == plain["tokens"]).sum())
+    say(f"[lm-serve-dist] {what} against the single-device run, each step "
+        f"(prefill first): largest share of the bf16 band "
+        f"{[round(x, 3) for x in shares]}; logits outside it {bad}; max "
+        f"abs diff {[float(f'{x:.3e}') for x in errs]}; argmax equal in "
+        f"{agree}/{res['tokens'].size}")
+    check(not any(bad), f"[lm-serve-dist] {what}: {sum(bad)} logits outside "
+          f"the bf16 band (steps {[i for i, n in enumerate(bad) if n]}; "
+          f"largest share {max(shares):.3f})")
+    return errs, shares, agree
+
+
+def _say_against_f32(res: dict, plain: dict, truth: dict, case: dict,
+                     what: str) -> None:
+    """Says how far a bf16 sharded serving run (``res``) and the
+    single-device bf16 run (``plain``) each lie from the f32 run of the
+    same parameters (``truth``; all three fed the sharded run's tokens):
+    each step's largest share of the bf16 band around the f32 logits and
+    the max abs diff, over the real vocab. A measurement, not a check."""
+    import numpy as np
+    from repro_torch.kernels.precision import TOLERANCES
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_dist_ranks as ranks_mod
+    tol = TOLERANCES["bf16"]
+    vocab = ranks_mod.lm_dist_cfg(case).vocab_size
+    rows = {"sharded": [], "single-device": []}
+    for g, p, t in zip(res["logits"], plain["logits"], truth["logits"]):
+        t = np.asarray(t[:, :vocab], np.float32)
+        band = tol["atol"] * max(1.0, float(np.abs(t).max())) \
+            + tol["rtol"] * np.abs(t)
+        for name, x in (("sharded", g), ("single-device", p)):
+            diff = np.abs(np.asarray(x[:, :vocab], np.float32) - t)
+            rows[name].append((float((diff / band).max()),
+                               float(diff.max())))
+    say(f"[lm-serve-dist] {what} against the f32 run of the same "
+        f"parameters, each step (prefill first): " + "; ".join(
+            f"{name} largest share of the bf16 band "
+            f"{[round(a, 3) for a, _ in v]} (max {max(a for a, _ in v):.3f}"
+            f", max abs diff {max(b for _, b in v):.3e})"
+            for name, v in rows.items()))
+
+
+def _summed_launches(got, key: str = "launches") -> dict:
+    """The slab kernels' launches that spawned ``lm_dist_steps`` /
+    ``lm_serve_steps`` ranks report under ``key`` ("launches": the
+    sharded path's; "oracle_launches": the single-device runs' in the
+    ranks), summed over the ranks."""
+    return {k: sum(r[key][k] for r in got) for k in got[0][key]}
 
 
 def _served(sm) -> dict:
@@ -1982,6 +2304,7 @@ def cards_main(cards: int) -> int:
         dev=dev, spec=spec, sm=sm, X=X_np, X_shr=X_shr, X_new=X_new,
         main=fits, shrink=shrink, warm=warm))
     _lm_dist_cards(cards)
+    _lm_serve_dist_cards(cards)
     say(json.dumps({"dist_launches": {"fupdate": fup_l, "decision": dec_l}}))
     _say_cards_and_result()
     return 0
@@ -2031,6 +2354,68 @@ def _lm_dist_cards(cards: int) -> None:
         f"of steps 1..) {coll_ms:.2f} (each step "
         f"{[round(x, 2) for x in res['collective_ms']]}); seconds="
         f"{time.perf_counter() - t0:.2f}")
+
+
+def _lm_serve_dist_cards(cards: int) -> None:
+    """[lm-serve-dist] (c): (b)'s configuration (LM_ARCH at full width and
+    depth, bf16, [lm]'s batch and lengths) on a (2, cards / 2) mesh of
+    NCCL ranks, one card each, "tp", the cache sharded (positions over
+    "model", rows over "data"): the ranks agree, and the first rank's
+    single-device run on its card after it (same parameters and prompt,
+    fed the sharded run's tokens) holds its prefill and each decode
+    step's logits within (b)'s bf16 band (``_held_bf16``), the margin
+    reported; prefill ms, decode ms a step, peak memory a rank and host
+    ms in collectives."""
+    import statistics
+    import tempfile
+    import numpy as np
+    from repro_torch.launch import spawn_ranks
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_dist_ranks as ranks_mod
+    check(cards % 2 == 0, f"--cards {cards}: [lm-serve-dist] needs an even "
+          f"count")
+    case = dict(key="full", arch=LM_ARCH, reduced=False,
+                mesh=[(2, cards // 2), ("data", "model")], fsdp=False,
+                batch=LM_BATCH, prompt=LM_PROMPT, steps=LM_NEW,
+                cache_len=LM_PROMPT + LM_NEW, no_cache=True, runs=2,
+                plain=True, truth=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        got = spawn_ranks(ranks_mod.lm_serve_steps, cards, backend="nccl",
+                          args=(dict(device="cuda", seed=SEED, cases=[case],
+                                     card_per_rank=True),),
+                          timeout_s=LMS_TIMEOUT_S, dir=tmp)
+    res = got[0]["full"]
+    check(all(np.array_equal(r["full"]["tokens"], res["tokens"])
+              and r["full"]["repeat_equal"] for r in got)
+          and all(np.isfinite(x).all() for x in res["logits"]),
+          "[lm-serve-dist] (c): the ranks disagree or the logits are not "
+          "finite")
+    launches = _summed_launches(got)
+    plain_c = _summed_launches(got, "oracle_launches")
+    check(not any(launches.values()) and not any(plain_c.values()),
+          f"[lm-serve-dist] (c): slab kernels launched: the ranks' sharded "
+          f"path {launches}, the single-device run {plain_c}")
+    med = statistics.median(res["ms"][2:])
+    say(f"[lm-serve-dist] (c) {LM_ARCH} full width and depth, bf16, "
+        f"{cards} NCCL ranks on (2, {cards // 2}) tp, B={LM_BATCH} x "
+        f"{LM_PROMPT}, {LM_NEW} steps, the second of two runs (the same "
+        f"tokens): prefill ms={res['prefill_ms']:.2f}, "
+        f"decode ms/step (median of steps 2..)={med:.2f} (steps "
+        f"{[round(x, 2) for x in res['ms']]}), peak allocated a rank "
+        f"{max(r['full']['peak_gib'] for r in got):.2f} GiB, collectives a "
+        f"step {res['calls'][-1]} ({res['bytes'][-1] / 2**20:.2f} MiB), "
+        f"host ms in them a step "
+        f"{statistics.median(res['coll_ms'][2:]):.2f}; first sequence "
+        f"{res['tokens'][0].tolist()}; seconds="
+        f"{time.perf_counter() - t0:.2f}")
+    _say_against_f32(res, res["plain"], res["truth"], case, "(c)")
+    errs, shares, agree = _held_bf16(res, res["plain"], case, "(c)")
+    say(f"[lm-serve-dist] (c) held against the single-device run on card "
+        f"0, fed the sharded run's tokens: logits max abs diff prefill "
+        f"{errs[0]:.3e}, decode {max(errs[1:]):.3e} (largest share of the "
+        f"bf16 band {max(shares):.3f}: margin {1 - max(shares):.1%}); "
+        f"argmax equal in {agree}/{res['tokens'].size}")
 
 
 def main() -> int:
@@ -3082,6 +3467,12 @@ def main() -> int:
         "fupdate": fup.FUPDATE.launches, "decision": dec.DECISION.launches,
         "gram": gram_ops.GRAM.launches})
     path_launches["lm-dist"] = lm_dist["launches"]
+
+    # -- 3n. [lm-serve-dist]: sharded LM serving ----------------------------
+    lm_serve_dist = _lm_serve_dist_phase(dev, lm, reset_counts, lambda: {
+        "fupdate": fup.FUPDATE.launches, "decision": dec.DECISION.launches,
+        "gram": gram_ops.GRAM.launches})
+    path_launches["lm-serve-dist"] = lm_serve_dist["launches"]
 
     # -- 4. the autotune path ----------------------------------------------
     for kern_ in (fup.FUPDATE, dec.DECISION, gram_ops.GRAM):

@@ -52,12 +52,17 @@ def save_sharded(directory: str, step: int, tree: Any, shardings: Any, *,
                  extra=None) -> str:
     """Save a sharded tree as full arrays: every leaf gathered by its
     ``NamedSharding`` (collectives: every rank of the mesh calls this),
-    then the mesh's first rank writes and the others wait for it.
+    one leaf at a time, into the mesh's first rank's host memory (the
+    others drop theirs); that rank writes and the others wait for it.
     Returns the checkpoint's path."""
-    full = map_tree(lambda t, s: unshard(t, s.spec, s.mesh), tree,
-                    shardings)
     mesh = leaves(shardings)[0].mesh
-    if mesh.rank == mesh.ranks[0]:
+    writer = mesh.rank == mesh.ranks[0]
+
+    def gather(t, s):
+        full = unshard(t, s.spec, s.mesh)
+        return full.cpu() if writer else None
+    full = map_tree(gather, tree, shardings)
+    if writer:
         manager.save(directory, step, full, extra=extra)
     if dist.is_available() and dist.is_initialized():
         dist.barrier()

@@ -18,6 +18,11 @@ others do not make) fails at the group's timeout instead of hanging.
 Several processes can share one card: gloo takes CUDA tensors (NCCL
 refuses two ranks on one card). With NCCL, ``fn`` picks its card
 (``torch.cuda.set_device``) before its first collective.
+
+Ranks started by an outside launcher (``torchrun`` or the like, which
+sets ``WORLD_SIZE`` / ``RANK`` / ``LOCAL_RANK`` / ``MASTER_ADDR`` /
+``MASTER_PORT``) join their group with ``join_process_group``, as the LM
+launchers do.
 """
 from __future__ import annotations
 
@@ -29,10 +34,24 @@ import time
 import traceback
 from typing import Callable, List, Optional, Sequence
 
+import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-__all__ = ["spawn_ranks"]
+__all__ = ["join_process_group", "spawn_ranks"]
+
+
+def join_process_group(dev: torch.device) -> torch.device:
+    """Joins the process group the environment describes (``WORLD_SIZE``
+    > 1 and none joined yet): NCCL with card ``LOCAL_RANK`` on CUDA, gloo
+    on the CPU. Returns the rank's device."""
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 \
+            and not dist.is_initialized():
+        if dev.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+            dev = torch.device("cuda", torch.cuda.current_device())
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    return dev
 
 
 def _rank_main(fn, rank: int, world_size: int, backend: str, init: str,

@@ -1,25 +1,35 @@
-"""Shapes without storage and the train state's shardings (the train-state
-part of the JAX package's ``repro.launch.specs``).
+"""Shapes without storage and their shardings for every (arch x shape x
+step) — the JAX package's ``repro.launch.specs``.
 
 ``params_sds`` gives an arch's ``param_tree`` as meta tensors (the JAX
-package's ``eval_shape``); the ``*_shardings`` functions give the
-``NamedSharding`` (mesh + ``PartitionSpec``) of every leaf, derived from
-the sharding rules; ``batch_sds_and_shardings`` the batch's. The
-dry-run's ``input_specs`` / ``decode_specs`` belong to the serving slice
-and the XLA-only tools.
+package's ``eval_shape``), ``cache_sds`` its cache in the JAX layout
+(``models.transformer.cache_tree``), ``opt_state_sds`` /
+``train_state_sds`` the optimizer's and the train step's state; the
+``*_shardings`` functions give the ``NamedSharding`` (mesh +
+``PartitionSpec``) of every leaf, derived from the sharding rules;
+``batch_sds_and_shardings`` the batch's, ``decode_specs`` a decode
+step's and ``input_specs`` every input of a ``configs.base.SHAPES``
+cell. A stacked leaf is a ``Stacked`` of per-layer meta tensors, its
+sharding a ``Stacked`` of per-layer ones (the stacked spec with its
+leading entry dropped), as in ``make_param_specs``.
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import SHAPES, ArchConfig
 from repro_torch.sharding.specs import (NamedSharding, P, batch_axes,
-                                        batch_prefix, make_param_specs,
-                                        map_specs, map_with_names,
-                                        spec_for_param)
+                                        batch_prefix, make_cache_shardings,
+                                        make_param_specs, map_specs,
+                                        map_with_names, spec_for_param)
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 @functools.lru_cache(maxsize=32)
@@ -28,6 +38,30 @@ def params_sds(cfg: ArchConfig) -> dict:
     tree per config, shared: treat it as read-only)."""
     from repro_torch.models.transformer import init_params, param_tree
     return param_tree(init_params(cfg, device="meta"))
+
+
+def cache_sds(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
+    """The cache of ``batch`` x ``seq_len`` in the JAX layout, as meta
+    tensors in ``cfg.dtype`` ("pos" an int32 scalar)."""
+    from repro_torch.models.transformer import cache_tree, init_cache
+    return cache_tree(init_cache(cfg, batch, seq_len, dtype=cfg.dtype,
+                                 device="meta"), cfg)
+
+
+def opt_state_sds(cfg: ArchConfig):
+    """The optimizer state ``cfg.optimizer`` starts from, as meta tensors
+    (AdamW's moments per layer, Adafactor's whole stacked leaves)."""
+    if cfg.optimizer == "adafactor":
+        from repro_torch.optim import adafactor
+        return adafactor.init(params_sds(cfg))
+    from repro_torch.optim import adamw
+    return adamw.init(params_sds(cfg))
+
+
+def train_state_sds(cfg: ArchConfig):
+    from repro_torch.train.train_step import TrainState
+    return TrainState(params=params_sds(cfg), opt_state=opt_state_sds(cfg),
+                      step=_meta((), torch.int32))
 
 
 def param_shardings(cfg: ArchConfig, mesh, *, fsdp: bool = True,
@@ -123,23 +157,61 @@ def batch_sds_and_shardings(cfg: ArchConfig, mesh, batch: int,
     bspec = NamedSharding(mesh, P(baxes))
     b3 = NamedSharding(mesh, P(baxes, None, None))
 
-    def meta(shape, dtype):
-        return torch.empty(shape, dtype=dtype, device="meta")
     sds: Dict[str, Any] = {}
     shd: Dict[str, Any] = {}
     if cfg.frontend == "audio":
-        sds["embeds"] = meta((batch, seq_len, cfg.d_model), cfg.dtype)
-        sds["labels"] = meta((batch, seq_len), torch.int32)
+        sds["embeds"] = _meta((batch, seq_len, cfg.d_model), cfg.dtype)
+        sds["labels"] = _meta((batch, seq_len), torch.int32)
         shd["embeds"], shd["labels"] = b3, bspec
     elif cfg.frontend == "vision":
         nv = cfg.n_frontend_tokens
-        sds["tokens"] = meta((batch, seq_len - nv), torch.int32)
-        sds["labels"] = meta((batch, seq_len - nv), torch.int32)
-        sds["vision_embeds"] = meta((batch, nv, cfg.d_model), cfg.dtype)
+        sds["tokens"] = _meta((batch, seq_len - nv), torch.int32)
+        sds["labels"] = _meta((batch, seq_len - nv), torch.int32)
+        sds["vision_embeds"] = _meta((batch, nv, cfg.d_model), cfg.dtype)
         shd["tokens"], shd["labels"], shd["vision_embeds"] = bspec, bspec, b3
     else:
-        sds["tokens"] = meta((batch, seq_len), torch.int32)
-        sds["labels"] = meta((batch, seq_len), torch.int32)
+        sds["tokens"] = _meta((batch, seq_len), torch.int32)
+        sds["labels"] = _meta((batch, seq_len), torch.int32)
         shd["tokens"], shd["labels"] = bspec, bspec
     return sds, shd
 
+
+def decode_specs(cfg: ArchConfig, mesh, batch: int, seq_len: int):
+    """(cache, its shardings, token, its sharding) of one decode step: the
+    cache rules' layout, the (batch, 1) token over the batch axes when
+    ``batch`` divides them, else replicated."""
+    baxes = batch_axes(mesh)
+    dp = math.prod(mesh.shape[ax] for ax in baxes)
+    cache = cache_sds(cfg, batch, seq_len)
+    cache_shd = make_cache_shardings(cache, mesh)
+    tok = _meta((batch, 1), torch.int32)
+    tok_shd = NamedSharding(mesh, P(baxes if batch % dp == 0 else None,
+                                    None))
+    return cache, cache_shd, tok, tok_shd
+
+
+def input_specs(cfg: ArchConfig, shape_name: str, mesh, *,
+                fsdp: bool = True, layout: str = "tp"):
+    """Meta tensors for every input of a ``SHAPES`` cell's step and their
+    shardings, no storage: (kind, args, shardings), ``kind`` "train"
+    (state, batch), "prefill" (params, cache, batch) or "decode" (params,
+    cache, token)."""
+    sh = SHAPES[shape_name]
+    if sh["step"] == "train":
+        state = train_state_sds(cfg)
+        state_shd = train_state_shardings(cfg, mesh, fsdp=fsdp,
+                                          layout=layout)
+        b_sds, b_shd = batch_sds_and_shardings(cfg, mesh, sh["batch"],
+                                               sh["seq_len"], layout=layout)
+        return "train", (state, b_sds), (state_shd, b_shd)
+    p_sds = params_sds(cfg)
+    p_shd = param_shardings(cfg, mesh, fsdp=fsdp, layout=layout)
+    c_sds, c_shd, tok_sds, tok_shd = decode_specs(cfg, mesh, sh["batch"],
+                                                  sh["seq_len"])
+    if sh["step"] == "prefill":
+        b_sds, b_shd = batch_sds_and_shardings(cfg, mesh, sh["batch"],
+                                               sh["seq_len"], layout=layout)
+        b_sds.pop("labels")
+        b_shd.pop("labels")
+        return "prefill", (p_sds, c_sds, b_sds), (p_shd, c_shd, b_shd)
+    return "decode", (p_sds, c_sds, tok_sds), (p_shd, c_shd, tok_shd)

@@ -101,8 +101,34 @@ def _gen(gen):
     return None if isinstance(gen, MetaGenerator) else gen
 
 
+class Draw:
+    """A draw recorded, not made: ``make(generator)`` makes it."""
+
+    def __init__(self, make, shape):
+        self.make, self.shape = make, tuple(shape)
+
+
+class DeferredDraws:
+    """Stands in for a generator: each draw of the initialisers becomes a
+    ``Draw`` (recorded in ``draws``, in call order) in place of its
+    tensor. Making the draws in that order with the generator gives the
+    initialisers' values bitwise, one leaf at a time
+    (``models.transformer.init_params_sharded``)."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.draws: list = []
+
+    def defer(self, make, shape) -> Draw:
+        d = Draw(make, shape)
+        self.draws.append(d)
+        return d
+
+
 def normal(gen: torch.Generator, shape, scale: float, dtype) -> Tensor:
     """N(0, scale^2) drawn in f32 on the generator's device, then cast."""
+    if isinstance(gen, DeferredDraws):
+        return gen.defer(lambda g: normal(g, shape, scale, dtype), shape)
     return (torch.randn(shape, generator=_gen(gen), dtype=torch.float32,
                         device=gen.device) * scale).to(dtype)
 

@@ -25,7 +25,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import _gen, dense_init, normal
+from repro_torch.models.layers import (DeferredDraws, _gen, dense_init,
+                                       normal)
 
 Tensor = torch.Tensor
 LORA_R = 64
@@ -38,6 +39,8 @@ class RWKVState(NamedTuple):
 
 
 def _uniform(gen: torch.Generator, shape, dtype) -> Tensor:
+    if isinstance(gen, DeferredDraws):
+        return gen.defer(lambda g: _uniform(g, shape, dtype), shape)
     return torch.rand(shape, generator=_gen(gen), dtype=torch.float32,
                       device=gen.device).to(dtype)
 

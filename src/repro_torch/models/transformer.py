@@ -43,6 +43,26 @@ the dense MLP without ``tp_mlp``, arctic's dense residual and the
 unembedding gather their weights at use and run replicated over "model"
 (no tensor parallelism of their own yet). Under "fsdp" every weight is
 gathered at use.
+
+Sharded serving (a cache under a "tp" ``constrain``): the tokens are the
+GLOBAL batch, each rank keeps its rows (``ShardCtx.batch_split``: the
+longest prefix of the batch axes that divides it, none at B = 1, as the
+JAX package's ``_b``) and returns its rows' logits (the cache's "split";
+``train.serve_step`` gathers them). The cache is this rank's shard of it
+(``sharding.state.shard_cache`` / ``init_cache_sharded``: each leaf
+``shard(leaf, cache_spec_for_leaf(...))``, beside its layout, worked out
+once for the cache: "split", "specs", each KV layer's "slots"); the
+split goes on a local copy of the ``ShardCtx``, so the caller's
+``constrain`` is left as it is. Attention reads and writes its KV shard
+(``attention.attention_forward_sharded``: prefill keeps its positions,
+decode is flash-decoding over the ranks that hold them); Mamba and RWKV
+gather their state's "model" shards at use, run replicated over "model"
+as their weights do, and keep their slice of the new state (one state
+gather a layer a step). The logits take the gathered unembedding, so an
+argmax sees the whole vocab. Under the "fsdp" layout sharded prefill and
+decode raise ``NotImplementedError`` (ROADMAP A.12b.2f): the JAX
+launcher serves on "tp" only, and the cache rule's positions over
+"model" conflict with a batch split over ("data", "model").
 """
 from __future__ import annotations
 
@@ -56,9 +76,10 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models.attention import (attn_init, attention_forward,
+                                          attention_forward_sharded,
                                           make_kv_cache)
-from repro_torch.models.layers import (MetaGenerator, dense_init,
-                                       embed_init, mlp_forward,
+from repro_torch.models.layers import (DeferredDraws, Draw, MetaGenerator,
+                                       dense_init, embed_init, mlp_forward,
                                        mlp_forward_tp, mlp_init, rms_norm)
 from repro_torch.models.mamba import (make_mamba_state, mamba_forward,
                                       mamba_init)
@@ -66,6 +87,9 @@ from repro_torch.models.moe import moe_forward, moe_init
 from repro_torch.models.rwkv import (RWKVState, channel_mix_init,
                                      make_rwkv_state, rwkv_channel_mix,
                                      rwkv_init, rwkv_time_mix)
+from repro_torch.sharding.collectives import shard
+from repro_torch.sharding.specs import with_sharding
+from repro_torch.sharding.state import gather_state, scatter_state
 from repro_torch.utils.tree import Stacked, leaves, map_tree
 
 Tensor = torch.Tensor
@@ -168,16 +192,52 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     if gen.device.type != dev.type:
         raise ValueError(f"a generator on {gen.device} cannot draw the "
                          f"parameters on {dev}")
-    tree = {
+    return Decoder(cfg, _init_tree(gen, cfg))
+
+
+def _init_tree(gen, cfg: ArchConfig) -> dict:
+    """Every leaf drawn from ``gen`` in the one order both draws keep."""
+    return {
         "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, cfg.dtype),
         "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32,
-                                  device=dev),
+                                  device=gen.device),
         "unembed": dense_init(gen, (cfg.d_model, cfg.padded_vocab),
                               cfg.dtype),
         "layers": [_layer_init(gen, cfg, cfg.layer_spec(i))
                    for i in range(cfg.n_layers)],
     }
-    return Decoder(cfg, tree)
+
+
+def init_params_sharded(cfg: ArchConfig, generator: torch.Generator,
+                        constrain) -> dict:
+    """This rank's shards of the ``param_tree`` that ``init_params(cfg,
+    generator)`` draws, bitwise, drawn one full leaf at a time on the
+    generator's device: the same leaves in the same order with the same
+    generator calls, each leaf cut to this rank's shard
+    (``collectives.shard`` by ``constrain.sharding``'s specs) and freed
+    before the next is drawn. The peak is this rank's shards plus the
+    largest leaf (its f32 draw and its cast). Every rank draws every leaf:
+    a draw by spec that skips the other ranks' values would change them."""
+    sh = constrain.sharding
+    lazy = DeferredDraws(generator.device)
+    raw = _init_tree(lazy, cfg)
+    tree = {k: raw[k] for k in ("embed", "final_norm", "unembed")}
+    tree.update(_jax_layout(cfg, raw["layers"]))
+    specs = sh.param_specs(cfg)
+    seen = []
+
+    def note(t, spec):
+        if isinstance(t, Draw):
+            t.spec = spec
+            seen.append(t)
+    map_tree(note, tree, specs)
+    if len(seen) != len(lazy.draws):
+        raise RuntimeError(f"{len(lazy.draws)} draws, {len(seen)} in the "
+                           f"tree")
+    for d in lazy.draws:            # the initialisers' order
+        d.value = shard(d.make(generator), d.spec, sh.mesh)
+    return map_tree(lambda t, spec: t.value if isinstance(t, Draw)
+                    else shard(t, spec, sh.mesh), tree, specs)
 
 
 def param_tree(params: Decoder) -> dict:
@@ -194,10 +254,18 @@ def param_tree(params: Decoder) -> dict:
                   for k, c in m.named_children()})
         return t
 
-    layers = [layer(m) for m in params.layers]
     tree = {"embed": params.embed.detach(),
             "final_norm": params.final_norm.detach(),
             "unembed": params.unembed.detach()}
+    tree.update(_jax_layout(cfg, [layer(m) for m in params.layers]))
+    return tree
+
+
+def _jax_layout(cfg: ArchConfig, layers: list) -> dict:
+    """Per-layer trees (parameters or states, in stack order) in the JAX
+    package's layout: "segments" {"l{i}": period position i's layers, each
+    leaf a ``Stacked``} and "tail" (the partial period's layers)."""
+    tree = {}
     if cfg.n_repeats:
         tree["segments"] = {
             f"l{i}": map_tree(lambda *ts: Stacked(ts), *[
@@ -211,7 +279,8 @@ def param_tree(params: Decoder) -> dict:
 def layer_params(params, cfg: ArchConfig) -> list:
     """Each layer's parameters in stack order: a ``Decoder``'s modules,
     or the per-layer views of a ``param_tree`` (repeat r of period
-    position i for layer r * period + i, then the tail)."""
+    position i for layer r * period + i, then the tail); of a
+    ``cache_tree`` too."""
     if isinstance(params, Decoder):
         return list(params.layers)
     out = []
@@ -254,6 +323,19 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype=None, *,
                        for i in range(cfg.n_layers)]}
 
 
+def cache_tree(cache: dict, cfg: ArchConfig) -> dict:
+    """A cache in the JAX package's layout (its ``init_cache``): "pos" an
+    int32 scalar, the layers' states under "segments" (a ``Stacked`` per
+    leaf) and "tail". The one mapping between the two layouts, for the
+    specs (``launch.specs.cache_sds``) and for checkpoints."""
+    first = next(t for st in cache["layers"] for t in st)
+    pos = cache["pos"]
+    tree = {"pos": (pos if isinstance(pos, Tensor) else torch.tensor(
+        pos, dtype=torch.int32, device=first.device))}
+    tree.update(_jax_layout(cfg, list(cache["layers"])))
+    return tree
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -268,19 +350,30 @@ def _weights(p, name: str, constrain, pspec):
 
 
 def _attention(p, h: Tensor, cfg: ArchConfig, mixer: str, constrain,
-               pspec, **kw):
+               pspec, kv=None, **kw):
     """``attention_forward``, head-parallel over "model" under the "tp"
     layout when the query and the kv heads both divide it (kv head j
     serves query heads j*g..(j+1)*g-1, so contiguous blocks of both stay
     together): the input passes ``copy_to``, the row-parallel ``wo``
-    output ``reduce_from``. Else the weights are gathered."""
+    output ``reduce_from``. Else the weights are gathered. ``kv``: the
+    ``KVSlots`` of a sharded cache's layer, which
+    ``attention_forward_sharded`` reads and writes."""
     sh = getattr(constrain, "sharding", None)
     m = sh.model if sh is not None else 1
     specs = pspec["attn"] if pspec is not None else None
-    if (sh is not None and sh.layout == "tp"
-            and cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0
-            and all(specs[k][1:2] == ("model",) for k in ("wq", "wk", "wv"))
-            and specs["wo"][:1] == ("model",)):
+    heads = (sh is not None and sh.layout == "tp"
+             and cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0
+             and all(specs[k][1:2] == ("model",) for k in ("wq", "wk", "wv"))
+             and specs["wo"][:1] == ("model",))
+    if kv is not None:
+        keep = ("model",) if heads else ()
+        w = sh.gather_all(p["attn"], specs, keep=keep)
+        xin = sh.copy_to(h, keep) if heads else h
+        out, st = attention_forward_sharded(
+            w, xin, cfg, mixer, sh, heads=m if heads else 1, slots=kv,
+            **kw)
+        return (sh.reduce_from(out, keep) if heads else out), st
+    if heads:
         w = sh.gather_all(p["attn"], specs, keep=("model",))
         local = dataclasses.replace(cfg, n_heads=cfg.n_heads // m,
                                     n_kv_heads=cfg.n_kv_heads // m)
@@ -293,14 +386,16 @@ def _attention(p, h: Tensor, cfg: ArchConfig, mixer: str, constrain,
 
 def _mix(p, x: Tensor, cfg: ArchConfig, spec: LayerSpec, *,
          positions: Tensor, state, cache_pos: int, q_chunk: int,
-         constrain=None, pspec=None):
+         constrain=None, pspec=None, kv=None):
     """The layer's first half, norm1 and the mixer: (x + out, the
-    mixer's new state parts). ``pspec``: the layer's specs, sharded."""
+    mixer's new state parts). ``pspec``: the layer's specs, sharded;
+    ``kv``: its KV shard's ``KVSlots`` in a sharded cache."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if spec.mixer in ("full", "swa"):
         out, new_mix_state = _attention(
-            p, h, cfg, spec.mixer, constrain, pspec, positions=positions,
-            cache=state, cache_pos=cache_pos, q_chunk=q_chunk)
+            p, h, cfg, spec.mixer, constrain, pspec, kv=kv,
+            positions=positions, cache=state, cache_pos=cache_pos,
+            q_chunk=q_chunk)
         mixed = (new_mix_state, None, None)
     elif spec.mixer == "mamba":
         out, new_mix_state = mamba_forward(
@@ -350,11 +445,11 @@ def _ffn(p, x: Tensor, cfg: ArchConfig, spec: LayerSpec, *, state, mixed,
 
 def _apply_layer(p, x: Tensor, cfg: ArchConfig, spec: LayerSpec, *,
                  positions: Tensor, state, cache_pos: int, q_chunk: int,
-                 constrain=None, pspec=None):
+                 constrain=None, pspec=None, kv=None):
     """One decoder layer. Returns (x, new_state, aux)."""
     x, mixed = _mix(p, x, cfg, spec, positions=positions, state=state,
                     cache_pos=cache_pos, q_chunk=q_chunk,
-                    constrain=constrain, pspec=pspec)
+                    constrain=constrain, pspec=pspec, kv=kv)
     return _ffn(p, x, cfg, spec, state=state, mixed=mixed,
                 constrain=constrain, pspec=pspec)
 
@@ -452,16 +547,38 @@ def forward(params, cfg: ArchConfig, *,
     """Returns (logits_or_hidden, new_cache_or_None, aux_loss).
 
     ``params`` is a ``Decoder`` or its ``param_tree`` (this rank's shards
-    of it when ``constrain`` carries a sharded layout; train mode only).
+    of it when ``constrain`` carries a sharded layout). Sharded with a
+    cache (its shard, see the module docstring), the inputs are the global
+    batch and the outputs this rank's rows of it.
     return_hidden skips the unembedding and returns the final-normed
     hidden states (B, S, d_model), the features a head pools (and the
     fused loss takes).
     """
     sh = getattr(constrain, "sharding", None)
     specs = sh.param_specs(cfg) if sh is not None else None
-    if sh is not None and cache is not None:
-        raise NotImplementedError("sharded prefill and decode are not "
-                                  "ported; the sharded forward trains")
+    sharded = sh is not None and cache is not None
+    if sharded:
+        if sh.layout != "tp":
+            raise NotImplementedError(
+                "sharded prefill and decode under the 'fsdp' layout "
+                "(ROADMAP A.12b.2f): the cache rule puts the positions over "
+                "'model', which this layout splits the batch over")
+        if "slots" not in cache:
+            raise ValueError("a sharded forward takes this rank's shard of "
+                             "a cache (sharding.state.shard_cache or "
+                             "init_cache_sharded)")
+        src = embeds if embeds is not None else tokens
+        if src.shape[0] != cache["batch"]:
+            raise ValueError(f"a batch of {src.shape[0]} for a cache of "
+                             f"{cache['batch']} rows: the inputs are the "
+                             f"global batch")
+        # This call's batch split, on a local context: the caller's
+        # constrain keeps its own.
+        sh = sh.with_split(cache["split"])
+        constrain = with_sharding(constrain, sh)
+        tokens, embeds, vision_embeds = (
+            None if t is None else sh.split_slice(t)
+            for t in (tokens, embeds, vision_embeds))
     if embeds is not None:                       # audio frontend stub
         x = embeds.to(cfg.dtype)
     else:
@@ -487,14 +604,20 @@ def forward(params, cfg: ArchConfig, *,
                                        pspec=pspecs[i])
         else:
             st = cache["layers"][i] if cache is not None else None
-            x, nst, aux = _apply_layer(layer, x, cfg, spec,
-                                       positions=positions, state=st,
-                                       cache_pos=pos0, q_chunk=q_chunk,
-                                       constrain=constrain, pspec=pspecs[i])
+            ssm = sharded and spec.mixer in ("mamba", "rwkv")
+            if ssm:     # the state's "model" shards gathered at use
+                st = gather_state(st, cache["specs"][i], sh)
+            x, nst, aux = _apply_layer(
+                layer, x, cfg, spec, positions=positions, state=st,
+                cache_pos=pos0, q_chunk=q_chunk, constrain=constrain,
+                pspec=pspecs[i], kv=cache["slots"][i] if sharded else None)
+            if ssm:     # this rank's slice of the new state
+                nst = scatter_state(nst, cache["specs"][i], sh)
         aux_total = aux_total + aux
         new_states.append(nst)
-    new_cache = ({"pos": pos0 + s, "layers": new_states}
-                 if cache is not None else None)
+    new_cache = None
+    if cache is not None:         # a sharded cache keeps its layout
+        new_cache = dict(cache, pos=pos0 + s, layers=new_states)
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:

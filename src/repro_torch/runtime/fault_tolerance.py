@@ -14,6 +14,14 @@ to the CPU, its device noted) and copies it back on a restart before the
 first checkpoint: a step may update the live state in place, and a
 snapshot on the card would double a full-width train state there
 (about 40 GiB for llama3.2-3b with AdamW).
+
+On a mesh (``shardings``: a tree of ``sharding.specs.NamedSharding``
+over the state, each rank's state its shards), every rank runs the loop
+with the same steps and failures: a checkpoint is saved through
+``checkpoint.reshard.save_sharded`` (full arrays, written once by the
+mesh's first rank, in the JAX package's format) and restored as each
+rank's shards (``manager.restore(shardings=...)``). Without it the loop
+writes its own state asynchronously, as on one rank.
 """
 from __future__ import annotations
 
@@ -29,6 +37,8 @@ import torch
 
 from repro_torch.checkpoint.manager import (AsyncCheckpointer, _map,
                                             restore_latest)
+from repro_torch.checkpoint.reshard import save_sharded
+from repro_torch.utils.tree import leaves
 
 
 @dataclasses.dataclass
@@ -98,8 +108,10 @@ class FaultTolerantLoop:
     def __init__(self, step_fn: Callable, init_state: Any, pipeline,
                  ckpt_dir: str, *, save_every: int = 50,
                  max_restarts: int = 5, keep: int = 3,
-                 failure_injector: Optional[Callable[[int], None]] = None):
+                 failure_injector: Optional[Callable[[int], None]] = None,
+                 shardings: Any = None):
         self.step_fn = step_fn
+        self.shardings = shardings
         self.state = init_state
         # A true snapshot, in host memory (every tensor copied, its dtype
         # and device kept): a step may update the live state in place.
@@ -115,13 +127,21 @@ class FaultTolerantLoop:
         self.metrics_log: List[dict] = []
 
     def _save(self, step: int):
-        self.ckpt.save(step, self.state,
-                       extra={"data": self.pipeline.state_dict()})
+        extra = {"data": self.pipeline.state_dict()}
+        if self.shardings is None:
+            self.ckpt.save(step, self.state, extra=extra)
+            return
+        save_sharded(self.ckpt_dir, step, self.state, self.shardings,
+                     extra=extra)
+        mesh = leaves(self.shardings)[0].mesh
+        if mesh.rank == mesh.ranks[0]:
+            self.ckpt._gc()
 
     def _restore(self) -> int:
         # Make sure any in-flight write has landed before picking "latest".
         self.ckpt.wait()
-        restored, step = restore_latest(self.ckpt_dir, self.state)
+        restored, step = restore_latest(self.ckpt_dir, self.state,
+                                        shardings=self.shardings)
         if restored is None:
             # No checkpoint yet: restart from the TRUE initial state (the
             # live state has already been mutated by the failed attempt),

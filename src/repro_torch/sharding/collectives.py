@@ -30,6 +30,7 @@ With no process group every collective is the identity (one rank).
 """
 from __future__ import annotations
 
+import copy
 import itertools
 import math
 from typing import Dict, Sequence, Tuple
@@ -310,11 +311,21 @@ class ShardCtx:
         return x.narrow(0, self.index(self.split) * size, size)
 
     # -- the batch ---------------------------------------------------------
-    def batch_split(self, batch: int) -> Tuple[str, ...]:
+    def batch_split(self, batch: int, *,
+                    needs_two: bool = False) -> Tuple[str, ...]:
         """The batch axes a global batch of ``batch`` rows is split on:
         the longest prefix whose size divides it (the JAX package's
-        ``batch_sds_and_shardings``)."""
-        return batch_prefix(self.mesh, self.batch_axes, batch)
+        ``batch_sds_and_shardings``; with ``needs_two`` a batch of one is
+        not split, as its ``make_constrain`` has it)."""
+        return batch_prefix(self.mesh, self.batch_axes, batch,
+                            needs_two=needs_two)
+
+    def with_split(self, split: Sequence[str]) -> "ShardCtx":
+        """This context with the batch split on ``split``: a copy sharing
+        the groups and the specs (``self`` keeps its own split)."""
+        ctx = copy.copy(self)
+        ctx.split = tuple(split)
+        return ctx
 
     def shard_batch(self, batch: dict) -> dict:
         """This rank's rows of a global batch; sets ``split``."""

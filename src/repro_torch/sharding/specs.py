@@ -306,6 +306,17 @@ def make_constrain(mesh, *, fsdp: bool = False, layout: str = "tp",
     return constrain
 
 
+def with_sharding(constrain, sharding):
+    """``constrain`` carrying ``sharding`` in place of its own: a new hook
+    with the same attributes (``constrain`` is left as it is)."""
+    def local(x, kind: str):
+        return constrain(x, kind)
+
+    local.__dict__.update(vars(constrain))
+    local.sharding = sharding
+    return local
+
+
 def cache_spec_for_leaf(names: Sequence[str], shape, mesh) -> PartitionSpec:
     """KV caches / SSM states: batch over the data axes, plus a second
     sharded dim so no single state replicates at long context:
@@ -316,8 +327,8 @@ def cache_spec_for_leaf(names: Sequence[str], shape, mesh) -> PartitionSpec:
       RWKV wkv (B, H, D, D): H -> "model"; shifts (B, d): d -> "model"
 
     ``names``: the leaf's path (dict keys and named-tuple fields); the
-    leaf may carry a leading stacked-segment axis. The rules' consumer
-    (sharded prefill and decode) is not ported yet.
+    leaf may carry a leading stacked-segment axis. Consumed by
+    ``sharding.state.shard_cache`` and the sharded forward.
     """
     leaf = str(names[-1]) if names else ""
     if leaf == "pos":
@@ -357,7 +368,10 @@ def cache_spec_for_leaf(names: Sequence[str], shape, mesh) -> PartitionSpec:
 
 def map_cache_with_names(fn, tree, names: tuple = ()):
     """``fn(names, leaf)`` over a cache tree; named-tuple fields count as
-    names (the JAX rules read KVCache's "k"/"v" by their field names)."""
+    names (the JAX rules read KVCache's "k"/"v" by their field names); a
+    ``Stacked`` is one leaf."""
+    if isinstance(tree, Stacked):
+        return fn(names, tree)
     if tree is None or isinstance(tree, (int, float)):
         return fn(names, tree) if tree is not None else None
     if isinstance(tree, dict):
@@ -374,7 +388,14 @@ def map_cache_with_names(fn, tree, names: tuple = ()):
 
 def make_cache_shardings(cache_shapes, mesh):
     """A cache tree -> the same tree of NamedSharding ("pos", an int in
-    the port's caches, gets P())."""
-    return map_cache_with_names(
-        lambda names, leaf: NamedSharding(mesh, cache_spec_for_leaf(
-            names, tuple(getattr(leaf, "shape", ())), mesh)), cache_shapes)
+    the port's caches, gets P()); a ``Stacked`` leaf (``cache_tree``'s
+    layout) gets a ``Stacked`` of per-layer ones, its stacked spec with
+    the leading entry dropped."""
+    def one(names, leaf):
+        spec = cache_spec_for_leaf(names, tuple(getattr(leaf, "shape", ())),
+                                   mesh)
+        if isinstance(leaf, Stacked):
+            return Stacked([NamedSharding(mesh, layer_spec(spec))]
+                           * len(leaf))
+        return NamedSharding(mesh, spec)
+    return map_cache_with_names(one, cache_shapes)

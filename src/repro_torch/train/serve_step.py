@@ -4,6 +4,14 @@
 Decode writes the KV buffers in place (the JAX step donates its cache):
 at long contexts the cache is the memory footprint and a copy would
 double it. Greedy decoding is a Python loop of decode steps.
+
+Sharded (``constrain`` from ``sharding.specs.make_constrain``, layout
+"tp"): every rank calls the step with the same global inputs, its shard
+of the parameters (``init_params_sharded`` / ``shard_params``) and its
+shard of the cache (``sharding.state.init_cache_sharded`` /
+``shard_cache``); the logits come back for the whole batch on every rank
+(its rows gathered over the batch split), as the JAX steps' global
+arrays do.
 """
 from __future__ import annotations
 
@@ -17,7 +25,16 @@ from repro_torch.models.transformer import forward, init_cache
 Tensor = torch.Tensor
 
 
-def make_prefill(cfg: ArchConfig, *, q_chunk: int = 2048) -> Callable:
+def _whole_batch(logits: Tensor, constrain, cache: dict) -> Tensor:
+    """A sharded forward's rows of the logits -> every row (gathered over
+    the cache's batch split)."""
+    sh = getattr(constrain, "sharding", None)
+    return (logits if sh is None
+            else sh.with_split(cache["split"]).gather_split(logits))
+
+
+def make_prefill(cfg: ArchConfig, *, constrain=None,
+                 q_chunk: int = 2048) -> Callable:
     def prefill(params, cache, batch: dict):
         kwargs = {}
         if "embeds" in batch:
@@ -27,16 +44,18 @@ def make_prefill(cfg: ArchConfig, *, q_chunk: int = 2048) -> Callable:
         if "vision_embeds" in batch:
             kwargs["vision_embeds"] = batch["vision_embeds"]
         logits, cache, _ = forward(params, cfg, cache=cache,
-                                   q_chunk=q_chunk, **kwargs)
-        return logits[:, -1:], cache
+                                   constrain=constrain, q_chunk=q_chunk,
+                                   **kwargs)
+        return _whole_batch(logits[:, -1:], constrain, cache), cache
 
     return prefill
 
 
-def make_decode(cfg: ArchConfig) -> Callable:
+def make_decode(cfg: ArchConfig, *, constrain=None) -> Callable:
     def decode(params, cache, token: Tensor):
-        logits, cache, _ = forward(params, cfg, tokens=token, cache=cache)
-        return logits, cache
+        logits, cache, _ = forward(params, cfg, tokens=token, cache=cache,
+                                   constrain=constrain)
+        return _whole_batch(logits, constrain, cache), cache
 
     return decode
 

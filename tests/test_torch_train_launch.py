@@ -18,8 +18,10 @@ fault-tolerant loop, the ``repro_torch.launch.train`` CLI and
   directly. ``--layout fsdp --reduced`` gives the "tp" layout's first
   loss on the (1, 1) mesh; without ``--reduced`` the production mesh
   ((16, 16), or (2, 16, 16) with ``--multi-pod``) raises for want of
-  ranks, and with all its ranks the launcher refuses (sharded
-  initialisation is not ported).
+  ranks, and with all its ranks the launcher no longer refuses: it draws
+  only this rank's shards (``init_params_sharded``, stopped there; the
+  production path itself runs on a (2, 2) mesh in
+  tests/test_torch_lm_serve_dist.py).
 * The example trains a few steps on the CPU and its loss falls.
 """
 import dataclasses
@@ -191,9 +193,10 @@ def test_cli_refuses_the_production_mesh(flag):
 
 @pytest.mark.parametrize("flag", [[], ["--multi-pod"]])
 def test_cli_refuses_a_full_production_mesh(monkeypatch, flag):
-    """With every rank of the production mesh there, the launcher still
-    refuses: drawing only this rank's shards is not ported, and each rank
-    drawing the whole model would not fit."""
+    """With every rank of the production mesh there, the launcher no
+    longer refuses (it did until the per-rank draw was ported): it draws
+    only this rank's shards of the parameters, on that mesh (stopped
+    there: the whole model would not train on the host)."""
     from repro_torch.launch import train
     from repro_torch.launch.mesh import SolverMesh
     shape = (2, 16, 16) if flag else (16, 16)
@@ -201,8 +204,19 @@ def test_cli_refuses_a_full_production_mesh(monkeypatch, flag):
     mesh = SolverMesh(axes, shape, tuple(range(int(np.prod(shape)))), 0)
     monkeypatch.setattr(train, "make_production_mesh",
                         lambda *, multi_pod: mesh)
-    with pytest.raises(NotImplementedError, match="only this rank's shards"):
+    calls = []
+
+    class Drawn(Exception):
+        pass
+
+    def draw(cfg, generator, constrain):
+        calls.append((cfg.name, constrain.sharding.mesh))
+        raise Drawn
+
+    monkeypatch.setattr(train, "init_params_sharded", draw)
+    with pytest.raises(Drawn):
         train.main(["--arch", LLAMA, "--device", "cpu", *flag])
+    assert calls == [(LLAMA, mesh)]
 
 
 def test_cli_fsdp_layout_matches_the_tp_layout(tmp_path, capsys):

@@ -250,6 +250,27 @@ def lm_oracle(case: dict, device, seed: int):
     return metrics, state
 
 
+def _slab_kernels() -> dict:
+    """The three slab kernels' wrappers, by name, their counts set to 0."""
+    from repro_torch.kernels.decision import ops as dec
+    from repro_torch.kernels.fupdate import ops as fup
+    from repro_torch.kernels.gram import ops as gram_ops
+    kernels = {"fupdate": fup.FUPDATE, "decision": dec.DECISION,
+               "gram": gram_ops.GRAM}
+    for k in kernels.values():
+        k.reset_counts()
+    return kernels
+
+
+def _take_counts(kernels: dict, into: dict) -> dict:
+    """Adds each kernel's launches since its count was last set to 0 to
+    ``into`` (returned), then sets the counts to 0 again."""
+    for name, k in kernels.items():
+        into[name] = into.get(name, 0) + k.launches
+        k.reset_counts()
+    return into
+
+
 def lm_dist_steps(rank: int, world: int, job: dict) -> dict:
     """The sharded train step for each case of ``job["cases"]``: the
     parameters drawn from ``job["seed"]`` on ``job["device"]`` (every rank
@@ -264,27 +285,24 @@ def lm_dist_steps(rank: int, world: int, job: dict) -> dict:
     (``_plain_steps``); with ``trace`` and a ``job["tracer"]`` (a
     function that runs a one-step callable under the profiler), one more
     step traced ("trace", and "plain_trace" with ``plain``). Under
-    "launches": this rank's launches of each slab kernel over all the
-    cases, the counts set to 0 at the start."""
+    "launches": this rank's launches of each slab kernel on the sharded
+    path over all the cases (the counts set to 0 at the start and read
+    before any single-device run); under "oracle_launches", the
+    single-device runs' (``plain``), counted apart."""
     import time
     import types
     import torch
     from repro_torch.api import resolve_device
     from repro_torch.core.engine import CollectiveLedger
     from repro_torch.data.synthetic import SyntheticPipeline
-    from repro_torch.kernels.decision import ops as dec
-    from repro_torch.kernels.fupdate import ops as fup
-    from repro_torch.kernels.gram import ops as gram_ops
     from repro_torch.launch import make_test_mesh
     from repro_torch.models.transformer import init_params
     from repro_torch.sharding import make_constrain
     from repro_torch.sharding.state import shard_params, unshard_train_state
     from repro_torch.train import train_step as tts
     from repro_torch.utils.tree import leaves
-    kernels = {"fupdate": fup.FUPDATE, "decision": dec.DECISION,
-               "gram": gram_ops.GRAM}
-    for k in kernels.values():
-        k.reset_counts()
+    kernels = _slab_kernels()
+    path, oracle = dict.fromkeys(kernels, 0), dict.fromkeys(kernels, 0)
     torch.set_num_threads(job.get("threads", 1))
     dev = resolve_device(job["device"])
     cuda = dev.type == "cuda"
@@ -337,6 +355,7 @@ def lm_dist_steps(rank: int, world: int, job: dict) -> dict:
                 float(m["loss"])
                 return types.SimpleNamespace(iters=1)
             trace = tracer(one_step)
+        _take_counts(kernels, path)
         ops: dict = {}
         for r in led.records:
             ops[r.op] = ops.get(r.op, 0) + 1
@@ -357,8 +376,9 @@ def lm_dist_steps(rank: int, world: int, job: dict) -> dict:
         if case.get("plain"):
             res.update(_plain_steps(case, cfg, dev, job["seed"], sync,
                                     tracer))
+            _take_counts(kernels, oracle)
         out[case["key"]] = res
-    out["launches"] = {n: k.launches for n, k in kernels.items()}
+    out["launches"], out["oracle_launches"] = path, oracle
     return out
 
 
@@ -615,3 +635,419 @@ def collectives_on_card(rank: int, world: int) -> dict:
     same("pmean", y.detach(), total / n)
     same("pmean backward", x.grad, torch.full_like(mine, 1.0 / n))
     return {"device": mine.device.type, "failed": failed}
+
+
+# -- sharded LM serving (tests/test_torch_lm_serve_dist.py and
+# chip_smoke.py [lm-serve-dist]) ------------------------------------------
+
+def serve_inputs(cfg, batch: int, prompt: int, seed: int, device) -> dict:
+    """A prompt batch of ``prompt`` positions for the arch (its frontend
+    stubs too), drawn on the host from ``seed`` and moved to ``device``:
+    every rank and the oracle get the same global inputs."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    kw = {}
+    if cfg.frontend == "audio":
+        kw["embeds"] = torch.randn((batch, prompt, cfg.d_model), generator=g)
+    else:
+        nv = cfg.n_frontend_tokens
+        kw["tokens"] = torch.randint(0, cfg.vocab_size, (batch, prompt - nv),
+                                     generator=g, dtype=torch.int32)
+        if nv:
+            kw["vision_embeds"] = torch.randn((batch, nv, cfg.d_model),
+                                              generator=g)
+    return {k: v.to(device) for k, v in kw.items()}
+
+
+def _generate(cfg, params, cache, inputs, steps: int, prefill, decode, sync,
+              led=None, forced=None) -> dict:
+    """Prefill then ``steps`` greedy decode steps: each step's logits of
+    the last position (numpy f32, the whole batch), the tokens (each
+    step's argmax), the cache after the last step, prefill ms and each
+    decode step's ms; with ``led`` (a CollectiveLedger), each decode
+    step's collective calls, host ms and bytes. ``forced``: the tokens
+    (B, steps + 1) to feed in place of the argmax (another run's, so both
+    runs see the same inputs at every step)."""
+    import torch
+    out = {"logits": [], "ms": [], "calls": [], "coll_ms": [], "bytes": []}
+    if led is not None:
+        led.set_phase("prefill")
+    t0 = sync()
+    logits, cache = prefill(params, cache, inputs)
+    tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    out["prefill_ms"] = 1e3 * (sync() - t0)
+    out["logits"].append(logits[:, -1].float().cpu().numpy())
+    toks = [tok]
+    for i in range(steps):
+        if forced is not None:
+            tok = torch.as_tensor(forced[:, i:i + 1], device=tok.device)
+        if led is not None:
+            led.set_phase("decode")
+            c0, n0, b0 = led.seconds, led.calls, led.phase_bytes("decode")
+        t0 = sync()
+        logits, cache = decode(params, cache, tok)
+        tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+        out["ms"].append(1e3 * (sync() - t0))
+        if led is not None:
+            out["calls"].append(led.calls - n0)
+            out["coll_ms"].append(1e3 * (led.seconds - c0))
+            out["bytes"].append(led.phase_bytes("decode") - b0)
+        out["logits"].append(logits[:, -1].float().cpu().numpy())
+        toks.append(tok)
+    if led is not None:
+        led.set_phase(None)
+    out["tokens"] = torch.cat(toks, dim=1).cpu().numpy()
+    out["cache"] = cache
+    return out
+
+
+def _case_inputs(case: dict, cfg, seed: int, device) -> dict:
+    """The case's global inputs: its own (numpy, ``inputs``) or
+    ``serve_inputs`` from ``seed``."""
+    import torch
+    if "inputs" in case:
+        return {k: torch.as_tensor(v, device=device)
+                for k, v in case["inputs"].items()}
+    return serve_inputs(cfg, case["batch"], case["prompt"], seed, device)
+
+
+def lm_serve_oracle(case: dict, device, seed: int, forced=None,
+                    upcast: bool = False) -> dict:
+    """The port's single-device prefill + greedy decode of the case (fed
+    ``forced`` tokens if given): the parameters drawn from ``seed``, the
+    inputs from ``seed + 1`` (``_case_inputs``); ``_generate``'s record of
+    the last of ``case["runs"]`` runs (default 1; the first warms the
+    device up), its cache's leaves as numpy (layer order, field order).
+    With ``upcast``, the drawn parameters are cast to f32 and the run is
+    f32 throughout: the case's model without the roundings of its own
+    dtype, a reference for its runs in that dtype."""
+    import dataclasses
+    import time
+    import torch
+    from repro_torch.models.transformer import (Decoder, init_cache,
+                                                init_params)
+    from repro_torch.train.serve_step import make_decode, make_prefill
+    cfg = lm_dist_cfg(case)
+    dev = torch.device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         device=dev)
+    if upcast:
+        def f32(m):
+            t = {k: v.float() for k, v in m.named_parameters(recurse=False)}
+            t.update({k: {n: w.float() for n, w in c.items()}
+                      for k, c in m.named_children()})
+            return t
+        cfg = dataclasses.replace(cfg, param_dtype="float32")
+        params = Decoder(cfg, {
+            "embed": params.embed.float(),
+            "final_norm": params.final_norm.float(),
+            "unembed": params.unembed.float(),
+            "layers": [f32(m) for m in params.layers]})
+    for _ in range(case.get("runs", 1)):
+        cache = init_cache(cfg, case["batch"], case["cache_len"],
+                           device=dev)
+        out = _generate(cfg, params, cache, _case_inputs(case, cfg,
+                                                         seed + 1, dev),
+                        case["steps"], make_prefill(cfg), make_decode(cfg),
+                        sync, forced=forced)
+    del params, cache
+    out["cache"] = [t.float().cpu().numpy() for st in out["cache"]["layers"]
+                    for t in st]
+    return out
+
+
+def lm_serve_steps(rank: int, world: int, job: dict) -> dict:
+    """Sharded prefill + greedy decode for each case of ``job["cases"]``
+    on its mesh (``make_test_mesh``): this rank's parameters drawn by
+    ``init_params_sharded`` from ``job["seed"]`` on ``job["device"]``
+    (on CUDA the first card, or card ``rank`` with
+    ``job["card_per_rank"]``), its cache shard from
+    ``init_cache_sharded``, the case's inputs (``serve_inputs``, seed + 1).
+    Per case: ``_generate``'s record of the last of ``runs`` runs
+    (default 1; the first warms the collectives and kernels up: its
+    prefill ms and decode ms under "first", whether every run gave the
+    same tokens under "repeat_equal"; the cache as this rank's leaves,
+    numpy; with ``no_cache``, left out), the draw's seconds and peak
+    memory, the ledger's op counts and the peak memory; with ``plain``,
+    on the first rank, the single-device run of the case after it in
+    this process (on this rank's card), fed the sharded run's tokens
+    ("plain"), and with ``truth`` besides, the same run in f32 on the
+    same parameters cast up (``lm_serve_oracle``'s ``upcast``, "truth"); with ``unshard``, the full cache gathered back
+    (``unshard_cache``, "full_cache"). Under "launches": this rank's
+    launches of each slab kernel on the sharded path over all the cases
+    (the counts set to 0 at the start and read before any single-device
+    run); under "oracle_launches", the single-device runs', counted
+    apart."""
+    import time
+    import torch
+    from repro_torch.api import resolve_device
+    from repro_torch.core.engine import CollectiveLedger
+    from repro_torch.launch import make_test_mesh
+    from repro_torch.models.transformer import init_params_sharded
+    from repro_torch.sharding import make_constrain
+    from repro_torch.sharding.state import init_cache_sharded, unshard_cache
+    from repro_torch.train.serve_step import make_decode, make_prefill
+    kernels = _slab_kernels()
+    path, oracle = dict.fromkeys(kernels, 0), dict.fromkeys(kernels, 0)
+    torch.set_num_threads(job.get("threads", 1))
+    dev = resolve_device(job["device"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(rank if job.get("card_per_rank") else 0)
+        dev = torch.device("cuda", torch.cuda.current_device())
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    out = {}
+    for case in job["cases"]:
+        cfg = lm_dist_cfg(case)
+        mesh = make_test_mesh(tuple(case["mesh"][0]), tuple(case["mesh"][1]))
+        led = CollectiveLedger()
+        led.set_phase(None)
+        constrain = make_constrain(mesh, fsdp=case["fsdp"],
+                                   layout=case.get("layout", "tp"),
+                                   ledger=led)
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = sync()
+        params = init_params_sharded(
+            cfg, torch.Generator(device=dev).manual_seed(job["seed"]),
+            constrain)
+        draw_s = sync() - t0
+        draw_gib = (torch.cuda.max_memory_allocated() / 2**30
+                    if cuda else None)
+        runs = []
+        for _ in range(case.get("runs", 1)):
+            cache = init_cache_sharded(cfg, case["batch"],
+                                       case["cache_len"], constrain,
+                                       device=dev)
+            runs.append(_generate(cfg, params, cache, _case_inputs(
+                case, cfg, job["seed"] + 1, dev), case["steps"],
+                make_prefill(cfg, constrain=constrain),
+                make_decode(cfg, constrain=constrain), sync, led))
+        _take_counts(kernels, path)
+        res = runs[-1]
+        if case.get("unshard"):
+            full = unshard_cache(res["cache"], cfg, constrain)
+            res["full_cache"] = [t.float().cpu().numpy()
+                                 for st in full["layers"] for t in st]
+            del full
+        res["first"] = {"prefill_ms": runs[0]["prefill_ms"],
+                        "ms": runs[0]["ms"]}
+        res["repeat_equal"] = all(
+            (r["tokens"] == res["tokens"]).all() for r in runs)
+        del runs
+        res["cache"] = (None if case.get("no_cache") else
+                        [t.float().cpu().numpy()
+                         for st in res["cache"]["layers"] for t in st])
+        ops: dict = {}
+        for r in led.records:
+            ops[r.op] = ops.get(r.op, 0) + 1
+        res.update(draw_s=draw_s, draw_gib=draw_gib, ops=ops,
+                   peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                             if cuda else None))
+        del params, cache
+        if case.get("plain") and rank == 0:
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            plain = lm_serve_oracle(case, dev, job["seed"],
+                                    forced=res["tokens"])
+            plain["cache"] = None
+            plain["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                                 if cuda else None)
+            res["plain"] = plain
+            if case.get("truth"):
+                res["truth"] = lm_serve_oracle(
+                    dict(case, runs=1), dev, job["seed"],
+                    forced=res["tokens"], upcast=True)
+                res["truth"]["cache"] = None
+            _take_counts(kernels, oracle)
+        out[case["key"]] = res
+    out["launches"], out["oracle_launches"] = path, oracle
+    return out
+
+
+def draw_parity(rank: int, world: int, job: dict) -> dict:
+    """For each case of ``job["cases"]`` (arch, mesh, layout, fsdp):
+    whether this rank's ``init_params_sharded`` is bitwise (values and
+    dtypes, leaf for leaf) ``shard_params(init_params(...))`` of the same
+    seed, and the number of leaves."""
+    import torch
+    from repro_torch.launch import make_test_mesh
+    from repro_torch.models.transformer import (init_params,
+                                                init_params_sharded)
+    from repro_torch.sharding import make_constrain
+    from repro_torch.sharding.state import shard_params
+    from repro_torch.utils.tree import leaves
+    torch.set_num_threads(1)
+    out = {}
+    for case in job["cases"]:
+        cfg = lm_dist_cfg(case)
+        mesh = make_test_mesh(tuple(case["mesh"][0]), tuple(case["mesh"][1]))
+        constrain = make_constrain(mesh, fsdp=case["fsdp"],
+                                   layout=case["layout"])
+        got = leaves(init_params_sharded(
+            cfg, torch.Generator().manual_seed(job["seed"]), constrain))
+        want = leaves(shard_params(init_params(
+            cfg, torch.Generator().manual_seed(job["seed"]), device="cpu"),
+            cfg, constrain))
+        out[case["key"]] = (
+            len(got) == len(want) and all(
+                a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a, b) for a, b in zip(got, want)),
+            len(got), sum(a.numel() for a in got))
+    return out
+
+
+def ft_loop_on_mesh(rank: int, world: int, job: dict) -> dict:
+    """``FaultTolerantLoop`` over the sharded train step of reduced llama
+    (f32, AdamW) on a (2, 2) mesh, ``job["steps"]`` steps, a checkpoint
+    every 2 (``save_sharded`` into ``job["ckpt"]``): once uninterrupted,
+    once with a failure injected before each step of ``job["fail"]``
+    (every rank fails there). Returns the restarts, whether the two final
+    states are bitwise equal on this rank, and (the first rank) sha256
+    digests of the full final state's leaves, keyed by the checkpoint's
+    paths, and of the port's own restore of the last checkpoint."""
+    import hashlib
+    import os
+    import torch
+    from repro_torch.checkpoint import manager
+    from repro_torch.data.synthetic import SyntheticPipeline
+    from repro_torch.launch import make_test_mesh
+    from repro_torch.models.transformer import init_params_sharded
+    from repro_torch.runtime.fault_tolerance import FaultTolerantLoop
+    from repro_torch.sharding import make_constrain
+    from repro_torch.sharding.specs import NamedSharding, map_specs
+    from repro_torch.sharding.state import state_specs, unshard_train_state
+    from repro_torch.train import train_step as tts
+    from repro_torch.utils.tree import Stacked, leaves
+    torch.set_num_threads(1)
+    cfg = lm_dist_cfg({"arch": "llama3.2-3b"})
+    mesh = make_test_mesh((2, 2), ("data", "model"))
+    constrain = make_constrain(mesh, fsdp=True)
+    step = tts.make_train_step(cfg, constrain=constrain, peak_lr=1e-3,
+                               warmup_steps=1, total_steps=10)
+
+    def run(ckpt_dir, fail):
+        state = tts.init_train_state(cfg, init_params_sharded(
+            cfg, torch.Generator().manual_seed(0), constrain))
+        shardings = map_specs(lambda s: NamedSharding(mesh, s),
+                              state_specs(state, cfg, constrain.sharding))
+        pending = set(fail)
+
+        def inject(i):
+            if i in pending:
+                pending.discard(i)
+                raise RuntimeError(f"injected failure before step {i}")
+        loop = FaultTolerantLoop(
+            step, state, SyntheticPipeline(cfg, batch=4, seq_len=16,
+                                           device="cpu"),
+            ckpt_dir, save_every=2, failure_injector=inject,
+            shardings=shardings)
+        return loop.run(job["steps"]), loop
+
+    plain, _ = run(os.path.join(job["ckpt"], "plain"), ())
+    final, loop = run(os.path.join(job["ckpt"], "failed"), job["fail"])
+    same = all(torch.equal(a, b) for a, b in zip(leaves(plain),
+                                                 leaves(final)))
+    full = unshard_train_state(final, cfg, constrain)
+    out = {"restarts": loop.restarts, "bitwise": same,
+           "steps": [m["step"] for m in loop.metrics_log]}
+    if rank == 0:
+        def digest(t):
+            if isinstance(t, Stacked):
+                t = torch.stack(list(t))
+            return hashlib.sha256(
+                t.contiguous().numpy().tobytes()).hexdigest()
+        out["state"] = {}
+        _walk(full, (), lambda p, t: out["state"].__setitem__(
+            "/".join(p), digest(t)))
+        ckpt = os.path.join(job["ckpt"], "failed")
+        back = manager.restore(ckpt, manager.latest_step(ckpt), full)
+        out["restored"] = {}
+        _walk(back, (), lambda p, t: out["restored"].__setitem__(
+            "/".join(p), digest(t)))
+        out["dirs"] = sorted(os.listdir(ckpt))
+    return out
+
+
+def launchers_on_mesh(rank: int, world: int, job: dict) -> dict:
+    """``launch.serve`` and ``launch.train`` without ``--reduced`` (their
+    production path) with ``make_production_mesh`` giving a (2, 2) mesh
+    and ``get_arch`` the arch's reduced config (a production arch does not
+    fit the host): each rank's printed lines."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import make_test_mesh
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+    torch.set_num_threads(1)
+    out = {}
+    for mod, argv in ((serve_cli, job["serve"]), (train_cli, job["train"])):
+        saved = mod.make_production_mesh, mod.get_arch
+        mod.make_production_mesh = lambda multi_pod=False: make_test_mesh(
+            (2, 2), ("data", "model"))
+        mod.get_arch = lambda name: get_arch(name).reduced()
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                mod.main(list(argv))
+        finally:
+            mod.make_production_mesh, mod.get_arch = saved
+        out[mod.__name__.rsplit(".", 1)[1]] = buf.getvalue().splitlines()
+    return out
+
+
+def moe_decode_cells(rank: int, world: int, job: dict) -> dict:
+    """``moe_forward`` at decode sizes (one position; the batch of each
+    cell of ``job["moe_cells"]``) on a (2, 2) mesh, impl "psum" and
+    "a2a", on this rank's shards of ``job["moe"]``'s weights and the
+    cell's rows of ``job["x"]``: the whole output gathered, and the
+    local capacity the cell's token count gives."""
+    import torch
+    from repro_torch.launch import make_test_mesh
+    from repro_torch.models.moe import _local_capacity, moe_forward
+    from repro_torch.sharding import make_constrain, shard, spec_for_param
+    torch.set_num_threads(1)
+    mesh = make_test_mesh((2, 2), ("data", "model"))
+    out = {}
+    for cell in job["moe_cells"]:
+        constrain = make_constrain(mesh, fsdp=False)
+        sh = constrain.sharding
+        specs = {k: spec_for_param(["moe", k], v.shape, mesh, fsdp=False,
+                                   moe_layout=cell["impl"])
+                 for k, v in job["moe"].items()}
+        local = {k: shard(torch.as_tensor(v), specs[k], mesh)
+                 for k, v in job["moe"].items()}
+        x = torch.as_tensor(job["x"][:cell["batch"], :1])
+        sh.split = sh.batch_split(cell["batch"], needs_two=True)
+        y, _ = moe_forward(local, sh.split_slice(x), n_experts=job["E"],
+                           top_k=2, capacity_factor=float(job["E"]),
+                           mlp_type="swiglu", impl=cell["impl"],
+                           constrain=constrain, specs=specs)
+        t_loc = sh.split_slice(x).shape[0]
+        out[cell["key"]] = {"y": sh.gather_split(y).numpy(),
+                            "capacity": _local_capacity(t_loc, 2, job["E"],
+                                                        float(job["E"]))}
+    return out
+
+
+def lm_serve_all(rank: int, world: int, job: dict) -> dict:
+    """The serving cases, the MoE decode cells, the fault-tolerant loop
+    and the launchers, in one spawn."""
+    return {"serve": lm_serve_steps(rank, world, job),
+            "moe": moe_decode_cells(rank, world, job),
+            "ft": ft_loop_on_mesh(rank, world, job),
+            "cli": launchers_on_mesh(rank, world, job)}
