@@ -129,6 +129,19 @@ without printing the result line:
               held step by step against the single-device run in the
               same process: prefill ms, decode ms a step, peak memory,
               collectives and host ms in them beside it;
+   dryrun   — ``repro_torch.launch.dryrun`` (no card: rank 0 of the
+              production mesh on meta tensors, a fake process group) in
+              processes of its own for DRYRUN_CELLS, each record's
+              predicted peak, dominant term and MFU fraction printed;
+              [lm-train]'s configuration predicted on the one-rank mesh:
+              its argument bytes exactly the live train state's and a
+              batch's, its peak beside the measured one (see
+              ``_dryrun_phase``);
+   examples — ``examples/torch_{quickstart,serve_ocssvm,lm_anomaly}.py``
+              ``main()`` on the card: their numbers, fupdate (both
+              classes) and decision launched, and fupdate held against
+              its plain version at each fit's own shapes, d = 2 (see
+              ``_examples_phase``);
 4. autotune — the autotuner's path, with the counts set to 0 just before
               and read just after: a quick sweep on the card over
               ``QUICK_CELLS`` and the main path's fupdate and gram cells,
@@ -352,6 +365,27 @@ LMD_CARDS_STEPS = 4
 LMS_RANKS, LMS_ATOL, LMS_TIMEOUT_S = 4, 5e-4, 600
 LMS_B, LMS_PROMPT, LMS_STEPS, LMS_CACHE = 4, 16, 8, 32
 LMS_FULL_LAYERS, LMS_FULL_PROMPT = 2, 64
+# [dryrun]: ``repro_torch.launch.dryrun`` in processes of their own (its
+# fake process group of 256 / 512 ranks never becomes this one's), each
+# DRYRUN_CELLS cell (--arch, --shape, --mesh) one CLI process, all at once,
+# beside one process that predicts [lm-train]'s configuration (LM_ARCH,
+# LMT_BATCH x LMT_SEQ, one microbatch) on the one-rank mesh; no card.
+DRYRUN_CELLS = ((LM_ARCH, "decode_32k", "single"),
+                (LM_ARCH, "train_4k", "single"),
+                (LM_ARCH, "prefill_32k", "multi"))
+DRYRUN_TIMEOUT_S = 300
+DRYRUN_PREDICT = """
+import json, sys
+from repro_torch.configs import get_arch
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_test_mesh
+arch, batch, seq = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+rec = dryrun.cost_cell(get_arch(arch), {"seq_len": seq, "batch": batch,
+                                        "step": "train"},
+                       make_test_mesh((1, 1), ("data", "model")),
+                       fsdp=False, microbatches=1)
+print(json.dumps(rec))
+"""
 BF16_PEAK_FLOPS = 989e12  # the H100 SXM data sheet's dense bf16 rate
 QP_SIZES = 4              # [paper] runs the QP at the first QP_SIZES sizes
 PROFILE_ITERS = 100       # solver iterations inside the profiler window
@@ -1462,6 +1496,7 @@ def _lm_train_phase(dev, src: Path, reset_counts, launch_counts) -> dict:
     from repro_torch.optim.schedules import warmup_cosine
     from repro_torch.runtime.fault_tolerance import FaultTolerantLoop
     from repro_torch.train import train_step as tts
+    from repro_torch.utils.cost_analysis import storage_bytes
     from repro_torch.utils.tree import leaves, map_tree, unflatten
     phase_t0 = time.perf_counter()
     cpu = torch.device("cpu")
@@ -1597,6 +1632,7 @@ def _lm_train_phase(dev, src: Path, reset_counts, launch_counts) -> dict:
         - state.params["embed"].numel()
     state_gib = sum(t.numel() * t.element_size()
                     for t in leaves(state)) / 2**30
+    state_bytes = storage_bytes(state)      # [dryrun]'s argument bytes
     watch = {"wq layer 0": state.params["segments"]["l0"]["attn"]["wq"][0],
              "final_norm": state.params["final_norm"],
              "unembed": state.params["unembed"]}
@@ -1608,6 +1644,7 @@ def _lm_train_phase(dev, src: Path, reset_counts, launch_counts) -> dict:
     secs, bf16_metrics = [], []
     for i in range(LMT_STEPS):
         batch = pipe.next_batch()
+        batch_bytes = storage_bytes(batch)
         t0 = sync()
         state, m = step(state, batch)
         vals = {k: float(v) for k, v in m.items()}
@@ -1741,7 +1778,8 @@ def _lm_train_phase(dev, src: Path, reset_counts, launch_counts) -> dict:
         f"training path); phase seconds={time.perf_counter() - phase_t0:.2f}")
     return {"launches": launches, "step_ms": 1e3 * med,
             "tokens_s": tokens / med, "peak_gib": peak_gib,
-            "metrics": bf16_metrics}
+            "metrics": bf16_metrics, "state_bytes": state_bytes,
+            "batch_bytes": batch_bytes}
 
 
 def _lm_dist_cases():
@@ -1937,7 +1975,8 @@ def _lm_dist_phase(dev, lm_train: dict, reset_counts, launch_counts) -> dict:
         f"kernel lies on the sharded training path); the single-device "
         f"runs, apart: the parent's oracle {oracle}, (b)'s in its rank "
         f"{plain_b}; phase seconds={time.perf_counter() - phase_t0:.2f}")
-    return {"launches": launches, "step_ms": med, "coll_ms": coll_ms}
+    return {"launches": launches, "step_ms": med, "coll_ms": coll_ms,
+            "peak_gib": res["peak_gib"]}
 
 
 def _lm_serve_dist_cases():
@@ -2187,34 +2226,244 @@ def _held_bf16(res: dict, plain: dict, case: dict, what: str):
     return errs, shares, agree
 
 
-def _say_against_f32(res: dict, plain: dict, truth: dict, case: dict,
-                     what: str) -> None:
-    """Says how far a bf16 sharded serving run (``res``) and the
-    single-device bf16 run (``plain``) each lie from the f32 run of the
-    same parameters (``truth``; all three fed the sharded run's tokens):
-    each step's largest share of the bf16 band around the f32 logits and
-    the max abs diff, over the real vocab. A measurement, not a check."""
+def bf16_against_f32(runs: dict, truth: list, vocab: int) -> dict:
+    """How far bf16 runs of one model lie from the f32 run of the same
+    parameters, step by step (ROADMAP C.19's yardstick). ``runs``: name ->
+    each step's logits (prefill first), ``truth``: the f32 run's, all fed
+    the same tokens; over the first ``vocab`` columns. A step's band is
+    the bf16 TOLERANCES around the f32 logits, atol scaled by the step's
+    largest |logit| ([lm]'s decode check). Returns, per run: each step's
+    largest share of its band, the logits past it (a value that is not
+    finite counts) and the max abs diff. Two runs that each lie inside
+    their band lie apart by at most the sum of the two bands (triangle
+    inequality), so the pair of the first two runs needs no check of its
+    own: "pair" holds its shares of that sum and its max abs diff, a
+    measurement."""
     import numpy as np
     from repro_torch.kernels.precision import TOLERANCES
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
-    import torch_dist_ranks as ranks_mod
     tol = TOLERANCES["bf16"]
-    vocab = ranks_mod.lm_dist_cfg(case).vocab_size
-    rows = {"sharded": [], "single-device": []}
-    for g, p, t in zip(res["logits"], plain["logits"], truth["logits"]):
+    names = list(runs)
+    out = {k: {"shares": [], "outside": [], "max_abs": []} for k in names}
+    out["pair"] = {"shares": [], "max_abs": []}
+    for step, t in enumerate(truth):
         t = np.asarray(t[:, :vocab], np.float32)
         band = tol["atol"] * max(1.0, float(np.abs(t).max())) \
             + tol["rtol"] * np.abs(t)
-        for name, x in (("sharded", g), ("single-device", p)):
-            diff = np.abs(np.asarray(x[:, :vocab], np.float32) - t)
-            rows[name].append((float((diff / band).max()),
-                               float(diff.max())))
+        xs = {k: np.asarray(runs[k][step][:, :vocab], np.float32)
+              for k in names}
+        for k, x in xs.items():
+            diff = np.abs(x - t)
+            out[k]["shares"].append(float(np.nanmax(diff / band)))
+            out[k]["outside"].append(int(((diff > band)
+                                          | ~np.isfinite(x)).sum()))
+            out[k]["max_abs"].append(float(np.nanmax(diff)))
+        diff = np.abs(xs[names[0]] - xs[names[1]])
+        out["pair"]["shares"].append(float(np.nanmax(diff / (2 * band))))
+        out["pair"]["max_abs"].append(float(np.nanmax(diff)))
+    return out
+
+
+def _held_bf16_against_f32(res: dict, plain: dict, truth: dict, case: dict,
+                           what: str) -> dict:
+    """A bf16 sharded serving run (``res``) and the single-device bf16 run
+    (``plain``) each held, step by step, inside the bf16 band around the
+    f32 run of the same parameters (``truth``; all three fed the sharded
+    run's tokens; ``bf16_against_f32``), which bounds the two apart by
+    the sum of their bands. Says every step's numbers, the pair's too,
+    then raises if a logit lies past its band; returns the numbers."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_dist_ranks as ranks_mod
+    vocab = ranks_mod.lm_dist_cfg(case).vocab_size
+    check(len(res["logits"]) == len(plain["logits"])
+          == len(truth["logits"]),
+          f"[lm-serve-dist] {what}: {len(res['logits'])}, "
+          f"{len(plain['logits'])} and {len(truth['logits'])} steps")
+    got = bf16_against_f32({"sharded": res["logits"],
+                            "single-device": plain["logits"]},
+                           truth["logits"], vocab)
+    runs = {k: v for k, v in got.items() if k != "pair"}
+    pair = got["pair"]
     say(f"[lm-serve-dist] {what} against the f32 run of the same "
         f"parameters, each step (prefill first): " + "; ".join(
             f"{name} largest share of the bf16 band "
-            f"{[round(a, 3) for a, _ in v]} (max {max(a for a, _ in v):.3f}"
-            f", max abs diff {max(b for _, b in v):.3e})"
-            for name, v in rows.items()))
+            f"{[round(a, 3) for a in v['shares']]} (max "
+            f"{max(v['shares']):.3f}, logits outside "
+            f"{sum(v['outside'])}, max abs diff {max(v['max_abs']):.3e})"
+            for name, v in runs.items())
+        + f"; the pair apart by a largest share of the sum of the two "
+        f"bands {[round(a, 3) for a in pair['shares']]} (max abs diff "
+        f"{max(pair['max_abs']):.3e}; a measurement)")
+    bad = {k: [i for i, n in enumerate(v["outside"]) if n]
+           for k, v in runs.items()}
+    check(not any(bad.values()),
+          f"[lm-serve-dist] {what}: logits past the bf16 yardstick at "
+          f"steps {bad} (largest shares "
+          f"{ {k: round(max(v['shares']), 3) for k, v in runs.items()} })")
+    return got
+
+
+def _dryrun_phase(src: Path, lm_train: dict, lm_dist: dict) -> dict:
+    """[dryrun]: ``repro_torch.launch.dryrun`` — rank 0 of the production
+    mesh on meta tensors, no card — in processes of their own, all at
+    once: each DRYRUN_CELLS cell through the CLI (status "ok"; each
+    record's peak a rank, dominant term and MFU fraction printed: these
+    are predictions for 256 / 512 H100 cards), and [lm-train]'s own
+    configuration on the one-rank mesh, held against what the card
+    measured there: the argument bytes exactly the live train state's
+    plus a batch's; the predicted peak beside [lm-train]'s
+    ``max_memory_allocated`` (the single-device step) and [lm-dist] (b)'s
+    (the same sharded path on one NCCL rank), their ratios printed — a
+    measurement, not a check."""
+    import concurrent.futures
+    phase_t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(src))
+
+    def run(argv):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, *argv], capture_output=True,
+                             text=True, timeout=DRYRUN_TIMEOUT_S, env=env)
+        return out, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as d, \
+            concurrent.futures.ThreadPoolExecutor(len(DRYRUN_CELLS) + 1) \
+            as pool:
+        cells = {c: pool.submit(run, [
+            "-m", "repro_torch.launch.dryrun", "--arch", c[0], "--shape",
+            c[1], "--mesh", c[2], "--out", d]) for c in DRYRUN_CELLS}
+        predict = pool.submit(run, ["-c", DRYRUN_PREDICT, LM_ARCH,
+                                    str(LMT_BATCH), str(LMT_SEQ)])
+        recs = {}
+        for (arch, shape, mesh), fut in cells.items():
+            out, secs = fut.result()
+            check(out.returncode == 0, f"[dryrun] {arch} {shape} {mesh}: "
+                  f"exited {out.returncode}: {out.stderr[-2000:]}")
+            with open(os.path.join(d, f"{arch}__{shape}__{mesh}.json")) as f:
+                rec = json.load(f)
+            recs[(arch, shape, mesh)] = rec
+            check(rec["status"] == "ok", f"[dryrun] {arch} {shape} {mesh}: "
+                  f"{rec['status']} {rec.get('error', '')}")
+            m, r = rec["memory"], rec["roofline"]
+            say(f"[dryrun] {arch} {shape} {rec['mesh']} (prediction for "
+                f"{r['chips']} H100 cards, not a measurement): peak a rank "
+                f"{m['peak_bytes_per_device'] / 1e9:.2f} GB (arguments "
+                f"{m['argument_bytes_per_device'] / 1e9:.2f}, temp "
+                f"{m['temp_bytes_per_device'] / 1e9:.2f}), fits 80 GB "
+                f"{m['fits_80gb_hbm']}; dominant {r['dominant']} (compute "
+                f"{r['compute_s']:.4g} s, memory {r['memory_s']:.4g} s, "
+                f"collective {r['collective_s']:.4g} s), useful FLOPs ratio "
+                f"{rec['analytic']['useful_flops_ratio']:.4f}, MFU fraction "
+                f"{r['mfu_fraction']:.4f}; {rec['ops']} operations counted "
+                f"in {rec['lower_s']} s; process seconds={secs:.2f}")
+        out, secs = predict.result()
+    check(out.returncode == 0, f"[dryrun] the prediction of [lm-train] "
+          f"exited {out.returncode}: {out.stderr[-2000:]}")
+    pred = json.loads(out.stdout.strip().splitlines()[-1])["memory"]
+    want = lm_train["state_bytes"] + lm_train["batch_bytes"]
+    check(pred["argument_bytes_per_device"] == want,
+          f"[dryrun] [lm-train]'s argument bytes: predicted "
+          f"{pred['argument_bytes_per_device']}, the live state and batch "
+          f"{want}")
+    peak = pred["peak_bytes_per_device"] / 2**30
+    say(f"[dryrun] [lm-train]'s configuration ({LM_ARCH}, bf16, AdamW, "
+        f"remat full, B={LMT_BATCH} x S={LMT_SEQ}, one microbatch) on the "
+        f"one-rank mesh: argument bytes {pred['argument_bytes_per_device']}"
+        f" predicted = {lm_train['state_bytes']} of live train state + "
+        f"{lm_train['batch_bytes']} of batch on the card (exact); peak "
+        f"predicted {peak:.2f} GiB (temp "
+        f"{pred['temp_bytes_per_device'] / 2**30:.2f}) against "
+        f"max_memory_allocated {lm_train['peak_gib']:.2f} GiB in [lm-train] "
+        f"(the single-device step: measured / predicted "
+        f"{lm_train['peak_gib'] / peak:.3f}) and {lm_dist['peak_gib']:.2f} "
+        f"GiB in [lm-dist] (b) (this path on one NCCL rank: "
+        f"{lm_dist['peak_gib'] / peak:.3f}); process seconds={secs:.2f}; "
+        f"phase seconds={time.perf_counter() - phase_t0:.2f}")
+    return recs
+
+
+def _examples_phase(dev, reset_counts, fupdate_classes,
+                    hold_fupdate_at) -> dict:
+    """[examples]: ``examples/torch_quickstart.py``,
+    ``torch_serve_ocssvm.py`` and ``torch_lm_anomaly.py`` — their
+    ``main()`` on the card, each with the kernels' counts set to 0 just
+    before and read just after: quickstart's blocked fit and
+    serve_ocssvm's fit launch ``fupdate`` (the fused provider), its
+    scoring ``decision``; lm_anomaly's head takes on-the-fly rows
+    (no launch). A fit's f-cache is checked by nothing but itself, so
+    ``fupdate`` is then held against its plain version at each fit's own
+    shapes (``hold_fupdate_at``): the example's rows (make_toy(0, m),
+    d = 2), S = 2P for the narrow hot loop and S = m for the wide init
+    pass (m <= BLOCK). serve_ocssvm holds ``decision`` itself. Prints
+    their numbers; returns each one's launches and, for the fits,
+    fupdate's max abs err by class."""
+    import importlib.util
+    import inspect
+    import numpy as np
+    import torch
+    from repro_torch.data import make_toy
+    from repro_torch.kernels.decision import ops as dec
+    root = Path(__file__).resolve().parent / "examples"
+    phase_t0 = time.perf_counter()
+    launches = {}
+    for name in ("torch_quickstart", "torch_serve_ocssvm",
+                 "torch_lm_anomaly"):
+        spec = importlib.util.spec_from_file_location(name,
+                                                      root / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        reset_counts()
+        t0 = time.perf_counter()
+        got = mod.main(device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches[name] = {"fupdate": fupdate_classes(),
+                          "decision": dec.DECISION.launches}
+        if name != "torch_lm_anomaly":
+            # Both fits run the fused provider with P = 16 (this
+            # script's P): the hot loop's S = 2P, the init pass's S = m.
+            m = inspect.signature(mod.main).parameters["m"].default
+            x_ex = make_toy(0, m)[0]
+            check(all(launches[name]["fupdate"].values()),
+                  f"[examples] {name}: fupdate launches "
+                  f"{launches[name]['fupdate']}, a class never ran")
+            launches[name]["fupdate_max_abs"] = {
+                c: hold_fupdate_at(x_ex, s, mod.SPEC.kernel,
+                                   f"[examples] {name} fupdate {c} m={m} "
+                                   f"S={s} d={x_ex.shape[1]}")
+                for c, s in (("narrow", 2 * P), ("wide", m))}
+        if name == "torch_quickstart":
+            check(got["paper_converged"] and got["blocked_converged"]
+                  and np.isfinite(got["scores"]).all(),
+                  f"[examples] {name}: {got}")
+            nums = (f"paper iters={got['paper_iters']} MCC="
+                    f"{got['paper_mcc']:.3f}; blocked iters="
+                    f"{got['blocked_iters']} MCC={got['blocked_mcc']:.3f}; "
+                    f"held-out accuracy={got['heldout_accuracy']:.3f}")
+        elif name == "torch_serve_ocssvm":
+            b = got["batches"]
+            check(got["hit"] and all(np.isfinite(v["scores"]).all()
+                                     for v in b.values()),
+                  f"[examples] {name}: cache hit {got['hit']}")
+            ms = {k: round(v["ms"], 3) for k, v in b.items()}
+            acc = {k: round(v["acc"], 3) for k, v in b.items()}
+            nums = (f"{got['n_sv']} SVs, fit iters={got['fit_iters']}, "
+                    f"cold fit+pack ms={got['cold_ms']:.1f}, batch ms {ms}, "
+                    f"accuracy {acc}, micro-batch launches="
+                    f"{got['microbatch']['launches']}")
+            check(launches[name]["decision"] > 0,
+                  f"[examples] {name}: launches {launches[name]}")
+        else:
+            check(got["head_converged"] and np.isfinite(got["losses"]).all()
+                  and got["losses"][-1] < got["losses"][0],
+                  f"[examples] {name}: losses {got['losses'][:3]}..., head "
+                  f"converged {got['head_converged']}")
+            nums = (f"loss {got['losses'][0]:.4f} -> {got['losses'][-1]:.4f}"
+                    f" in {len(got['losses'])} steps, head iters="
+                    f"{got['head_iters']}, AUC={got['auc']:.4f}")
+        say(f"[examples] {name}: {nums}; launches and fupdate max abs err "
+            f"{launches[name]}; "
+            f"seconds={secs:.2f}")
+    say(f"[examples] phase seconds={time.perf_counter() - phase_t0:.2f}")
+    return launches
 
 
 def _summed_launches(got, key: str = "launches") -> dict:
@@ -2362,9 +2611,10 @@ def _lm_serve_dist_cards(cards: int) -> None:
     NCCL ranks, one card each, "tp", the cache sharded (positions over
     "model", rows over "data"): the ranks agree, and the first rank's
     single-device run on its card after it (same parameters and prompt,
-    fed the sharded run's tokens) holds its prefill and each decode
-    step's logits within (b)'s bf16 band (``_held_bf16``), the margin
-    reported; prefill ms, decode ms a step, peak memory a rank and host
+    fed the sharded run's tokens) and the f32 run of the same parameters:
+    each bf16 run's prefill and decode logits within the bf16 band
+    around the f32 run's (``_held_bf16_against_f32``, ROADMAP C.19),
+    the margin and how far apart the two bf16 runs lie reported; prefill ms, decode ms a step, peak memory a rank and host
     ms in collectives."""
     import statistics
     import tempfile
@@ -2409,13 +2659,18 @@ def _lm_serve_dist_cards(cards: int) -> None:
         f"{statistics.median(res['coll_ms'][2:]):.2f}; first sequence "
         f"{res['tokens'][0].tolist()}; seconds="
         f"{time.perf_counter() - t0:.2f}")
-    _say_against_f32(res, res["plain"], res["truth"], case, "(c)")
-    errs, shares, agree = _held_bf16(res, res["plain"], case, "(c)")
-    say(f"[lm-serve-dist] (c) held against the single-device run on card "
-        f"0, fed the sharded run's tokens: logits max abs diff prefill "
-        f"{errs[0]:.3e}, decode {max(errs[1:]):.3e} (largest share of the "
-        f"bf16 band {max(shares):.3f}: margin {1 - max(shares):.1%}); "
-        f"argmax equal in {agree}/{res['tokens'].size}")
+    got = _held_bf16_against_f32(res, res["plain"], res["truth"], case,
+                                 "(c)")
+    agree = int((res["tokens"] == res["plain"]["tokens"]).sum())
+    pair = got["pair"]
+    worst = max(max(got[k]["shares"]) for k in ("sharded", "single-device"))
+    say(f"[lm-serve-dist] (c) held against the f32 run on card 0, with the "
+        f"single-device bf16 run, fed the sharded run's tokens: largest "
+        f"share of the bf16 band {worst:.3f} (margin {1 - worst:.1%}); the "
+        f"two bf16 runs apart by at most {max(pair['shares']):.3f} of the "
+        f"sum of their bands (max abs diff prefill {pair['max_abs'][0]:.3e}"
+        f", decode {max(pair['max_abs'][1:]):.3e}); argmax equal in "
+        f"{agree}/{res['tokens'].size}")
 
 
 def main() -> int:
@@ -2537,6 +2792,37 @@ def main() -> int:
                           precision=precision)
         step = fupdate_plain(*ops, **plain_kw(kind)).abs().max()
         return fup.prepare(x, xsel, delta / step, f, precision=precision)
+
+    example_rng = np.random.default_rng(SEED + 1)
+
+    def hold_fupdate_at(x_np, s, kern, what):
+        """fupdate on the card at a path's own operands, in f32: the rows
+        x_np (m, d) as the path gives them, s of them at random, f uniform
+        in [-1, 1] and a step scaled as in fupdate_operands, held against
+        fupdate_plain by ``hold`` (its worst error goes to the kernel's
+        row of the kernels line). Returns the max abs err."""
+        m = x_np.shape[0]
+        kw = dict(kind=kern.name, gamma=kern.gamma, coef0=kern.coef0,
+                  degree=kern.degree)
+        x = torch.as_tensor(x_np, device=dev)
+        xsel = x[torch.as_tensor(example_rng.choice(m, s, replace=False),
+                                 device=dev)]
+        f = torch.as_tensor(example_rng.uniform(-1, 1, m).astype(np.float32),
+                            device=dev)
+        delta = torch.as_tensor(
+            example_rng.standard_normal(s).astype(np.float32), device=dev)
+        ops = fup.prepare(x, xsel, delta, torch.zeros_like(f))
+        step = fupdate_plain(*ops, **kw).abs().max()
+        ops = fup.prepare(x, xsel, delta / step, f)
+        out = fup.fupdate(*ops[:4], kern, xn=ops[4])
+        torch.cuda.synchronize()
+        plain = fupdate_plain(*ops, **kw)
+        err, rel, tol, share = hold(out, plain, plain - ops[3], what)
+        key = worst_key("fupdate", "f32", s)
+        worst[key] = max(worst[key], err)
+        say(f"{what}: max_abs={err:.3e} max_rel={rel:.3e} tol={tol} "
+            f"tol/median_update={share:.2e}")
+        return err
 
     worst = {"fupdate": 0.0, "fupdate_wide": 0.0, "fupdate_wide_bf16": 0.0,
              "decision": 0.0, "decision_d768": 0.0, "gram": 0.0,
@@ -3474,6 +3760,14 @@ def main() -> int:
         "gram": gram_ops.GRAM.launches})
     path_launches["lm-serve-dist"] = lm_serve_dist["launches"]
 
+    # -- 3o. [dryrun]: the dry run and [lm-train]'s predicted memory -------
+    _dryrun_phase(src, lm_train, lm_dist)
+
+    # -- 3p. [examples]: the port's examples on the card --------------------
+    examples = _examples_phase(dev, reset_counts, fupdate_classes,
+                               hold_fupdate_at)
+    path_launches["examples"] = {k: v["fupdate"] for k, v in examples.items()}
+
     # -- 4. the autotune path ----------------------------------------------
     for kern_ in (fup.FUPDATE, dec.DECISION, gram_ops.GRAM):
         kern_.launches = 0
@@ -3835,7 +4129,9 @@ def main() -> int:
                               "dist": dist_decision, "ckpt": ckpt_decision,
                               "head": head_launches["decision"],
                               "cli": cli_launches["decision"],
-                              "lm": lm["launches"]["decision"]},
+                              "lm": lm["launches"]["decision"],
+                              "examples": {k: v["decision"] for k, v in
+                                           examples.items()}},
          "shape": f"queries={BUCKETS[-1]} support={SUPPORT} d={D} rbf f32"},
         {"name": "gram", "route": "cuda",
          "source": "src/repro_torch/csrc/gram.cu",

@@ -190,13 +190,14 @@ def decode_specs(cfg: ArchConfig, mesh, batch: int, seq_len: int):
     return cache, cache_shd, tok, tok_shd
 
 
-def input_specs(cfg: ArchConfig, shape_name: str, mesh, *,
+def input_specs(cfg: ArchConfig, shape_name, mesh, *,
                 fsdp: bool = True, layout: str = "tp"):
     """Meta tensors for every input of a ``SHAPES`` cell's step and their
     shardings, no storage: (kind, args, shardings), ``kind`` "train"
     (state, batch), "prefill" (params, cache, batch) or "decode" (params,
-    cache, token)."""
-    sh = SHAPES[shape_name]
+    cache, token). ``shape_name`` may also be a cell of its own, a dict
+    with ``SHAPES``' keys (seq_len, batch, step)."""
+    sh = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
     if sh["step"] == "train":
         state = train_state_sds(cfg)
         state_shd = train_state_shardings(cfg, mesh, fsdp=fsdp,
