@@ -142,6 +142,17 @@ without printing the result line:
               classes) and decision launched, and fupdate held against
               its plain version at each fit's own shapes, d = 2 (see
               ``_examples_phase``);
+   lm-ssm   — the scan kernels (``csrc/ssm_scan.cu``, ``csrc/wkv6.cu``;
+              see ``_lm_ssm_phase``): each against its plain version at
+              jamba's and rwkv6-7b's widths, timed beside its bound;
+              rwkv6-7b served at full width and depth and trained at
+              full width on 4 layers, each against the same run through
+              the plain scans; one jamba Mamba block's forward and
+              backward, peak memory through the kernels and through the
+              chunked plain version. [lm], [lm-train], [lm-dist] (a) and
+              [lm-serve-dist] (a) check that jamba's and rwkv6's layers
+              launched the scan kernels, and [lm-train] that the card's
+              two runs of both are bitwise equal;
 4. autotune — the autotuner's path, with the counts set to 0 just before
               and read just after: a quick sweep on the card over
               ``QUICK_CELLS`` and the main path's fupdate and gram cells,
@@ -189,6 +200,8 @@ it needs N cards.
 from __future__ import annotations
 
 import asyncio
+import contextlib
+import gc
 import json
 import os
 import re
@@ -386,6 +399,29 @@ rec = dryrun.cost_cell(get_arch(arch), {"seq_len": seq, "batch": batch,
                        fsdp=False, microbatches=1)
 print(json.dumps(rec))
 """
+# [lm-ssm]: the scan kernels. The archs whose layers run them, and each
+# one's kernel family. (a) the Mamba scan at jamba's widths, SSM_B x SSM_S,
+# and the WKV recurrence at rwkv6-7b's, WKV_B x WKV_S; (b) rwkv6-7b served
+# at [lm]'s LM_BATCH x LM_PROMPT, LM_NEW steps; (c) rwkv6-7b cut to
+# SSM_TRAIN_LAYERS layers, SSM_TRAIN_STEPS steps of SSM_TRAIN_B x
+# SSM_TRAIN_S tokens, and the f32 gradients of SSM_TRAIN_B x SSM_PAIR_S
+# tokens through the kernels and through the plain scans (those take
+# ~6 s for 512 positions on an H100, ~46 s for 4096); (d) one jamba Mamba
+# block at SSM_B x SSM_S.
+SCAN_ARCHS = {"jamba-1.5-large-398b": "ssm_scan", "rwkv6-7b": "wkv6"}
+SSM_B, SSM_S = 1, 4096
+WKV_B, WKV_S = 4, 512
+SSM_TRAIN_LAYERS, SSM_TRAIN_STEPS, SSM_TRAIN_B, SSM_TRAIN_S = 4, 3, 2, 4096
+SSM_PAIR_S = 512
+# (c): each parameter's f32 gradient through the kernels within this
+# relative L2 distance of the plain path's. f32 rounding through the four
+# layers moves a leaf by ~1e-4 (on an H100 a few entries of some leaves,
+# scan and dense alike, by up to 4e-4 of the leaf's largest); a wrong or
+# missing gradient term moves its leaf by 1e-2 or more.
+SSM_GRAD_RTOL = 1e-3
+# (b): the bf16 run through the kernels at most this many times as far
+# from the f32 run as the bf16 run through the plain scans.
+SSM_BF16_RATIO = 1.5
 BF16_PEAK_FLOPS = 989e12  # the H100 SXM data sheet's dense bf16 rate
 QP_SIZES = 4              # [paper] runs the QP at the first QP_SIZES sizes
 PROFILE_ITERS = 100       # solver iterations inside the profiler window
@@ -401,10 +437,11 @@ GRAM_TIMED = (("linear", "f32"), ("linear", "bf16"), ("linear", "f16"),
 # gram's feature widths at a fixed output: whether the output or the
 # inputs set the wgmma kernel's pace.
 GRAM_PACE_D = (64, 128, 256)
-# The rbf decision's exp floor: one expf a query-support pair on the SFUs,
-# 16 a clock on each of the H100's 132 SMs, at 1.83 GHz (the clock of
-# the card's published peak rates).
-SFU_EXPS_PER_S = 132 * 16 * 1.83e9
+# The exp floor (the rbf decision's, one expf a query-support pair; the
+# Mamba scan's, one a state-step) on the SFUs: 16 a clock on each of the
+# H100's 132 SMs, at 1.98 GHz, the boost clock that the f32 peak of
+# ``utils.roofline`` (132 x 128 FMA lanes x 2, 67 TFLOP/s) assumes.
+SFU_EXPS_PER_S = 132 * 16 * 1.98e9
 
 
 class SmokeFailure(RuntimeError):
@@ -1099,6 +1136,7 @@ def _lm_phase(dev, src: Path, reset_counts, fupdate_classes,
     from repro_torch.kernels.fupdate import ops as fup
     from repro_torch.kernels.fupdate.ref import fupdate_plain
     from repro_torch.kernels.precision import TOLERANCES
+    from repro_torch.kernels.scan import ops as sops
     from repro_torch.models.transformer import (forward, init_cache,
                                                 init_params)
     from repro_torch.serve.scorer import bucket_for
@@ -1147,8 +1185,10 @@ def _lm_phase(dev, src: Path, reset_counts, fupdate_classes,
 
     # -- the ten archs, reduced, on the card against the CPU ------------
     t0 = sync()
+    scan_launches = {}
     for name in sorted(ARCHS):
         cfg = ARCHS[name].reduced()
+        sops.reset_counts()
         cpu = init_params(cfg, torch.Generator().manual_seed(SEED),
                           device="cpu")
         card = copy.deepcopy(cpu).to(dev)
@@ -1177,6 +1217,10 @@ def _lm_phase(dev, src: Path, reset_counts, fupdate_classes,
                                   slice(-1, None)))
         derr = close(last[:, 0], full[:, -1],
                      f"{name} reduced: decode vs the full forward")
+        if name in SCAN_ARCHS:
+            scan_launches[name] = _scan_checked("lm", name, _scan_counts(),
+                                                backward=False)
+            note += f"; scan launches {scan_launches[name]}"
         say(f"[lm] reduced {name}: logits card vs cpu max_abs_diff="
             f"{err:.3e}, decode vs full forward max_abs_diff={derr:.3e}"
             f"{note}")
@@ -1438,6 +1482,7 @@ def _lm_phase(dev, src: Path, reset_counts, fupdate_classes,
     say(f"[lm] phase seconds={time.perf_counter() - phase_t0:.2f}")
     pre_ms, dec_ms = runs[1][2], runs[1][3]
     return {"launches": launches, "rows": rows,
+            "scan_launches": scan_launches,
             "prompt": prompt.cpu().numpy(), "prefill_ms": pre_ms,
             "decode_ms": dec_ms, "peak_gib": peak_gb}
 
@@ -1491,6 +1536,7 @@ def _lm_train_phase(dev, src: Path, reset_counts, launch_counts) -> dict:
     import torch
     from repro_torch.configs import ARCHS, get_arch
     from repro_torch.data.synthetic import SyntheticPipeline
+    from repro_torch.kernels.scan import ops as sops
     from repro_torch.models.transformer import init_params, param_tree
     from repro_torch.optim import adamw
     from repro_torch.optim.schedules import warmup_cosine
@@ -1532,8 +1578,10 @@ def _lm_train_phase(dev, src: Path, reset_counts, launch_counts) -> dict:
     # -- the ten archs, reduced: two steps on the card against the CPU ----
     t0 = sync()
     varying = []
+    scan_launches = {}
     for name in sorted(ARCHS):
         cfg = ARCHS[name].reduced()
+        sops.reset_counts()
         host = tts.init_train_state(cfg, init_params(
             cfg, torch.Generator().manual_seed(SEED), device=cpu))
         cards = [to(host, dev) for _ in range(2)]
@@ -1555,10 +1603,19 @@ def _lm_train_phase(dev, src: Path, reset_counts, launch_counts) -> dict:
                                                       leaves(cards[1])))
         if not same:
             varying.append(name)
+        scan = ""
+        if name in SCAN_ARCHS:
+            # the scan kernels' backward sums in a fixed order
+            check(same, f"[lm-train] reduced {name}: the card's two runs "
+                  f"are not bitwise equal")
+            scan_launches[name] = _scan_checked("lm-train", name,
+                                                _scan_counts(), backward=True)
+            scan = f"; scan launches {scan_launches[name]}"
         say(f"[lm-train] reduced {name} ({cfg.optimizer}): 2 steps card vs "
             f"cpu held: loss={float(want['loss']):.6f} grad_norm="
             f"{float(want['grad_norm']):.6f}; parameters max diff "
-            f"{ratio:.3e} lr; the card's two runs bitwise equal: {same}")
+            f"{ratio:.3e} lr; the card's two runs bitwise equal: {same}"
+            f"{scan}")
     say(f"[lm-train] reduced archs: all {len(ARCHS)} held, seconds="
         f"{sync() - t0:.2f}; not bitwise across two runs on the card: "
         f"{varying or 'none'}")
@@ -1776,7 +1833,8 @@ def _lm_train_phase(dev, src: Path, reset_counts, launch_counts) -> dict:
           f"launched slab kernels: {launches}")
     say(f"[lm-train] launches {launches} (no Pallas kernel lies on the "
         f"training path); phase seconds={time.perf_counter() - phase_t0:.2f}")
-    return {"launches": launches, "step_ms": 1e3 * med,
+    return {"launches": launches, "scan_launches": scan_launches,
+            "step_ms": 1e3 * med,
             "tokens_s": tokens / med, "peak_gib": peak_gib,
             "metrics": bf16_metrics, "state_bytes": state_bytes,
             "batch_bytes": batch_bytes}
@@ -1859,6 +1917,7 @@ def _lm_dist_phase(dev, lm_train: dict, reset_counts, launch_counts) -> dict:
                           timeout_s=LMD_TIMEOUT_S, dir=tmp)
     ranks_s = time.perf_counter() - t0
     by_call = {"a": _summed_launches(got)}
+    scan_launches = _rank_scan_launches("lm-dist", got, cases, True)
     oracles = {}
     for case in cases:
         res = got[0][case["key"]]
@@ -1975,7 +2034,8 @@ def _lm_dist_phase(dev, lm_train: dict, reset_counts, launch_counts) -> dict:
         f"kernel lies on the sharded training path); the single-device "
         f"runs, apart: the parent's oracle {oracle}, (b)'s in its rank "
         f"{plain_b}; phase seconds={time.perf_counter() - phase_t0:.2f}")
-    return {"launches": launches, "step_ms": med, "coll_ms": coll_ms,
+    return {"launches": launches, "scan_launches": scan_launches,
+            "step_ms": med, "coll_ms": coll_ms,
             "peak_gib": res["peak_gib"]}
 
 
@@ -2068,6 +2128,7 @@ def _lm_serve_dist_phase(dev, lm: dict, reset_counts, launch_counts) -> dict:
                           timeout_s=LMS_TIMEOUT_S, dir=tmp)
     ranks_s = time.perf_counter() - t0
     by_call = {"a": _summed_launches(got)}
+    scan_launches = _rank_scan_launches("lm-serve-dist", got, cases, False)
     for case in cases:
         res = got[0][case["key"]]
         check(all(np.array_equal(r[case["key"]]["tokens"], res["tokens"])
@@ -2184,7 +2245,8 @@ def _lm_serve_dist_phase(dev, lm: dict, reset_counts, launch_counts) -> dict:
         f"single-device runs, apart: the parent's oracle {oracle}, (b)'s "
         f"in its rank {plain_b}; phase seconds="
         f"{time.perf_counter() - phase_t0:.2f}")
-    return {"launches": launches, "decode_ms": med, "coll_ms": coll_ms}
+    return {"launches": launches, "scan_launches": scan_launches,
+            "decode_ms": med, "coll_ms": coll_ms}
 
 
 def _held_bf16(res: dict, plain: dict, case: dict, what: str):
@@ -2300,6 +2362,543 @@ def _held_bf16_against_f32(res: dict, plain: dict, truth: dict, case: dict,
           f"steps {bad} (largest shares "
           f"{ {k: round(max(v['shares']), 3) for k, v in runs.items()} })")
     return got
+
+
+def _scan_counts() -> dict:
+    """The scan kernels' launches since their counts were set to 0, by
+    name (ssm_scan_fwd, ssm_scan_bwd, wkv6_fwd, wkv6_bwd)."""
+    from repro_torch.kernels.scan import ops as sops
+    return {k.entry[:-len("_launch")]: k.launches for k in sops.KERNELS}
+
+
+def _scan_checked(tag: str, arch: str, counts: dict, backward: bool):
+    """Raises unless ``arch``'s scan kernel launched forward (and, with
+    ``backward``, backward) in ``counts``."""
+    fam = SCAN_ARCHS[arch]
+    need = [f"{fam}_fwd"] + ([f"{fam}_bwd"] if backward else [])
+    check(all(counts[k] > 0 for k in need), f"[{tag}] {arch}: the scan "
+          f"kernels were not launched on its path: {counts}")
+    return {k: counts[k] for k in need}
+
+
+def _rank_scan_launches(tag: str, got: list, cases: list,
+                        backward: bool) -> dict:
+    """The scan kernels' launches in each jamba / rwkv6 case's sharded
+    run, as spawned ``lm_dist_steps`` / ``lm_serve_steps`` ranks report
+    them, summed over the ranks; raises unless the arch's kernel
+    launched."""
+    out = {}
+    for case in cases:
+        if case["arch"] in SCAN_ARCHS:
+            per = [r[case["key"]]["scan_launches"] for r in got]
+            out[case["key"]] = _scan_checked(
+                tag, case["arch"], {k: sum(c[k] for c in per)
+                                    for k in per[0]}, backward)
+    say(f"[{tag}] (a) scan launches on the sharded path, the ranks' counts "
+        f"summed: {out}")
+    return out
+
+
+def _named_leaves(tree, prefix=""):
+    """(path, leaf) of each leaf of a parameter tree, in
+    ``utils.tree.leaves``' order (dicts by sorted key, lists in order)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], f"{prefix}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, t in enumerate(tree):
+            yield from _named_leaves(t, f"{prefix}[{i}]")
+    else:
+        yield prefix, tree
+
+
+@contextlib.contextmanager
+def _plain_scans():
+    """The LM layers' scans through the plain versions
+    (``kernels.scan.ref.ssm_scan_plain`` / ``wkv6_plain``: PyTorch
+    operations on the card, chunked remat under autograd) in place of
+    the kernels, for holding a model's run through the kernels against
+    the same run without them."""
+    from repro_torch.kernels.scan import ref as sref
+    from repro_torch.models import mamba as tmam
+    from repro_torch.models import rwkv as trwkv
+    saved = tmam.ssm_scan, trwkv.wkv6
+    tmam.ssm_scan, trwkv.wkv6 = sref.ssm_scan_plain, sref.wkv6_plain
+    try:
+        yield
+    finally:
+        tmam.ssm_scan, trwkv.wkv6 = saved
+
+
+def _lm_ssm_phase(dev, reset_counts) -> dict:
+    """[lm-ssm]: the scan kernels (``csrc/ssm_scan.cu``, ``csrc/wkv6.cu``)
+    at published widths, and the two recurrent archs through them.
+
+    (a) each kernel against its plain version on the same inputs: the
+    Mamba scan at jamba's widths (SSM_B x SSM_S, inner 16384, N 16) and
+    the WKV recurrence at rwkv6-7b's (WKV_B x WKV_S, H = D = 64),
+    forward (y, last state) against ``ssm_scan_plain`` / ``wkv6_plain``
+    and backward (every gradient) against autograd through them, within
+    the f32 TOLERANCES (atol scaled by the largest plain value); each
+    timed (CUDA events), beside its plain version's time and its bound.
+    (b) rwkv6-7b at published width and depth, bf16, random weights:
+    prefill LM_BATCH x LM_PROMPT tokens, LM_NEW greedy decode steps; the
+    same run through the plain scans on the card, and the same
+    parameters in f32 through each, all fed its tokens: the f32 runs'
+    logits within the bf16 band of each other at every step ([lm]'s
+    decode check), the bf16 runs' distance from the f32 run (C.19's
+    yardstick), the kernels' at most SSM_BF16_RATIO times the plain
+    scans'.
+    (c) rwkv6-7b at published widths cut to SSM_TRAIN_LAYERS layers (so
+    that AdamW's state fits one card), remat "full": SSM_TRAIN_STEPS
+    steps of SSM_TRAIN_B x SSM_TRAIN_S tokens in bf16 through the kernels
+    (step ms, peak memory); then, with the parameters in f32, the loss and
+    the gradient of every parameter of SSM_TRAIN_B x SSM_PAIR_S tokens
+    through the kernels and through the plain scans in the same process:
+    the loss within [lm-train]'s rtol, each leaf's gradient within
+    SSM_GRAD_RTOL of the plain path's in relative L2 distance (ms and
+    peak memory of each). (d) one jamba Mamba block at published widths (jamba whole
+    is 398B parameters), forward and backward at SSM_B x SSM_S, through
+    the kernels and through the chunked plain version: outputs and
+    gradients within the bf16 band, peak memory of each. The kernels'
+    counts are set to 0 before (b) and read after (d); launches made in
+    (a) do not count."""
+    import dataclasses
+    import statistics
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import SyntheticPipeline
+    from repro_torch.kernels.precision import TOLERANCES
+    from repro_torch.kernels.scan import ops as sops
+    from repro_torch.kernels.scan import ref as sref
+    from repro_torch.models.mamba import mamba_forward, mamba_init
+    from repro_torch.models.transformer import init_cache, init_params
+    from repro_torch.train import train_step as tts
+    from repro_torch.train.serve_step import make_decode, make_prefill
+    from repro_torch.utils.roofline import terms
+    from repro_torch.utils.tree import leaves, map_tree
+    phase_t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    tol32, tol16 = TOLERANCES["f32"], TOLERANCES["bf16"]
+
+    def sync():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def once_ms(fn):
+        """fn()'s result and its device ms, timed once."""
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b)
+
+    def event_ms(fn, iters):
+        fn()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / iters
+
+    def held(got, want, what, tol):
+        """got against want within ``tol``, atol scaled by max |want|;
+        returns the max abs diff and its largest share of the band."""
+        got, want = got.detach().float(), want.detach().float()
+        top = float(want.abs().max())
+        band = tol["atol"] * max(1.0, top) + tol["rtol"] * want.abs()
+        diff = (got - want).abs()
+        bad = int((diff > band).sum()) + int((~torch.isfinite(got)).sum())
+        check(got.shape == want.shape and bad == 0,
+              f"[lm-ssm] {what}: {bad} values outside the band (max abs "
+              f"diff {float(diff.max()):.3e}, max |want| {top:.3e})")
+        return float(diff.max()), float((diff / band).max())
+
+    def bound(nbytes, flops, exps):
+        """The least time: bytes at 3.35 TB/s, f32 operations at 67
+        TFLOP/s (``utils.roofline.terms``), and the exps on the SFUs at
+        the same clock."""
+        t = terms(flops, nbytes, 0.0, 1, "f32")
+        exp_s = exps / SFU_EXPS_PER_S
+        ms = 1e3 * max(t.memory_s, t.compute_s, exp_s)
+        return ms, ("bytes" if t.memory_s >= max(t.compute_s, exp_s)
+                    else "operations")
+
+    def peak_reset():
+        # tensors held only by reference cycles would otherwise count in
+        # the next peak
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated(dev) / 2**30
+
+    # -- (a) each kernel against its plain version at published widths ----
+    jamba, rwkv = get_arch("jamba-1.5-large-398b"), get_arch("rwkv6-7b")
+    inner, N = jamba.ssm_inner, jamba.ssm_state
+    H, D = rwkv.rwkv_heads, rwkv.rwkv_head_dim
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def rand(*shape, lo=None, hi=None):
+        if lo is None:
+            return torch.randn(shape, generator=gen, **f32)
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, **f32)
+
+    ssm_in = [rand(SSM_B, SSM_S, inner), rand(SSM_B, SSM_S, inner,
+                                                lo=1e-3, hi=0.1),
+              rand(SSM_B, SSM_S, N), rand(SSM_B, SSM_S, N),
+              -torch.arange(1, N + 1, **f32).repeat(inner, 1),
+              torch.ones(inner, **f32), 0.1 * rand(SSM_B, inner, N)]
+    wkv_in = [rand(WKV_B, WKV_S, H, D), rand(WKV_B, WKV_S, H, D),
+              rand(WKV_B, WKV_S, H, D),
+              torch.exp(-torch.exp(rand(WKV_B, WKV_S, H, D, lo=-6.0,
+                                        hi=0.0))),
+              0.1 * rand(H, D), 0.1 * rand(WKV_B, H, D, D)]
+    n_ssm = SSM_B * SSM_S * inner * N          # state-steps
+    n_wkv = WKV_B * WKV_S * H * D * D
+    nc_ssm = sref.n_chunks(SSM_S)[1]
+    nc_wkv = sref.n_chunks(WKV_S)[1]
+    state_ssm, state_wkv = SSM_B * inner * N, WKV_B * H * D * D
+    # Bytes: each input read and each output written once (the carries
+    # too); operations: the f32 FLOPs the recurrence needs (an FMA is 2),
+    # not the kernels' instruction mix. Mamba, a state-step: 6 forward
+    # (dt A, dt u B, the update, the y term), 17 backward (the recompute
+    # and the gradient terms), one exp each way. WKV, a state-step: 5
+    # forward (r S and w S + k v; the bonus r (u k) v is O(D) a step,
+    # 6 D counted), 14 backward (the recompute 3, dr 2, dS_prev 3, dk 2,
+    # dv 2, dw 2; the sums with u and gy v O(D) a step, 12 D counted).
+    spec = {
+        "ssm_scan_fwd": (
+            4 * (3 * SSM_B * SSM_S * inner + 2 * SSM_B * SSM_S * N
+                 + inner * N + inner + (2 + nc_ssm) * state_ssm),
+            6 * n_ssm, n_ssm),
+        "ssm_scan_bwd": (
+            4 * (5 * SSM_B * SSM_S * inner + 4 * SSM_B * SSM_S * N
+                 + 2 * inner * N + 2 * inner + (2 + nc_ssm) * state_ssm),
+            17 * n_ssm, n_ssm),
+        "wkv6_fwd": (
+            4 * (5 * WKV_B * WKV_S * H * D + H * D
+                 + (2 + nc_wkv) * state_wkv),
+            5 * n_wkv + 6 * WKV_B * WKV_S * H * D, 0),
+        "wkv6_bwd": (
+            4 * (9 * WKV_B * WKV_S * H * D + 2 * H * D
+                 + (2 + nc_wkv) * state_wkv),
+            14 * n_wkv + 12 * WKV_B * WKV_S * H * D, 0),
+    }
+    rows = {}
+    for fam, ins, plain_fn, out_names, in_names in (
+            ("ssm_scan", ssm_in, sref.ssm_scan_plain, ("y", "h"),
+             "u dt B C A D h0".split()),
+            ("wkv6", wkv_in, sref.wkv6_plain, ("y", "S"),
+             "r k v w u S0".split())):
+        fwd_launch = getattr(sops, f"launch_{fam.replace('_scan', '')}_fwd")
+        bwd_launch = getattr(sops, f"launch_{fam.replace('_scan', '')}_bwd")
+        kin = [t.contiguous() for t in ins]
+        y, last, carries = fwd_launch(*kin)()
+        # The plain versions (thousands of small operations, no first-call
+        # cost of their own) are timed once, on the calls the checks make:
+        # the forward without autograd, the backward through autograd
+        # (which recomputes each chunk, as the kernel does).
+        with torch.no_grad():
+            want, plain_fwd_ms = once_ms(lambda: plain_fn(*kin))
+        errs = [held(g, w, f"{fam}_fwd {n}", tol32)[0]
+                for g, w, n in zip((y, last), want, out_names)]
+        gy = torch.randn(y.shape, generator=gen, **f32)
+        gl = torch.randn(last.shape, generator=gen, **f32)
+        grads = bwd_launch(gy, gl, *kin[:-1], carries)()
+        live = [t.detach().requires_grad_() for t in kin]
+        outs = plain_fn(*live)
+        _, plain_bwd_ms = once_ms(
+            lambda: torch.autograd.backward(outs, [gy, gl]))
+        berrs = [held(g, w.grad, f"{fam}_bwd d{n}", tol32)[0]
+                 for g, w, n in zip(grads, live, in_names)]
+        del live, outs
+        times = {
+            f"{fam}_fwd": (event_ms(lambda: fwd_launch(*kin)(), 5),
+                           plain_fwd_ms),
+            f"{fam}_bwd": (event_ms(lambda: bwd_launch(
+                gy, gl, *kin[:-1], carries)(), 3), plain_bwd_ms),
+        }
+        shape = (f"B={SSM_B} S={SSM_S} inner={inner} N={N} (jamba)"
+                 if fam == "ssm_scan" else
+                 f"B={WKV_B} S={WKV_S} H={H} D={D} (rwkv6-7b)")
+        for name, err in ((f"{fam}_fwd", max(errs)),
+                          (f"{fam}_bwd", max(berrs))):
+            ms, plain_ms = times[name]
+            b_ms, b_by = bound(*spec[name])
+            rows[name] = {
+                "name": name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{fam}.cu",
+                "replaces": ("src/repro/models/mamba.py:47"
+                             if fam == "ssm_scan" else
+                             "src/repro/models/rwkv.py:96"),
+                "launches": 0, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None, "pass": True,
+                "shape": f"{shape}, f32 (lax.scan; no Pallas kernel)"}
+            say(f"[lm-ssm] (a) {name} {shape}: max_abs_err={err:.3e} "
+                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.2f} bound_ms="
+                f"{b_ms:.5f} ({b_by}) bound_share={b_ms / ms:.4f}")
+        del kin, y, last, carries, grads, want
+    del ssm_in, wkv_in, gy, gl
+    peak_reset()
+
+    say(f"[lm-ssm] (a) seconds={time.perf_counter() - phase_t0:.2f}")
+
+    # -- (b) rwkv6-7b served at published width and depth ----------------
+    part_t0 = time.perf_counter()
+    reset_counts()
+    rng = np.random.default_rng(SEED + 31)
+    prompt = torch.as_tensor(rng.integers(0, rwkv.vocab_size, (
+        LM_BATCH, LM_PROMPT)).astype(np.int32), device=dev)
+
+    def generate(cfg, params, forced=None):
+        """Logits of the prefill's last position and of each decode step,
+        the tokens, prefill ms, decode ms a step and wkv6 launches a
+        decode step; ``forced``: feed these tokens in place of the greedy
+        ones."""
+        prefill, decode = make_prefill(cfg), make_decode(cfg)
+        cache = init_cache(cfg, LM_BATCH, LM_PROMPT + LM_NEW, device=dev)
+        t0 = sync()
+        logits, cache = prefill(params, cache, {"tokens": prompt})
+        out = [logits[:, -1].float()]
+        tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+        t1 = sync()
+        n0 = sops.WKV_FWD.launches
+        toks = [tok]
+        for step in range(LM_NEW):
+            if forced is not None:
+                tok = forced[:, step:step + 1]
+            logits, cache = decode(params, cache, tok)
+            out.append(logits[:, -1].float())
+            tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+            toks.append(tok)
+        t2 = sync()
+        return (out, torch.cat(toks, dim=1), 1e3 * (t1 - t0),
+                1e3 * (t2 - t1) / LM_NEW,
+                (sops.WKV_FWD.launches - n0) / LM_NEW)
+
+    # The served bf16 model through the kernels, then through the plain
+    # scans fed its tokens; the same parameters in f32 both ways, fed the
+    # same tokens. Random weights at this depth carry a perturbation of a
+    # logit far (on an H100: the two f32 runs 0.0026 apart at max |logit|
+    # 4.48, each bf16 run ~0.41 from them): the kernels are held against
+    # the plain scans in f32, within the bf16 band, and the bf16 runs by
+    # C.19's yardstick, each against the f32 run, the kernels' run no
+    # further from it than SSM_BF16_RATIO x the plain run.
+    runs = {}
+    for dt in ("bf16", "f32"):
+        cfg = (rwkv if dt == "bf16"
+               else dataclasses.replace(rwkv, param_dtype="float32"))
+        peak_reset()
+        t0 = sync()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+            SEED), device=dev)
+        init_s = sync() - t0
+        if dt == "bf16":
+            n_params = sum(p.numel() for p in params.parameters())
+            logits, toks, pre_ms, dec_ms, per_step = generate(cfg, params)
+            serve_gib, serve_init_s = peak_gib(), init_s
+            check(per_step == rwkv.n_layers, f"[lm-ssm] (b) {per_step} "
+                  f"wkv6 launches a decode step against {rwkv.n_layers} "
+                  f"layers")
+            runs["bf16 kernels"] = logits
+        else:
+            runs["f32 kernels"] = generate(cfg, params, forced=toks)[0]
+        counts = _scan_counts()
+        with _plain_scans():
+            plain = generate(cfg, params, forced=toks)
+        check(_scan_counts() == counts, "[lm-ssm] (b) the plain run "
+              "launched scan kernels")
+        runs[f"{dt} plain"] = plain[0]
+        if dt == "bf16":
+            plain_pre, plain_dec = plain[2], plain[3]
+        del params, plain
+    v = rwkv.vocab_size
+    shares = [held(g[:, :v], w[:, :v], f"(b) f32 step {i} logits, kernels "
+                   f"vs plain", tol16)[1] for i, (g, w) in enumerate(
+                       zip(runs["f32 kernels"], runs["f32 plain"]))]
+    far = {k: max(float((g[:, :v] - w[:, :v]).abs().max())
+                  for g, w in zip(runs[k], runs["f32 plain"]))
+           for k in ("bf16 kernels", "bf16 plain", "f32 kernels")}
+    pair = max(float((g[:, :v] - w[:, :v]).abs().max())
+               for g, w in zip(runs["bf16 kernels"], runs["bf16 plain"]))
+    check(far["bf16 kernels"] <= SSM_BF16_RATIO * far["bf16 plain"],
+          f"[lm-ssm] (b) the bf16 run through the kernels lies "
+          f"{far['bf16 kernels']:.4f} from the f32 run, the plain scans' "
+          f"{far['bf16 plain']:.4f}")
+    top = max(float(x[:, :v].abs().max()) for x in runs["f32 plain"])
+    say(f"[lm-ssm] (b) rwkv6-7b full width and depth bf16 ({n_params} "
+        f"parameters, param_count {rwkv.param_count()}; init seconds="
+        f"{serve_init_s:.2f}): prefill {LM_BATCH} x {LM_PROMPT} ms="
+        f"{pre_ms:.2f}, decode {LM_NEW} steps ms/step={dec_ms:.2f}, wkv6 "
+        f"launches a decode step {per_step:.0f}; peak allocated "
+        f"{serve_gib:.2f} GiB; through the plain scans: prefill ms="
+        f"{plain_pre:.2f}, decode ms/step={plain_dec:.2f}. f32 parameters, "
+        f"kernels against plain, largest share of the bf16 band a step "
+        f"(prefill first) {[round(s, 4) for s in shares]}; largest |diff| "
+        f"from the f32 plain run over the steps (max |logit| {top:.3f}): "
+        f"{ {k: round(x, 5) for k, x in far.items()} }; the two bf16 runs "
+        f"apart by {pair:.5f}; seconds={time.perf_counter() - part_t0:.2f}")
+    del runs, logits
+    peak_reset()
+
+    # -- (c) rwkv6-7b at published widths, SSM_TRAIN_LAYERS layers -------
+    # bf16 (the arch's type) through the kernels: SSM_TRAIN_STEPS timed
+    # steps. bf16 rounding moves this model's gradients far (on an H100
+    # the grad norm parts by 1.3% between the two paths at step 0 in bf16,
+    # by 1.3e-5 in f32), so the paths are held against each other in f32,
+    # leaf by leaf: a wrong du or dw moves the global norm of ~28 by less
+    # than a leaf of norm 0.003-0.45 would show.
+    part_t0 = time.perf_counter()
+    cfg4 = dataclasses.replace(rwkv, n_layers=SSM_TRAIN_LAYERS, remat="full")
+    peak_reset()
+    state = tts.init_train_state(cfg4, init_params(
+        cfg4, torch.Generator(device=dev).manual_seed(SEED), device=dev))
+    n4 = sum(t.numel() for t in leaves(state.params))
+    pipe = SyntheticPipeline(cfg4, batch=SSM_TRAIN_B, seq_len=SSM_TRAIN_S,
+                             seed=SEED, device=dev)
+    step = tts.make_train_step(cfg4)
+    metrics, secs = [], []
+    for _ in range(SSM_TRAIN_STEPS):
+        batch = pipe.next_batch()
+        t0 = sync()
+        state, m = step(state, batch)
+        metrics.append({k: float(x) for k, x in m.items()})
+        secs.append(sync() - t0)
+    check(all(np.isfinite(x) for m in metrics for x in m.values()),
+          f"[lm-ssm] (c) bf16: {metrics}")
+    train_gib = peak_gib()
+    del state, step, pipe
+
+    cfg32 = dataclasses.replace(cfg4, param_dtype="float32")
+    params32 = tts.init_train_state(cfg32, init_params(
+        cfg32, torch.Generator(device=dev).manual_seed(SEED),
+        device=dev)).params
+    names = [n for n, _ in _named_leaves(params32)]
+    batch = SyntheticPipeline(cfg32, batch=SSM_TRAIN_B, seq_len=SSM_PAIR_S,
+                              seed=SEED, device=dev).next_batch()
+    pair = {}
+    for path in ("kernels", "plain"):
+        peak_reset()
+        base = torch.cuda.memory_allocated(dev) / 2**30
+        counts = _scan_counts()
+        with (_plain_scans() if path == "plain"
+              else contextlib.nullcontext()):
+            live = map_tree(lambda t: t.detach().requires_grad_(True),
+                            params32)
+            t0 = sync()
+            # the loss alone: its extras' graph would keep every
+            # parameter alive after the pass
+            loss = tts.loss_fn(live, cfg32, batch)[0]
+            ts = leaves(live)
+            gs = torch.autograd.grad(loss, ts, allow_unused=True)
+            pair[path] = dict(
+                loss=float(loss.detach()), secs=sync() - t0,
+                gib=peak_gib(), base=base,
+                grads=[torch.zeros_like(t) if g is None else g
+                       for t, g in zip(ts, gs)])
+        if path == "plain":
+            check(_scan_counts() == counts, "[lm-ssm] (c) the plain path "
+                  "launched scan kernels")
+        del live, ts, gs, loss
+    a, b = pair["kernels"]["loss"], pair["plain"]["loss"]
+    check(abs(a - b) <= LMT_LOSS_RTOL * abs(b),
+          f"[lm-ssm] (c) f32 loss {a} against the plain path's {b}")
+    rel = {name: (float((g - w).norm() / w.norm().clamp_min(1e-30))
+                  if bool(torch.isfinite(g).all()) else float("inf"))
+           for name, g, w in zip(names, pair["kernels"]["grads"],
+                                 pair["plain"]["grads"])}
+    bad = {n: x for n, x in rel.items() if not x <= SSM_GRAD_RTOL}
+    check(not bad, f"[lm-ssm] (c) f32 gradients through the kernels "
+          f"past {SSM_GRAD_RTOL} of the plain path's (relative L2): {bad}")
+    scan_leaves = {n: f"{x:.2e}" for n, x in rel.items()
+                   if n.rsplit("/", 1)[-1].split("[")[0]
+                   in ("u", "w_base", "w_lora_a", "w_lora_b")}
+    worst = max(rel, key=rel.get)
+    del pair["kernels"]["grads"], pair["plain"]["grads"], params32
+    med = 1e3 * statistics.median(secs[1:])
+    say(f"[lm-ssm] (c) rwkv6-7b published widths, {SSM_TRAIN_LAYERS} layers "
+        f"({n4} parameters), AdamW, remat full, {SSM_TRAIN_B} x "
+        f"{SSM_TRAIN_S} tokens a step. bf16 through the kernels, "
+        f"{SSM_TRAIN_STEPS} steps: losses "
+        f"{[round(m['loss'], 6) for m in metrics]}, grad norms "
+        f"{[round(m['grad_norm'], 5) for m in metrics]}, step ms "
+        f"(median of steps 2..) {med:.2f}, peak allocated {train_gib:.2f} "
+        f"GiB. f32 loss and gradients of {SSM_TRAIN_B} x {SSM_PAIR_S} "
+        f"tokens, kernels against plain: loss {a:.7f} against {b:.7f}; "
+        f"{len(names)} leaves' gradients within {SSM_GRAD_RTOL} (relative "
+        f"L2), the largest {rel[worst]:.3e} ({worst}); the WKV leaves' "
+        f"{scan_leaves}; ms kernels={1e3 * pair['kernels']['secs']:.2f} "
+        f"plain={1e3 * pair['plain']['secs']:.2f}; peak allocated "
+        f"kernels={pair['kernels']['gib']:.2f} GiB plain="
+        f"{pair['plain']['gib']:.2f} GiB (live before each: "
+        f"{pair['kernels']['base']:.2f}, {pair['plain']['base']:.2f}: the "
+        f"parameters, then the kernels' gradients too); seconds="
+        f"{time.perf_counter() - part_t0:.2f}")
+    peak_reset()
+
+    # -- (d) one jamba Mamba block at published widths --------------------
+    part_t0 = time.perf_counter()
+    p = mamba_init(torch.Generator(device=dev).manual_seed(SEED), jamba,
+                   jamba.dtype)
+    x0 = torch.randn((SSM_B, SSM_S, jamba.d_model), generator=gen,
+                     device=dev).to(jamba.dtype)
+    gy = torch.randn(x0.shape, generator=gen, device=dev).to(jamba.dtype)
+    block = {}
+    for path in ("kernels", "plain"):
+        peak_reset()
+        base = torch.cuda.memory_allocated(dev) / 2**30
+        live = {k: t.detach().requires_grad_() for k, t in p.items()}
+        x = x0.detach().requires_grad_()
+        t0 = sync()
+        with (_plain_scans() if path == "plain"
+              else contextlib.nullcontext()):
+            y, _ = mamba_forward(live, x, jamba)
+            y.backward(gy)
+        block[path] = dict(ms=1e3 * (sync() - t0), gib=peak_gib(),
+                           base=base,
+                           y=y.detach(), dx=x.grad, dA=live["A_log"].grad,
+                           dD=live["D"].grad, counts=_scan_counts())
+        del live, x, y
+    check(block["plain"]["counts"] == block["kernels"]["counts"],
+          "[lm-ssm] (d) the plain path launched scan kernels")
+    errs = {k: held(block["kernels"][k], block["plain"][k], f"(d) {k}",
+                    tol16)[1] for k in ("y", "dx", "dA", "dD")}
+    n_block = sum(t.numel() for t in p.values())
+    say(f"[lm-ssm] (d) one jamba Mamba block at published widths (d "
+        f"{jamba.d_model}, inner {inner}, N {N}, dt_rank "
+        f"{jamba.dt_rank_actual}; {n_block} parameters of jamba's "
+        f"{jamba.param_count()}: the cut), bf16, B={SSM_B} S={SSM_S}, "
+        f"forward + backward: peak allocated kernels="
+        f"{block['kernels']['gib']:.2f} GiB plain (chunked)="
+        f"{block['plain']['gib']:.2f} GiB (live before each: "
+        f"{block['kernels']['base']:.2f}, {block['plain']['base']:.2f}); "
+        f"ms kernels={block['kernels']['ms']:.1f} plain="
+        f"{block['plain']['ms']:.1f}; "
+        f"largest share of the bf16 band {errs}; seconds="
+        f"{time.perf_counter() - part_t0:.2f}")
+    del p, block
+    peak_reset()
+
+    counts = _scan_counts()
+    for k in rows:
+        rows[k]["launches"] = counts[k]
+        check(counts[k] > 0, f"[lm-ssm] {k} launched no time on the path")
+    say(f"[lm-ssm] launches on (b)-(d) {counts}; phase seconds="
+        f"{time.perf_counter() - phase_t0:.2f}")
+    return {"rows": rows, "launches": counts,
+            "serve": {"prefill_ms": pre_ms, "decode_ms": dec_ms,
+                      "gib": serve_gib},
+            "train_ms": med}
 
 
 def _dryrun_phase(src: Path, lm_train: dict, lm_dist: dict) -> dict:
@@ -2691,6 +3290,7 @@ def main() -> int:
     from repro_torch.kernels.fupdate.ref import fupdate_plain
     from repro_torch.kernels.gram import ops as gram_ops
     from repro_torch.kernels.gram.ref import gram_plain
+    from repro_torch.kernels.scan import ops as scan_ops
     from repro_torch.kernels.precision import (PRECISIONS, TOLERANCES,
                                                truth_tolerance)
     from repro_torch.utils.roofline import terms
@@ -3023,6 +3623,7 @@ def main() -> int:
     def reset_counts():
         for kern_ in (fup.FUPDATE, dec.DECISION, gram_ops.GRAM):
             kern_.reset_counts()
+        scan_ops.reset_counts()
 
     def fupdate_classes():
         by = fup.FUPDATE.by_entry
@@ -3768,6 +4369,21 @@ def main() -> int:
                                hold_fupdate_at)
     path_launches["examples"] = {k: v["fupdate"] for k, v in examples.items()}
 
+    # -- 3q. [lm-ssm]: the scan kernels, rwkv6-7b and a jamba block ------
+    lm_ssm = _lm_ssm_phase(dev, reset_counts)
+    scan_rows = list(lm_ssm["rows"].values())
+    for row in scan_rows:
+        fam = row["name"].rsplit("_", 1)[0]
+        arch = next(a for a, f in SCAN_ARCHS.items() if f == fam)
+        row["launches_by_path"] = {
+            "lm": lm["scan_launches"][arch].get(row["name"], 0),
+            "lm-train": lm_train["scan_launches"][arch].get(row["name"], 0),
+            "lm-dist": {k: v.get(row["name"], 0) for k, v in
+                        lm_dist["scan_launches"].items()},
+            "lm-serve-dist": {k: v.get(row["name"], 0) for k, v in
+                              lm_serve_dist["scan_launches"].items()},
+            "lm-ssm": row["launches"]}
+
     # -- 4. the autotune path ----------------------------------------------
     for kern_ in (fup.FUPDATE, dec.DECISION, gram_ops.GRAM):
         kern_.launches = 0
@@ -4147,7 +4763,7 @@ def main() -> int:
          "max_abs_err": worst["gram_bf16"], "ms": h_ms, "plain_ms": h_plain,
          "bound_ms": h_b, "bound_by": h_by, "library_ms": h_lib,
          "pass": True, "shape": f"m=n={M} d={D} linear bf16 (wgmma class)"},
-    ] + lm["rows"]}))
+    ] + lm["rows"] + scan_rows}))
     _say_cards_and_result()
     return 0
 

@@ -40,9 +40,11 @@ Each cell writes one JSON record in the reference's layout:
   ``mfu_fraction``.
 
 A cell that raises is recorded as ``failed`` and the sweep goes on. So
-is a cell whose op stream passes ``MAX_OPS`` operations (the Mamba and
-RWKV scans are a Python loop over the sequence: at 4096 and 32768
-positions their op streams run to tens of millions).
+is a cell whose op stream passes ``MAX_OPS`` operations. (The Mamba and
+RWKV scans are one operator a layer and a pass, ``kernels.scan.ops``,
+whose fake implementation gives their shapes and whose FLOP formulas the
+counter reads; as a Python loop over the sequence their op streams ran
+to tens of millions at 4096 and 32768 positions.)
 
 The fake process group lives in this process only: run the dry run as a
 process of its own (``main`` does), never in a process that holds a

@@ -1,11 +1,13 @@
 """Selective SSM (Mamba) block — the time-step scan (the JAX package's
 ``repro.models.mamba``).
 
-The recurrence h_t = exp(dt_t * A) * h_{t-1} + dt_t * B_t * u_t runs as a
-plain loop over time in f32, carrying only the (B, inner, N) state.
-(The JAX package chunks its scan under ``jax.checkpoint`` for the
-backward pass; the forward values are the same.) Decode is one step
-with the state's conv tail.
+The recurrence h_t = exp(dt_t * A) * h_{t-1} + dt_t * B_t * u_t runs in
+f32 as one operator, ``repro_torch::ssm_scan_fwd`` (``kernels.scan.ops``):
+a hand-written kernel on the card (``csrc/ssm_scan.cu``), the plain loop
+over time on the CPU. Like the JAX package's chunked ``lax.scan`` under
+``jax.checkpoint``, it carries only the (B, inner, N) state, and its
+backward keeps one carry a chunk of 128 steps and recomputes each chunk.
+Decode is the same operator over one step with the state's conv tail.
 
 On a sharded layout the block gets its weights gathered at use (its
 "inner" dims are "model"-sharded at rest) and runs replicated over
@@ -18,6 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.scan.ops import ssm_scan
 from repro_torch.models.layers import dense_init, normal
 
 Tensor = torch.Tensor
@@ -49,14 +52,7 @@ def _ssm_scan(u: Tensor, dt: Tensor, B: Tensor, C: Tensor, A: Tensor,
     """u, dt: (Bt, S, inner); B, C: (Bt, S, N); A: (inner, N);
     h0: (Bt, inner, N). Returns (y: (Bt, S, inner), h after the last
     step)."""
-    h = h0
-    ys = []
-    for t in range(u.shape[1]):
-        dA = torch.exp(dt[:, t, :, None] * A[None])           # (Bt, inner, N)
-        dBu = (dt[:, t] * u[:, t])[..., None] * B[:, t, None, :]
-        h = dA * h + dBu
-        ys.append(torch.einsum("bin,bn->bi", h, C[:, t]) + D[None] * u[:, t])
-    return torch.stack(ys, dim=1), h
+    return ssm_scan(u, dt, B, C, A, D, h0)
 
 
 def mamba_forward(params, x: Tensor, cfg, *,

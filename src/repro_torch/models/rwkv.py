@@ -9,10 +9,15 @@ Per head with dim D, the wkv state S in R^{DxD} evolves as
 with the decay w_t = exp(-exp(wbase + lora(x_t))). Token-shift
 interpolation feeds each projection a mix of x_t and x_{t-1}.
 
-The scan is a plain loop in f32 over the real steps only, so the returned
-state is the state after the last token for any sequence length. (The
-JAX package pads its chunked scan with zero steps, which wipe the state
-when the length is above 128 and no multiple of it: ROADMAP C.13.)
+The recurrence runs in f32 as one operator, ``repro_torch::wkv6_fwd``
+(``kernels.scan.ops``): a hand-written kernel on the card
+(``csrc/wkv6.cu``), the plain loop over time on the CPU; its backward
+keeps one (B, H, D, D) carry a chunk of 128 steps and recomputes each
+chunk, as the JAX package's ``jax.checkpoint`` of each chunk does. It
+scans the real steps only, so the returned state is the state after the
+last token for any sequence length. (The JAX package pads its chunked
+scan with zero steps, which wipe the state when the length is above 128
+and no multiple of it: ROADMAP C.13.)
 
 On a sharded layout both mixes get their weights gathered at use (the
 heads and ff dims are "model"-sharded at rest) and run replicated over
@@ -25,6 +30,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.scan.ops import wkv6
 from repro_torch.models.layers import (DeferredDraws, _gen, dense_init,
                                        normal)
 
@@ -107,13 +113,8 @@ def rwkv_time_mix(params, x: Tensor, cfg, *,
     S = (state.wkv if state is not None
          else torch.zeros((b, H, D, D), dtype=torch.float32,
                           device=x.device))
-    ys = []
-    for t in range(s):
-        kv = k[:, t, ..., None] * v[:, t, :, None, :]   # (B, H, D, D)
-        ys.append(torch.einsum("bhd,bhde->bhe", r[:, t],
-                               S + u[None, :, :, None] * kv))
-        S = w[:, t, ..., None] * S + kv
-    y = torch.stack(ys, dim=1).reshape(b, s, d).to(x.dtype)
+    y, S = wkv6(r, k, v, w, u, S)
+    y = y.reshape(b, s, d).to(x.dtype)
 
     # Group norm over heads (ln_x), then gate and output-project.
     yh = y.reshape(b, s, H, D).float()

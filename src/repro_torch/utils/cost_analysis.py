@@ -32,7 +32,9 @@ for every operation it dispatches:
 
 It also follows the storages the call allocates and frees (``peak``: the
 most bytes they held at once), which the dry run reads as its memory
-analysis.
+analysis. An operator that holds a workspace only while it runs (the
+scan kernels' backward) registers its size in ``WORKSPACE_BYTES``; the
+peak counts it on top of what is live once the operator's outputs are.
 
 It runs on any device, ``meta`` included, where nothing is computed or
 allocated: that is how ``launch.dryrun`` costs a production step on a
@@ -43,7 +45,7 @@ from __future__ import annotations
 
 import weakref
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -55,6 +57,10 @@ LEDGER_KINDS = {"psum": "all-reduce", "pmax": "all-reduce",
                 "all_to_all": "all-to-all", "broadcast": "broadcast"}
 
 _aten = torch.ops.aten
+
+# Overload packet -> fn(*args) -> the bytes of the workspace the operator
+# allocates and frees inside its one call.
+WORKSPACE_BYTES: Dict[object, Callable[..., int]] = {}
 
 # Operations that allocate without writing, alias their input without
 # saying so (``_unsafe_view``: a reshape's view of the copy it made), or
@@ -192,6 +198,9 @@ class _Counter(TorchDispatchMode):
             self.bytes += sum(_nbytes(t) for t in ins)
             self.bytes += sum(_nbytes(t) for t in _tensors(out))
         self._track(out, {t.untyped_storage()._cdata for t in ins})
+        if packet in WORKSPACE_BYTES:
+            self.peak = max(self.peak, self.live + WORKSPACE_BYTES[packet](
+                *args, **kwargs))
         return out
 
 

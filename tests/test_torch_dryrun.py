@@ -3,8 +3,10 @@ package's sharding specs, analytic inventory and HLO cost analysis.
 
 * The CLI runs in processes of their own (its fake process group of 256 /
   512 ranks must not reach this one): every arch's ``decode_32k`` on the
-  (16, 16) mesh, llama3.2-3b's ``train_4k`` on it and its ``decode_32k``
-  on the (2, 16, 16) mesh. Each record is ``ok``, its sections complete
+  (16, 16) mesh, llama3.2-3b's ``train_4k`` and rwkv6-7b's
+  ``prefill_32k`` on it and llama3.2-3b's ``decode_32k`` on the (2, 16,
+  16) mesh; jamba's ``train_4k`` at one microbatch beside them, its op
+  count times its microbatches under ``MAX_OPS``. Each record is ``ok``, its sections complete
   and consistent (peak = argument + output + temp - alias; the roofline's
   terms from the counted FLOPs, the analytic bytes and the collective
   bytes), and the fake group is gone when ``fake_world`` exits.
@@ -21,7 +23,8 @@ package's sharding specs, analytic inventory and HLO cost analysis.
   within 5% of the JAX package's ``hlo_analysis`` of its compiled sharded
   step on a one-device Auto-axes mesh (prefill and decode equal to the
   FLOP; train too but for jamba's and rwkv6's recomputed scans, within
-  0.6%).
+  1.1%: the scan operators' backward counts its chunk's recompute, as
+  the plain chunked scan's operations do).
 """
 import json
 import math
@@ -58,13 +61,30 @@ RUNS = {  # (--arch, --shape, --mesh) of each CLI process
     "decode": ("all", "decode_32k", "single"),
     "train": ("llama3.2-3b", "train_4k", "single"),
     "multi": ("llama3.2-3b", "decode_32k", "multi"),
+    "scan": ("rwkv6-7b", "prefill_32k", "single"),
 }
 CELLS = ([(a, "decode_32k", "single") for a in ARCH_IDS]
          + [("llama3.2-3b", "train_4k", "single"),
-            ("llama3.2-3b", "decode_32k", "multi")])
+            ("llama3.2-3b", "decode_32k", "multi"),
+            ("rwkv6-7b", "prefill_32k", "single")])
 MESHES = {"single": ((16, 16), ("data", "model")),
           "multi": ((2, 16, 16), ("pod", "data", "model"))}
 TIMEOUT_S = 600
+
+# jamba's train_4k cell at one microbatch, as rank 0 of the (16, 16) mesh:
+# its op count and the production microbatch count.
+MICROBATCH_OPS = """
+import json
+from repro_torch.configs import SHAPES, get_arch
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_production_mesh
+cfg = get_arch("jamba-1.5-large-398b")
+with dryrun.fake_world(256):
+    mesh = make_production_mesh()
+    mb = dryrun.microbatches_for(cfg, SHAPES["train_4k"]["batch"], mesh)
+    rec = dryrun.cost_cell(cfg, "train_4k", mesh, fsdp=True, microbatches=1)
+print(json.dumps({"ops": rec["ops"], "microbatches": mb}))
+"""
 
 LEAK_CHECK = """
 import json
@@ -93,20 +113,23 @@ def sweep(tmp_path_factory):
     stdout}, the leak check's output)."""
     out = tmp_path_factory.mktemp("dryrun")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    with ThreadPoolExecutor(len(RUNS) + 1) as pool:
+    with ThreadPoolExecutor(len(RUNS) + 2) as pool:
         futs = {k: pool.submit(_cli, out, *v) for k, v in RUNS.items()}
-        leak = pool.submit(
-            subprocess.run, [sys.executable, "-c", textwrap.dedent(LEAK_CHECK)],
+        leak, mb = (pool.submit(
+            subprocess.run, [sys.executable, "-c", textwrap.dedent(code)],
             capture_output=True, text=True, env=env, timeout=TIMEOUT_S)
+            for code in (LEAK_CHECK, MICROBATCH_OPS))
         procs = {k: f.result() for k, f in futs.items()}
-        leak = leak.result()
+        leak, mb = leak.result(), mb.result()
     for k, p in procs.items():
         assert p.returncode == 0, (k, p.stderr[-3000:])
-    assert leak.returncode == 0, leak.stderr[-3000:]
+    for p in (leak, mb):
+        assert p.returncode == 0, p.stderr[-3000:]
     recs = {}
     for arch, shape, mesh in CELLS:
         with open(out / f"{arch}__{shape}__{mesh}.json") as f:
             recs[(arch, shape, mesh)] = json.load(f)
+    recs["microbatch"] = json.loads(mb.stdout.strip().splitlines()[-1])
     return recs, {k: p.stdout for k, p in procs.items()}, leak.stdout
 
 
@@ -156,6 +179,18 @@ def test_cell_is_ok_and_complete(sweep, cell):
                if v[1:] == (shape, mesh) and v[0] in (arch, "all"))
     tag = f"{arch}__{shape}__{mesh}"
     assert f"[dryrun] {tag}: ok lower=" in stdout[run]
+
+
+def test_jamba_train_4k_is_inside_the_op_budget(sweep):
+    """jamba's train_4k cell takes minutes on a CPU, so its CLI run is left to
+    the sweep; each microbatch dispatches the same operations, so the
+    cell's count is at most its microbatch count times the count of the
+    cell at one microbatch (the optimizer once), which must lie under
+    ``MAX_OPS``: one scan operator a Mamba layer and a pass, where the
+    scan as a Python loop over 4096 positions passed the budget."""
+    got = sweep[0]["microbatch"]
+    assert got["microbatches"] > 1
+    assert got["ops"] * got["microbatches"] < dryrun.MAX_OPS
 
 
 def test_the_fake_group_does_not_outlive_the_dry_run(sweep):

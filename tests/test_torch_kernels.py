@@ -256,7 +256,8 @@ def test_wrappers_refuse_other_devices():
 
 def test_build_names_and_library_paths():
     from repro_torch.kernels import _build
-    assert _build.sources() == ["decision", "fupdate", "gram"]
+    assert _build.sources() == ["decision", "fupdate", "gram", "ssm_scan",
+                                "wkv6"]
     a, b = _build.library_path("fupdate"), _build.library_path("decision")
     assert a.parent == _build.BUILD_DIR and a != b
     assert a.name.startswith("fupdate-") and a.suffix == ".so"

@@ -262,6 +262,16 @@ def _slab_kernels() -> dict:
     return kernels
 
 
+def _scan_kernels() -> dict:
+    """The scan kernels' wrappers (Mamba, RWKV6), by name, their counts
+    set to 0."""
+    from repro_torch.kernels.scan import ops as sops
+    kernels = {k.entry[:-len("_launch")]: k for k in sops.KERNELS}
+    for k in kernels.values():
+        k.reset_counts()
+    return kernels
+
+
 def _take_counts(kernels: dict, into: dict) -> dict:
     """Adds each kernel's launches since its count was last set to 0 to
     ``into`` (returned), then sets the counts to 0 again."""
@@ -301,7 +311,7 @@ def lm_dist_steps(rank: int, world: int, job: dict) -> dict:
     from repro_torch.sharding.state import shard_params, unshard_train_state
     from repro_torch.train import train_step as tts
     from repro_torch.utils.tree import leaves
-    kernels = _slab_kernels()
+    kernels, scans = _slab_kernels(), _scan_kernels()
     path, oracle = dict.fromkeys(kernels, 0), dict.fromkeys(kernels, 0)
     torch.set_num_threads(job.get("threads", 1))
     dev = resolve_device(job["device"])
@@ -317,6 +327,7 @@ def lm_dist_steps(rank: int, world: int, job: dict) -> dict:
 
     out = {}
     for case in job["cases"]:
+        _take_counts(scans, {})   # this case's sharded run only
         cfg = lm_dist_cfg(case)
         mesh = make_test_mesh(tuple(case["mesh"][0]), tuple(case["mesh"][1]))
         led = CollectiveLedger()
@@ -359,7 +370,8 @@ def lm_dist_steps(rank: int, world: int, job: dict) -> dict:
         ops: dict = {}
         for r in led.records:
             ops[r.op] = ops.get(r.op, 0) + 1
-        res = {"metrics": metrics, "ms": ms, "ledger": led.summary(),
+        res = {"scan_launches": _take_counts(scans, {}),
+               "metrics": metrics, "ms": ms, "ledger": led.summary(),
                "ops": ops, "collective_ms": coll_ms,
                "collective_calls": calls,
                "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
@@ -792,7 +804,7 @@ def lm_serve_steps(rank: int, world: int, job: dict) -> dict:
     from repro_torch.sharding import make_constrain
     from repro_torch.sharding.state import init_cache_sharded, unshard_cache
     from repro_torch.train.serve_step import make_decode, make_prefill
-    kernels = _slab_kernels()
+    kernels, scans = _slab_kernels(), _scan_kernels()
     path, oracle = dict.fromkeys(kernels, 0), dict.fromkeys(kernels, 0)
     torch.set_num_threads(job.get("threads", 1))
     dev = resolve_device(job["device"])
@@ -808,6 +820,7 @@ def lm_serve_steps(rank: int, world: int, job: dict) -> dict:
 
     out = {}
     for case in job["cases"]:
+        _take_counts(scans, {})   # this case's sharded run only
         cfg = lm_dist_cfg(case)
         mesh = make_test_mesh(tuple(case["mesh"][0]), tuple(case["mesh"][1]))
         led = CollectiveLedger()
@@ -836,6 +849,7 @@ def lm_serve_steps(rank: int, world: int, job: dict) -> dict:
                 make_decode(cfg, constrain=constrain), sync, led))
         _take_counts(kernels, path)
         res = runs[-1]
+        res["scan_launches"] = _take_counts(scans, {})
         if case.get("unshard"):
             full = unshard_cache(res["cache"], cfg, constrain)
             res["full_cache"] = [t.float().cpu().numpy()
