@@ -8,7 +8,8 @@ without printing the result line:
 
 1. build    — compile every ``src/repro_torch/csrc/*.cu`` (one nvcc
               each, all at once), print ptxas's register/shared-memory
-              lines and hold the autotuner's register estimate against
+              lines (the scan kernels' registers, spills and shared
+              memory by kernel) and hold the autotuner's register estimate against
               them;
 2. kernels  — call each kernel's wrapper at the main path's shapes (gram:
               the 8192 x 8192 matrix of the toy rows, a ragged shape and
@@ -144,7 +145,10 @@ without printing the result line:
               ``_examples_phase``);
    lm-ssm   — the scan kernels (``csrc/ssm_scan.cu``, ``csrc/wkv6.cu``;
               see ``_lm_ssm_phase``): each against its plain version at
-              jamba's and rwkv6-7b's widths, timed beside its bound;
+              jamba's and rwkv6-7b's widths, timed beside its bound
+              (wkv6 also at [lm-ssm] (c)'s training shape and one decode
+              step, held and timed there too; its backward's workspace
+              at most 128 MiB);
               rwkv6-7b served at full width and depth and trained at
               full width on 4 layers, each against the same run through
               the plain scans; one jamba Mamba block's forward and
@@ -2364,6 +2368,48 @@ def _held_bf16_against_f32(res: dict, plain: dict, truth: dict, case: dict,
     return got
 
 
+def _ptxas_resources(lines) -> dict:
+    """{kernel (name<template ints>): its registers, stack frame, spill
+    stores and loads and static shared memory in bytes} from a build's
+    ``ptxas -v`` lines (``_build.Built.ptxas``), for the scan kernels and
+    scan.cuh's second pass."""
+    pat = re.compile(r"(wkv_fwd|wkv_bwd|ssm_fwd|ssm_bwd|sum_parts)"
+                     r"((?:I(?:Li\d+E)+E)?)")
+
+    def short(mangled):
+        m = pat.search(mangled)
+        if m is None:
+            return None
+        ints = re.findall(r"Li(\d+)E", m.group(2))
+        return m.group(1) + (f"<{','.join(ints)}>" if ints else "")
+
+    out, entry, props = {}, None, None
+    for line in lines:
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = short(m.group(1))
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = short(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and props:
+            out.setdefault(props, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.setdefault(entry, {}).update(
+                registers=int(m.group(1)),
+                smem=int(smem.group(1)) if smem else 0)
+            entry = None
+    return out
+
+
 def _scan_counts() -> dict:
     """The scan kernels' launches since their counts were set to 0, by
     name (ssm_scan_fwd, ssm_scan_bwd, wkv6_fwd, wkv6_bwd)."""
@@ -2440,7 +2486,11 @@ def _lm_ssm_phase(dev, reset_counts) -> dict:
     forward (y, last state) against ``ssm_scan_plain`` / ``wkv6_plain``
     and backward (every gradient) against autograd through them, within
     the f32 TOLERANCES (atol scaled by the largest plain value); each
-    timed (CUDA events), beside its plain version's time and its bound.
+    timed (CUDA events), beside its plain version's time and its bound;
+    the WKV kernels also at (c)'s training shape and at one decode step
+    of (b) (held against the plain version and timed, as at WKV_B x
+    WKV_S), and the WKV backward's global workspace at WKV_B x WKV_S held
+    to 128 MiB.
     (b) rwkv6-7b at published width and depth, bf16, random weights:
     prefill LM_BATCH x LM_PROMPT tokens, LM_NEW greedy decode steps; the
     same run through the plain scans on the card, and the same
@@ -2469,6 +2519,7 @@ def _lm_ssm_phase(dev, reset_counts) -> dict:
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.data.synthetic import SyntheticPipeline
+    from repro_torch.kernels.autotune import graph_ms
     from repro_torch.kernels.precision import TOLERANCES
     from repro_torch.kernels.scan import ops as sops
     from repro_torch.kernels.scan import ref as sref
@@ -2563,10 +2614,8 @@ def _lm_ssm_phase(dev, reset_counts) -> dict:
                                         hi=0.0))),
               0.1 * rand(H, D), 0.1 * rand(WKV_B, H, D, D)]
     n_ssm = SSM_B * SSM_S * inner * N          # state-steps
-    n_wkv = WKV_B * WKV_S * H * D * D
     nc_ssm = sref.n_chunks(SSM_S)[1]
-    nc_wkv = sref.n_chunks(WKV_S)[1]
-    state_ssm, state_wkv = SSM_B * inner * N, WKV_B * H * D * D
+    state_ssm = SSM_B * inner * N
     # Bytes: each input read and each output written once (the carries
     # too); operations: the f32 FLOPs the recurrence needs (an FMA is 2),
     # not the kernels' instruction mix. Mamba, a state-step: 6 forward
@@ -2575,6 +2624,20 @@ def _lm_ssm_phase(dev, reset_counts) -> dict:
     # forward (r S and w S + k v; the bonus r (u k) v is O(D) a step,
     # 6 D counted), 14 backward (the recompute 3, dr 2, dS_prev 3, dk 2,
     # dv 2, dw 2; the sums with u and gy v O(D) a step, 12 D counted).
+
+    def wkv_spec(B, S):
+        """wkv6_fwd's and wkv6_bwd's (bytes, FLOPs, exps) at B x S."""
+        n, state = B * S * H * D * D, B * H * D * D
+        nc = sref.n_chunks(S)[1]
+        return {
+            "wkv6_fwd": (
+                4 * (5 * B * S * H * D + H * D + (2 + nc) * state),
+                5 * n + 6 * B * S * H * D, 0),
+            "wkv6_bwd": (
+                4 * (9 * B * S * H * D + 2 * H * D + (2 + nc) * state),
+                14 * n + 12 * B * S * H * D, 0),
+        }
+
     spec = {
         "ssm_scan_fwd": (
             4 * (3 * SSM_B * SSM_S * inner + 2 * SSM_B * SSM_S * N
@@ -2584,14 +2647,7 @@ def _lm_ssm_phase(dev, reset_counts) -> dict:
             4 * (5 * SSM_B * SSM_S * inner + 4 * SSM_B * SSM_S * N
                  + 2 * inner * N + 2 * inner + (2 + nc_ssm) * state_ssm),
             17 * n_ssm, n_ssm),
-        "wkv6_fwd": (
-            4 * (5 * WKV_B * WKV_S * H * D + H * D
-                 + (2 + nc_wkv) * state_wkv),
-            5 * n_wkv + 6 * WKV_B * WKV_S * H * D, 0),
-        "wkv6_bwd": (
-            4 * (9 * WKV_B * WKV_S * H * D + 2 * H * D
-                 + (2 + nc_wkv) * state_wkv),
-            14 * n_wkv + 12 * WKV_B * WKV_S * H * D, 0),
+        **wkv_spec(WKV_B, WKV_S),
     }
     rows = {}
     for fam, ins, plain_fn, out_names, in_names in (
@@ -2649,6 +2705,57 @@ def _lm_ssm_phase(dev, reset_counts) -> dict:
                 f"{b_ms:.5f} ({b_by}) bound_share={b_ms / ms:.4f}")
         del kin, y, last, carries, grads, want
     del ssm_in, wkv_in, gy, gl
+    ws_bytes = sum(4 * int(np.prod(s)) for s in sops.wkv6_bwd_workspace(
+        WKV_B, WKV_S, H, D))
+    check(ws_bytes <= 128 * 2**20, f"[lm-ssm] (a) the wkv6 backward's "
+          f"workspace is {ws_bytes / 2**20:.1f} MiB, past 128")
+    say(f"[lm-ssm] (a) wkv6_bwd global workspace at B={WKV_B} S={WKV_S}: "
+        f"{ws_bytes / 2**20:.2f} MiB (sub-chunk starts, "
+        f"{sops.wkv6_bwd_workspace(WKV_B, WKV_S, H, D)[0]}) + du's "
+        f"per-row sums")
+
+    # wkv6 at (c)'s training shape and at one decode step of (b): each
+    # kernel held against the plain version on the same inputs (timed once,
+    # as above; ~5 s at the training shape), kernel ms, bound and share by
+    # the same formulas.
+    for B, S, tag in ((SSM_TRAIN_B, SSM_TRAIN_S, "(c)'s training shape"),
+                      (WKV_B, 1, "(b)'s decode step")):
+        ins = [rand(B, S, H, D), rand(B, S, H, D), rand(B, S, H, D),
+               torch.exp(-torch.exp(rand(B, S, H, D, lo=-6.0, hi=0.0))),
+               0.1 * rand(H, D), 0.1 * rand(B, H, D, D)]
+        y, last, carries = sops.launch_wkv6_fwd(*ins)()
+        gy = torch.randn(y.shape, generator=gen, **f32)
+        gl = torch.randn(last.shape, generator=gen, **f32)
+        grads = sops.launch_wkv6_bwd(gy, gl, *ins[:-1], carries)()
+        plain, err = {}, {}
+        with torch.no_grad():
+            want, plain["wkv6_fwd"] = once_ms(lambda: sref.wkv6_plain(*ins))
+        err["wkv6_fwd"] = max(
+            held(g, w, f"wkv6_fwd {n} at B={B} S={S}", tol32)[0]
+            for g, w, n in zip((y, last), want, ("y", "S")))
+        live = [t.detach().requires_grad_() for t in ins]
+        outs = sref.wkv6_plain(*live)
+        _, plain["wkv6_bwd"] = once_ms(
+            lambda: torch.autograd.backward(outs, [gy, gl]))
+        err["wkv6_bwd"] = max(
+            held(g, w.grad, f"wkv6_bwd d{n} at B={B} S={S}", tol32)[0]
+            for g, w, n in zip(grads, live, "r k v w u S0".split()))
+        del live, outs, want
+        # A decode step's launch is shorter than the host's cost of one:
+        # its device time by graph replay (autotune.graph_ms).
+        timer = ((lambda fn, n: graph_ms(fn, iters=20 * n)) if S == 1
+                 else event_ms)
+        times = {"wkv6_fwd": timer(lambda: sops.launch_wkv6_fwd(*ins)(), 5),
+                 "wkv6_bwd": timer(lambda: sops.launch_wkv6_bwd(
+                     gy, gl, *ins[:-1], carries)(), 3)}
+        sp = wkv_spec(B, S)
+        for name, ms in times.items():
+            b_ms, b_by = bound(*sp[name])
+            say(f"[lm-ssm] (a) {name} B={B} S={S} H={H} D={D} ({tag}): "
+                f"max_abs_err={err[name]:.3e} kernel_ms={ms:.4f} plain_ms="
+                f"{plain[name]:.2f} bound_ms={b_ms:.5f} ({b_by}) "
+                f"bound_share={b_ms / ms:.4f}")
+        del ins, y, last, carries, gy, gl, grads
     peak_reset()
 
     say(f"[lm-ssm] (a) seconds={time.perf_counter() - phase_t0:.2f}")
@@ -3308,10 +3415,22 @@ def main() -> int:
     built = _build.build()
     say(f"[build] {len(built)} sources in {time.perf_counter() - t0:.2f} s "
         f"({', '.join(f'{k}: {v.seconds:.2f} s' for k, v in built.items())})")
+    # The scan kernels' resources by kernel name (the WKV backward's shared
+    # memory is dynamic, ``wkv6_bwd_smem_bytes``, beside ptxas's static
+    # bytes); the other sources' ptxas lines as they are.
     for name, b in built.items():
+        if name in ("ssm_scan", "wkv6"):
+            if b.ptxas:
+                say(f"[build] {name} kernels (ptxas): "
+                    f"{_ptxas_resources(b.ptxas)}")
+            continue
         for line in b.ptxas:
             if "registers" in line or "spill" in line or "smem" in line:
                 say(f"[build] {name}: {line}")
+    scan_ops.WKV_BWD.load()
+    smem = scan_ops.WKV_BWD._lib.wkv6_bwd_smem_bytes
+    say(f"[build] wkv_bwd dynamic shared memory bytes by D: "
+        f"{ {D: smem(D) for D in scan_ops.WKV_HEAD_DIMS} }")
     # The autotuner's feasibility model estimates registers from TR x TC;
     # ptxas says what each instantiation takes.
     regs = {}

@@ -15,7 +15,8 @@
                        stats_fn (rho recovery + KKT + gap)
 
 * GramProvider (``gram.py``) — ``precomputed``, ``on_the_fly``, the
-  fused ``pallas`` provider (``FusedGram``) and ``sharded``
+  fused ``pallas`` provider (``FusedGram``; ``PallasGram`` is the
+  reference's name for it) and ``sharded``
   (``ShardedGram``: a rank's rows under the row-sharded solver).
 * Selector (``select.py``) — ``paper`` (``PaperSelector``, the eq. 56
   heuristic, KKT termination), ``mvp`` and ``block`` (``BlockSelector``,
@@ -31,9 +32,9 @@
 from repro_torch.core.engine.driver import (gauss_seidel_pairs,
                                             has_converged, init_state, run)
 from repro_torch.core.engine.gram import (BLOCK, SINGLE_PASS_MAX, FusedGram,
-                                          OnTheFlyGram, PrecomputedGram,
-                                          ShardedGram, make_provider,
-                                          raw_scores_blocked)
+                                          OnTheFlyGram, PallasGram,
+                                          PrecomputedGram, ShardedGram,
+                                          make_provider, raw_scores_blocked)
 from repro_torch.core.engine.select import (BlockSelector, PaperSelector,
                                             ShardedBlockSelector,
                                             make_selector)
@@ -52,6 +53,7 @@ from repro_torch.core.engine.types import Selection, SMOResult, SolverState
 __all__ = [
     "run", "init_state", "gauss_seidel_pairs", "has_converged",
     "make_provider", "PrecomputedGram", "OnTheFlyGram", "FusedGram",
+    "PallasGram",
     "ShardedGram", "raw_scores_blocked", "SINGLE_PASS_MAX", "BLOCK",
     "make_selector", "PaperSelector", "BlockSelector",
     "ShardedBlockSelector", "LocalComm", "LOCAL_COMM", "MeshComm",

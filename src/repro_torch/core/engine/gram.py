@@ -278,6 +278,10 @@ class FusedGram(OnTheFlyGram):
         return self._fupdate(f, X_delta, g_delta)
 
 
+# The reference's name for the fused provider (repro.core.engine).
+PallasGram = FusedGram
+
+
 class ShardedGram(FusedGram):
     """A rank's local rows under the row-sharded solver; f and gamma are
     local slices.

@@ -26,13 +26,14 @@ from typing import Optional
 import torch
 
 from repro_torch.core import engine
+from repro_torch.core.engine.gram import raw_scores_blocked  # re-export
 from repro_torch.core.engine.types import SMOResult
 from repro_torch.core.ocssvm import (OCSSVMModel, SlabSpec, concrete_spec,
                                      feasible_init)
 
 Tensor = torch.Tensor
 
-__all__ = ["solve", "SMOResult"]
+__all__ = ["solve", "SMOResult", "raw_scores_blocked"]
 
 
 def solve(

@@ -56,7 +56,8 @@ _build_lock = threading.Lock()
 @dataclass
 class Built:
     """One compiled source: its library, the build's wall seconds (0 when
-    an up-to-date library was reused) and ptxas's resource lines."""
+    an up-to-date library was reused) and ptxas's resource lines (with
+    each function's stack frame and spill line)."""
 
     path: Path
     seconds: float = 0.0
@@ -119,7 +120,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Built]:
             os.replace(tmp, lib)     # atomic: concurrent builders agree
             out[name] = Built(lib, time.perf_counter() - t0,
                               [ln.strip() for ln in log.splitlines()
-                               if "ptxas" in ln])
+                               if "ptxas" in ln or "spill" in ln])
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return out

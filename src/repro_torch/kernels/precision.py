@@ -59,6 +59,17 @@ def check_precision(precision: str) -> str:
     return precision
 
 
+def parse_precisions(spec: str) -> tuple:
+    """Parse a CLI comma list ("f32,bf16") into validated precisions.
+
+    Empty/whitespace entries are dropped; an empty spec yields ("f32",)
+    so benchmark flags always have a well-defined default.
+    """
+    out = tuple(check_precision(p.strip()) for p in spec.split(",")
+                if p.strip())
+    return out or ("f32",)
+
+
 def tile_dtype(precision: str) -> torch.dtype:
     """The dtype tile inputs are streamed in."""
     return _TILE_DTYPES[check_precision(precision)]

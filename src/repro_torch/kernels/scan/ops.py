@@ -56,13 +56,16 @@ SSM_FWD = Kernel("ssm_scan", "ssm_scan_fwd_launch", [_P] * 10 + [_I] * 5
 SSM_BWD = Kernel("ssm_scan", "ssm_scan_bwd_launch", [_P] * 21 + [_I] * 5
                  + [_P])
 WKV_FWD = Kernel("wkv6", "wkv6_fwd_launch", [_P] * 9 + [_I] * 5 + [_P])
-WKV_BWD = Kernel("wkv6", "wkv6_bwd_launch", [_P] * 16 + [_I] * 5 + [_P])
+WKV_BWD = Kernel("wkv6", "wkv6_bwd_launch", [_P] * 16 + [ctypes.c_int64]
+                 + [_I] * 5 + [_P])
 KERNELS = (SSM_FWD, SSM_BWD, WKV_FWD, WKV_BWD)
 
 # Channels a CTA of the Mamba kernels (csrc/ssm_scan.cu's CH).
 SSM_CHANNELS = 64
 SSM_STATES = (8, 16)
 WKV_HEAD_DIMS = (16, 64)
+# Steps a sub-chunk of the WKV backward kernel (csrc/wkv6.cu's L).
+WKV_SUBCHUNK = 8
 
 
 def _f32_on(dev, *ts) -> None:
@@ -77,6 +80,13 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _aligned(t: Tensor) -> Tensor:
+    """``t`` contiguous and 16-byte aligned (the WKV kernels stage their
+    inputs by 16-byte copies); a view at another offset is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def ssm_bwd_workspace(bt, S, inner, N, chunk: int = CHUNK):
     """The shapes of the Mamba backward kernel's f32 workspace: one
     chunk's states, dB's and dC's per-CTA partial sums, and the per-row
@@ -88,10 +98,13 @@ def ssm_bwd_workspace(bt, S, inner, N, chunk: int = CHUNK):
 
 
 def wkv6_bwd_workspace(b, S, H, D, chunk: int = CHUNK):
-    """The shapes of the WKV backward kernel's f32 workspace: one chunk's
-    states and du's per-row partials."""
+    """The shapes of the WKV backward kernel's f32 workspace: the states at
+    the starts of one chunk's sub-chunks of ``WKV_SUBCHUNK`` steps but the
+    first (the carry) and the last (kept in registers), and du's per-row
+    partials."""
     ck, _ = n_chunks(S, chunk)
-    return ((b, H, ck, D, D), (b, H, D))
+    starts = max(-(-ck // WKV_SUBCHUNK) - 2, 0)
+    return ((b, H, starts, D, D), (b, H, D))
 
 
 def _f32_bytes(shapes) -> int:
@@ -173,7 +186,7 @@ def launch_wkv6_fwd(r, k, v, w, u, S0, chunk: int = CHUNK) -> Launch:
             or S0.shape != (b, H, D, D)):
         raise ValueError("wkv6 shapes: r, k, v, w (B, S, H, D); u (H, D); "
                          "S0 (B, H, D, D)")
-    ops = [t.contiguous() for t in (r, k, v, w, u, S0)]
+    ops = [_aligned(t) for t in (r, k, v, w, u, S0)]
     _, nc = n_chunks(S, chunk)
     f32 = dict(dtype=torch.float32, device=dev)
     y = torch.empty((b, S, H, D), **f32)
@@ -188,8 +201,8 @@ def launch_wkv6_fwd(r, k, v, w, u, S0, chunk: int = CHUNK) -> Launch:
 def launch_wkv6_bwd(gy, gS, r, k, v, w, u, carries,
                     chunk: int = CHUNK) -> Launch:
     """The backward kernel's launch on CUDA operands, into new (dr, dk, dv,
-    dw, du, dS0); workspace: one chunk's states and du's per-row
-    partials."""
+    dw, du, dS0); workspace: ``wkv6_bwd_workspace`` (the kernel refuses
+    a workspace of another size)."""
     dev = r.device
     _f32_on(dev, gy, gS, r, k, v, w, u, carries)
     b, S, H, D = r.shape
@@ -198,7 +211,7 @@ def launch_wkv6_bwd(gy, gS, r, k, v, w, u, carries,
             or carries.shape != (b, nc, H, D, D)):
         raise ValueError("wkv6_bwd shapes: gy as r, gS (B, H, D, D), "
                          "carries (B, nc, H, D, D)")
-    ops = [t.contiguous() for t in (gy, gS, r, k, v, w, u, carries)]
+    ops = [_aligned(t) for t in (gy, gS, r, k, v, w, u, carries)]
     f32 = dict(dtype=torch.float32, device=dev)
     outs = tuple(torch.empty((b, S, H, D), **f32) for _ in range(4)) + (
         torch.empty((H, D), **f32), torch.empty((b, H, D, D), **f32))
@@ -206,8 +219,8 @@ def launch_wkv6_bwd(gy, gS, r, k, v, w, u, carries,
                for s in wkv6_bwd_workspace(b, S, H, D, chunk))
     return Launch(WKV_BWD, dev.index, (
         *(t.data_ptr() for t in ops), *(t.data_ptr() for t in outs),
-        *(t.data_ptr() for t in ws), b, S, H, D, chunk, _stream(dev)),
-        outs, None, (ops, ws))
+        *(t.data_ptr() for t in ws), ws[0].numel(), b, S, H, D, chunk,
+        _stream(dev)), outs, None, (ops, ws))
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """The port imports nothing of JAX or of the JAX package: every module
-under ``src/repro_torch/`` (the LM stack and everything before it) and
-``chip_smoke.py``, read with ``ast`` — absolute and relative imports,
-and module names handed to ``importlib.import_module`` or
-``__import__`` — and a run of the LM serving path in a fresh process
+under ``src/repro_torch/`` (the LM stack and everything before it),
+``chip_smoke.py`` and ``tools/*.py``, read with ``ast`` — absolute and
+relative imports, and module names handed to ``importlib.import_module``
+or ``__import__`` — and a run of the LM serving path in a fresh process
 that must leave ``jax`` and ``repro`` unloaded."""
 import ast
 import os
@@ -49,8 +49,10 @@ def _imported(path: Path, package: str):
 
 
 def test_port_and_chip_smoke_import_nothing_of_jax():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "tools").glob("*.py")))
     assert {PORT / m for m in LM_MODULES} <= set(files)
+    assert ROOT / "tools" / "wkv6_grad_accuracy.py" in files
     bad = [f"{p.relative_to(ROOT)}:{line}: {mod}" for p in files
            for line, mod in _imported(p, _package(p))
            if mod.split(".")[0] in FORBIDDEN]

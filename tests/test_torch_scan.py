@@ -442,3 +442,21 @@ def test_dry_run_peak_holds_the_backward_workspace(family):
     out_bytes = sum(t.numel() * 4 for t in outs)
     ws_bytes = sum(4 * int(np.prod(s)) for s in ws)
     assert ws_bytes > 0 and mem.peak == out_bytes + ws_bytes
+
+
+def test_wkv6_backward_workspace_is_the_sub_chunk_starts():
+    """The WKV backward kernel keeps the states at the starts of one
+    chunk's sub-chunks of ``WKV_SUBCHUNK`` steps, but the first (the
+    carry) and the last (in registers): at rwkv6-7b's B = 4, S = 512,
+    H = D = 64, 56 MiB, at most 128 MiB and a ninth of a whole chunk's
+    states; none below three sub-chunks."""
+    ws, du_part = sops.wkv6_bwd_workspace(4, 512, 64, 64)
+    assert sops.WKV_SUBCHUNK == 8
+    assert ws == (4, 64, 128 // 8 - 2, 64, 64) and du_part == (4, 64, 64)
+    ws_bytes = 4 * int(np.prod(ws))
+    assert ws_bytes == 56 * 2**20 <= 128 * 2**20
+    assert 9 * ws_bytes <= 4 * 4 * 64 * 128 * 64 * 64
+    assert sops.wkv6_bwd_workspace(2, 20, 3, 16)[0] == (2, 3, 1, 16, 16)
+    for S in (1, 7, 16):
+        assert sops.wkv6_bwd_workspace(2, S, 3, 16)[0][2] == 0
+    assert sops.wkv6_bwd_workspace(2, 4096, 3, 64, chunk=100)[0][2] == 11

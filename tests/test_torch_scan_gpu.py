@@ -9,11 +9,16 @@ imports nothing of JAX: the machine with the card has no JAX. Each
 kernel's forward and backward (through the ``repro_torch::*`` operators
 and autograd) against autograd through ``ref.ssm_scan_plain`` /
 ``ref.wkv6_plain`` on the same inputs, at N in {8, 16} and D in {16, 64},
-S in {1, 131, 4096}, within the f32 ``TOLERANCES`` (``truth_tolerance``:
-both compute in f32 and differ in rounding and summation order only);
-two backward runs bitwise equal (the kernels' sums are fixed-order); a
-prefill of S steps bitwise S one-step calls.
+S in {1, 7, 129, 131, 136, 4096} (ragged against the WKV forward's
+staging blocks of 16 steps, the backward's sub-chunks of 8 and the chunks
+of 128), within the f32 ``TOLERANCES`` (``truth_tolerance``: both compute
+in f32 and differ in rounding and summation order only); two backward
+runs bitwise equal (the kernels' sums are fixed-order); a prefill of S
+steps bitwise S one-step calls; the WKV backward's global workspace the
+size ``ops.wkv6_bwd_workspace`` states (the kernel refuses another).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -46,6 +51,7 @@ def _ssm_inputs(seed, S, N, bt=2, inner=200):
 
 
 def _wkv_inputs(seed, S, D, b=2, H=3):
+    """b x H = 6 (b, h) states, one CTA each."""
     rng = np.random.default_rng(seed)
     r, k, v = (rng.standard_normal((b, S, H, D)).astype(np.float32)
                for _ in range(3))
@@ -67,8 +73,9 @@ def _vjp(fn, arrays, cots, dev):
 
 def _held(got, want, names):
     for name, g, w in zip(names, got, want):
-        w = w.float().cpu().numpy()
-        np.testing.assert_allclose(g.float().cpu().numpy(), w, err_msg=name,
+        w = w.detach().float().cpu().numpy()
+        np.testing.assert_allclose(g.detach().float().cpu().numpy(), w,
+                                   err_msg=name,
                                    **truth_tolerance("f32", w))
 
 
@@ -80,7 +87,7 @@ CASES = {"ssm_scan": (sops.ssm_scan, sref.ssm_scan_plain, _ssm_inputs,
                   (sops.WKV_FWD, sops.WKV_BWD))}
 
 
-@pytest.mark.parametrize("S", [1, 131, 4096])
+@pytest.mark.parametrize("S", [1, 7, 129, 131, 136, 4096])
 @pytest.mark.parametrize("size_ix", [0, 1])
 @pytest.mark.parametrize("family", sorted(CASES))
 def test_kernels_match_their_plain_versions(cuda, family, size_ix, S):
@@ -125,3 +132,50 @@ def test_kernels_refuse_cpu_fallback_and_bad_types(cuda):
         sops.launch_ssm_fwd(*[a.double() for a in arrays])
     with pytest.raises(ValueError):
         sops.launch_ssm_fwd(*arrays[:-1], arrays[-1].cpu())
+
+
+def test_wkv6_backward_workspace_is_the_stated_size(cuda):
+    """The backward's global workspace: the sub-chunk starts of one chunk
+    (``ops.wkv6_bwd_workspace``), at most 128 MiB at rwkv6-7b's B = 4,
+    S = 512; the kernel refuses a workspace of another size."""
+    ws = sops.wkv6_bwd_workspace(4, 512, 64, 64)
+    assert sum(4 * int(np.prod(s)) for s in ws) <= 128 * 2**20
+    arrays = [torch.as_tensor(a, device=cuda)
+              for a in _wkv_inputs(0, 300, 64)]
+    _, _, carries = sops.launch_wkv6_fwd(*arrays)()
+    gy = torch.ones_like(arrays[0])
+    gS = torch.ones_like(arrays[-1])
+    ln = sops.launch_wkv6_bwd(gy, gS, *arrays[:5], carries)
+    assert [tuple(t.shape) for t in ln.scratch[1]] == list(
+        sops.wkv6_bwd_workspace(2, 300, 3, 64))
+    assert ln.args[16] == ln.scratch[1][0].numel() > 0
+    ln()
+    torch.cuda.synchronize()
+    short = dataclasses.replace(ln, args=(*ln.args[:16], ln.args[16] - 1,
+                                          *ln.args[17:]))
+    with pytest.raises(RuntimeError, match="wkv6_bwd_launch failed"):
+        short()
+
+
+def test_wkv6_odd_grid_and_unaligned_views(cuda):
+    """b x H = 15 CTAs, S = 137, and inputs that are views at an offset
+    of one float (the kernels stage by 16-byte copies: the launch copies
+    such a view) against the plain versions."""
+    arrays = _wkv_inputs(3, 137, 64, b=3, H=5)
+    flat = [torch.as_tensor(np.concatenate([[0.0], a.ravel()]).astype(
+        np.float32), device=cuda).requires_grad_() for a in arrays]
+    views = [f[1:].view(a.shape) for f, a in zip(flat, arrays)]
+    assert all(v.data_ptr() % 16 for v in views)
+    rng = np.random.default_rng(5)
+    cots = [torch.as_tensor(rng.standard_normal(a.shape).astype(np.float32),
+                            device=cuda) for a in (arrays[0], arrays[-1])]
+    outs = sops.wkv6(*views)
+    torch.autograd.backward(outs, cots)
+    ref_live = [torch.as_tensor(a, device=cuda).requires_grad_()
+                for a in arrays]
+    ref_outs = sref.wkv6_plain(*ref_live)
+    torch.autograd.backward(ref_outs, cots)
+    torch.cuda.synchronize()
+    _held(outs, ref_outs, "y S".split())
+    _held([f.grad[1:].view(a.shape) for f, a in zip(flat, arrays)],
+          [t.grad for t in ref_live], "r k v w u S0".split())
