@@ -423,6 +423,10 @@ SSM_PAIR_S = 512
 # scan and dense alike, by up to 4e-4 of the leaf's largest); a wrong or
 # missing gradient term moves its leaf by 1e-2 or more.
 SSM_GRAD_RTOL = 1e-3
+# (c), ROADMAP C.22: each path's WKV gradients within this relative L2
+# distance of the plain recurrence in float64 on that path's own inputs
+# (on an H100, the kernels and the plain scans: 9e-8 to 6.3e-7).
+SSM_OWN_RTOL = 1e-5
 # (b): the bf16 run through the kernels at most this many times as far
 # from the f32 run as the bf16 run through the plain scans.
 SSM_BF16_RATIO = 1.5
@@ -2372,8 +2376,8 @@ def _ptxas_resources(lines) -> dict:
     """{kernel (name<template ints>): its registers, stack frame, spill
     stores and loads and static shared memory in bytes} from a build's
     ``ptxas -v`` lines (``_build.Built.ptxas``), for the scan kernels and
-    scan.cuh's second pass."""
-    pat = re.compile(r"(wkv_fwd|wkv_bwd|ssm_fwd|ssm_bwd|sum_parts)"
+    scan.cuh's second passes."""
+    pat = re.compile(r"(wkv_fwd|wkv_bwd|ssm_fwd|ssm_bwd|sum_parts_tree)"
                      r"((?:I(?:Li\d+E)+E)?)")
 
     def short(mangled):
@@ -2487,10 +2491,14 @@ def _lm_ssm_phase(dev, reset_counts) -> dict:
     and backward (every gradient) against autograd through them, within
     the f32 TOLERANCES (atol scaled by the largest plain value); each
     timed (CUDA events), beside its plain version's time and its bound;
-    the WKV kernels also at (c)'s training shape and at one decode step
-    of (b) (held against the plain version and timed, as at WKV_B x
-    WKV_S), and the WKV backward's global workspace at WKV_B x WKV_S held
-    to 128 MiB.
+    the Mamba gradients at SSM_B x SSM_S also against the plain version
+    in float64 (each the kernel's at most twice the f32 plain version's
+    relative L2 distance); the WKV kernels also at (c)'s training shape
+    and at one decode step of (b), the Mamba kernels at [lm]'s prefill
+    LM_BATCH x LM_PROMPT and its decode step (held against the plain
+    version and timed, a decode step by graph replay); the backwards'
+    global workspaces held to 150 MiB (Mamba, SSM_B x SSM_S) and 128 MiB
+    (WKV, WKV_B x WKV_S).
     (b) rwkv6-7b at published width and depth, bf16, random weights:
     prefill LM_BATCH x LM_PROMPT tokens, LM_NEW greedy decode steps; the
     same run through the plain scans on the card, and the same
@@ -2507,8 +2515,12 @@ def _lm_ssm_phase(dev, reset_counts) -> dict:
     through the kernels and through the plain scans in the same process:
     the loss within [lm-train]'s rtol, each leaf's gradient within
     SSM_GRAD_RTOL of the plain path's in relative L2 distance (ms and
-    peak memory of each). (d) one jamba Mamba block at published widths (jamba whole
-    is 398B parameters), forward and backward at SSM_B x SSM_S, through
+    peak memory of each); and, each layer's WKV inputs and gradients
+    recorded on both paths (``tools/wkv6_grad_accuracy.py``), each path's
+    WKV gradients within SSM_OWN_RTOL of the plain recurrence in float64
+    on its own inputs (ROADMAP C.22). (d) one jamba Mamba block at
+    published widths (jamba whole is 398B parameters), forward and
+    backward at SSM_B x SSM_S, through
     the kernels and through the chunked plain version: outputs and
     gradients within the bf16 band, peak memory of each. The kernels'
     counts are set to 0 before (b) and read after (d); launches made in
@@ -2603,19 +2615,18 @@ def _lm_ssm_phase(dev, reset_counts) -> dict:
             return torch.randn(shape, generator=gen, **f32)
         return lo + (hi - lo) * torch.rand(shape, generator=gen, **f32)
 
-    ssm_in = [rand(SSM_B, SSM_S, inner), rand(SSM_B, SSM_S, inner,
-                                                lo=1e-3, hi=0.1),
-              rand(SSM_B, SSM_S, N), rand(SSM_B, SSM_S, N),
-              -torch.arange(1, N + 1, **f32).repeat(inner, 1),
-              torch.ones(inner, **f32), 0.1 * rand(SSM_B, inner, N)]
-    wkv_in = [rand(WKV_B, WKV_S, H, D), rand(WKV_B, WKV_S, H, D),
-              rand(WKV_B, WKV_S, H, D),
-              torch.exp(-torch.exp(rand(WKV_B, WKV_S, H, D, lo=-6.0,
-                                        hi=0.0))),
-              0.1 * rand(H, D), 0.1 * rand(WKV_B, H, D, D)]
-    n_ssm = SSM_B * SSM_S * inner * N          # state-steps
-    nc_ssm = sref.n_chunks(SSM_S)[1]
-    state_ssm = SSM_B * inner * N
+    def draw(fam, B, S):
+        """A kernel's inputs at B x S: jamba's or rwkv6-7b's widths."""
+        if fam == "ssm_scan":
+            return [rand(B, S, inner), rand(B, S, inner, lo=1e-3, hi=0.1),
+                    rand(B, S, N), rand(B, S, N),
+                    -torch.arange(1, N + 1, **f32).repeat(inner, 1),
+                    torch.ones(inner, **f32), 0.1 * rand(B, inner, N)]
+        return [rand(B, S, H, D), rand(B, S, H, D), rand(B, S, H, D),
+                torch.exp(-torch.exp(rand(B, S, H, D, lo=-6.0, hi=0.0))),
+                0.1 * rand(H, D), 0.1 * rand(B, H, D, D)]
+
+    ssm_in, wkv_in = draw("ssm_scan", SSM_B, SSM_S), draw("wkv6", WKV_B, WKV_S)
     # Bytes: each input read and each output written once (the carries
     # too); operations: the f32 FLOPs the recurrence needs (an FMA is 2),
     # not the kernels' instruction mix. Mamba, a state-step: 6 forward
@@ -2624,6 +2635,21 @@ def _lm_ssm_phase(dev, reset_counts) -> dict:
     # forward (r S and w S + k v; the bonus r (u k) v is O(D) a step,
     # 6 D counted), 14 backward (the recompute 3, dr 2, dS_prev 3, dk 2,
     # dv 2, dw 2; the sums with u and gy v O(D) a step, 12 D counted).
+
+    def ssm_spec(B, S):
+        """ssm_scan_fwd's and ssm_scan_bwd's (bytes, FLOPs, exps) at B x S."""
+        n, state = B * S * inner * N, B * inner * N
+        nc = sref.n_chunks(S)[1]
+        return {
+            "ssm_scan_fwd": (
+                4 * (3 * B * S * inner + 2 * B * S * N + inner * N + inner
+                     + (2 + nc) * state),
+                6 * n, n),
+            "ssm_scan_bwd": (
+                4 * (5 * B * S * inner + 4 * B * S * N + 2 * inner * N
+                     + 2 * inner + (2 + nc) * state),
+                17 * n, n),
+        }
 
     def wkv_spec(B, S):
         """wkv6_fwd's and wkv6_bwd's (bytes, FLOPs, exps) at B x S."""
@@ -2638,25 +2664,40 @@ def _lm_ssm_phase(dev, reset_counts) -> dict:
                 14 * n + 12 * B * S * H * D, 0),
         }
 
-    spec = {
-        "ssm_scan_fwd": (
-            4 * (3 * SSM_B * SSM_S * inner + 2 * SSM_B * SSM_S * N
-                 + inner * N + inner + (2 + nc_ssm) * state_ssm),
-            6 * n_ssm, n_ssm),
-        "ssm_scan_bwd": (
-            4 * (5 * SSM_B * SSM_S * inner + 4 * SSM_B * SSM_S * N
-                 + 2 * inner * N + 2 * inner + (2 + nc_ssm) * state_ssm),
-            17 * n_ssm, n_ssm),
-        **wkv_spec(WKV_B, WKV_S),
-    }
+    def f64_yardstick(ins, gy, gl, grads, plain_grads, names):
+        """Each Mamba gradient's relative L2 distance from the plain
+        version run in float64 on the same inputs, the kernel's and the
+        f32 plain version's; raises unless the kernel's is at most twice
+        the plain's (its sums over n and over channels are reordered)."""
+        live = [t.detach().double().requires_grad_() for t in ins]
+        outs = sref.ssm_scan_plain(*live)
+        torch.autograd.backward(outs, [gy.double(), gl.double()])
+        dist = {}
+        for n, g, p, w in zip(names, grads, plain_grads, live):
+            den = w.grad.norm().clamp_min(1e-300)
+            dist[f"d{n}"] = (float((g.double() - w.grad).norm() / den),
+                             float((p.double() - w.grad).norm() / den))
+        del live, outs
+        bad = {k: v for k, v in dist.items() if not v[0] <= 2 * v[1]}
+        check(not bad, f"[lm-ssm] (a) ssm_scan_bwd gradients farther from "
+              f"float64 than twice the f32 plain version's (kernel, plain): "
+              f"{bad}")
+        say(f"[lm-ssm] (a) ssm_scan_bwd B={SSM_B} S={SSM_S}: each "
+            f"gradient's relative L2 distance from the plain version in "
+            f"float64 on the same inputs (kernel, f32 plain): "
+            f"{ {k: (f'{a:.3e}', f'{b:.3e}') for k, (a, b) in dist.items()} }")
+        return dist
+
+    spec = {**ssm_spec(SSM_B, SSM_S), **wkv_spec(WKV_B, WKV_S)}
+    launches = {"ssm_scan": (sops.launch_ssm_fwd, sops.launch_ssm_bwd),
+                "wkv6": (sops.launch_wkv6_fwd, sops.launch_wkv6_bwd)}
     rows = {}
     for fam, ins, plain_fn, out_names, in_names in (
             ("ssm_scan", ssm_in, sref.ssm_scan_plain, ("y", "h"),
              "u dt B C A D h0".split()),
             ("wkv6", wkv_in, sref.wkv6_plain, ("y", "S"),
              "r k v w u S0".split())):
-        fwd_launch = getattr(sops, f"launch_{fam.replace('_scan', '')}_fwd")
-        bwd_launch = getattr(sops, f"launch_{fam.replace('_scan', '')}_bwd")
+        fwd_launch, bwd_launch = launches[fam]
         kin = [t.contiguous() for t in ins]
         y, last, carries = fwd_launch(*kin)()
         # The plain versions (thousands of small operations, no first-call
@@ -2676,6 +2717,9 @@ def _lm_ssm_phase(dev, reset_counts) -> dict:
             lambda: torch.autograd.backward(outs, [gy, gl]))
         berrs = [held(g, w.grad, f"{fam}_bwd d{n}", tol32)[0]
                  for g, w, n in zip(grads, live, in_names)]
+        if fam == "ssm_scan":
+            yardstick = f64_yardstick(kin, gy, gl, grads,
+                                      [w.grad for w in live], in_names)
         del live, outs
         times = {
             f"{fam}_fwd": (event_ms(lambda: fwd_launch(*kin)(), 5),
@@ -2704,7 +2748,18 @@ def _lm_ssm_phase(dev, reset_counts) -> dict:
                 f"kernel_ms={ms:.4f} plain_ms={plain_ms:.2f} bound_ms="
                 f"{b_ms:.5f} ({b_by}) bound_share={b_ms / ms:.4f}")
         del kin, y, last, carries, grads, want
+    rows["ssm_scan_bwd"]["f64_distance"] = yardstick
     del ssm_in, wkv_in, gy, gl
+    # The backwards' global workspaces: the Mamba kernel's per-CTA and
+    # per-row partial sums (its recomputed states stay on the chip), the
+    # WKV kernel's sub-chunk starts and du's per-row sums.
+    ssm_ws = sops.ssm_bwd_workspace(SSM_B, SSM_S, inner, N)
+    ssm_ws_bytes = sum(4 * int(np.prod(s)) for s in ssm_ws)
+    check(ssm_ws_bytes <= 150 * 2**20, f"[lm-ssm] (a) the ssm_scan "
+          f"backward's workspace is {ssm_ws_bytes / 2**20:.1f} MiB, past 150")
+    say(f"[lm-ssm] (a) ssm_scan_bwd global workspace at B={SSM_B} "
+        f"S={SSM_S}: {ssm_ws_bytes / 2**20:.2f} MiB (dB's and dC's per-CTA "
+        f"partials {ssm_ws[0]} each, dA's and dD's per-row ones)")
     ws_bytes = sum(4 * int(np.prod(s)) for s in sops.wkv6_bwd_workspace(
         WKV_B, WKV_S, H, D))
     check(ws_bytes <= 128 * 2**20, f"[lm-ssm] (a) the wkv6 backward's "
@@ -2714,44 +2769,54 @@ def _lm_ssm_phase(dev, reset_counts) -> dict:
         f"{sops.wkv6_bwd_workspace(WKV_B, WKV_S, H, D)[0]}) + du's "
         f"per-row sums")
 
-    # wkv6 at (c)'s training shape and at one decode step of (b): each
-    # kernel held against the plain version on the same inputs (timed once,
-    # as above; ~5 s at the training shape), kernel ms, bound and share by
-    # the same formulas.
-    for B, S, tag in ((SSM_TRAIN_B, SSM_TRAIN_S, "(c)'s training shape"),
-                      (WKV_B, 1, "(b)'s decode step")):
-        ins = [rand(B, S, H, D), rand(B, S, H, D), rand(B, S, H, D),
-               torch.exp(-torch.exp(rand(B, S, H, D, lo=-6.0, hi=0.0))),
-               0.1 * rand(H, D), 0.1 * rand(B, H, D, D)]
-        y, last, carries = sops.launch_wkv6_fwd(*ins)()
+    # wkv6 at (c)'s training shape and at one decode step of (b), the
+    # Mamba scan at [lm]'s prefill and decode step (at jamba's widths):
+    # each kernel held against the plain version on the same inputs (timed
+    # once, as above; ~5 s at the training shape), kernel ms, bound and
+    # share by the same formulas.
+    for fam, B, S, tag in (
+            ("wkv6", SSM_TRAIN_B, SSM_TRAIN_S, "(c)'s training shape"),
+            ("wkv6", WKV_B, 1, "(b)'s decode step"),
+            ("ssm_scan", LM_BATCH, LM_PROMPT, "[lm]'s prefill"),
+            ("ssm_scan", LM_BATCH, 1, "[lm]'s decode step")):
+        fwd_launch, bwd_launch = launches[fam]
+        plain_fn = (sref.ssm_scan_plain if fam == "ssm_scan"
+                    else sref.wkv6_plain)
+        out_names, in_names = (("y h".split(), "u dt B C A D h0".split())
+                               if fam == "ssm_scan" else
+                               ("y S".split(), "r k v w u S0".split()))
+        ins = draw(fam, B, S)
+        y, last, carries = fwd_launch(*ins)()
         gy = torch.randn(y.shape, generator=gen, **f32)
         gl = torch.randn(last.shape, generator=gen, **f32)
-        grads = sops.launch_wkv6_bwd(gy, gl, *ins[:-1], carries)()
+        grads = bwd_launch(gy, gl, *ins[:-1], carries)()
         plain, err = {}, {}
         with torch.no_grad():
-            want, plain["wkv6_fwd"] = once_ms(lambda: sref.wkv6_plain(*ins))
-        err["wkv6_fwd"] = max(
-            held(g, w, f"wkv6_fwd {n} at B={B} S={S}", tol32)[0]
-            for g, w, n in zip((y, last), want, ("y", "S")))
+            want, plain[f"{fam}_fwd"] = once_ms(lambda: plain_fn(*ins))
+        err[f"{fam}_fwd"] = max(
+            held(g, w, f"{fam}_fwd {n} at B={B} S={S}", tol32)[0]
+            for g, w, n in zip((y, last), want, out_names))
         live = [t.detach().requires_grad_() for t in ins]
-        outs = sref.wkv6_plain(*live)
-        _, plain["wkv6_bwd"] = once_ms(
+        outs = plain_fn(*live)
+        _, plain[f"{fam}_bwd"] = once_ms(
             lambda: torch.autograd.backward(outs, [gy, gl]))
-        err["wkv6_bwd"] = max(
-            held(g, w.grad, f"wkv6_bwd d{n} at B={B} S={S}", tol32)[0]
-            for g, w, n in zip(grads, live, "r k v w u S0".split()))
+        err[f"{fam}_bwd"] = max(
+            held(g, w.grad, f"{fam}_bwd d{n} at B={B} S={S}", tol32)[0]
+            for g, w, n in zip(grads, live, in_names))
         del live, outs, want
         # A decode step's launch is shorter than the host's cost of one:
         # its device time by graph replay (autotune.graph_ms).
         timer = ((lambda fn, n: graph_ms(fn, iters=20 * n)) if S == 1
                  else event_ms)
-        times = {"wkv6_fwd": timer(lambda: sops.launch_wkv6_fwd(*ins)(), 5),
-                 "wkv6_bwd": timer(lambda: sops.launch_wkv6_bwd(
+        times = {f"{fam}_fwd": timer(lambda: fwd_launch(*ins)(), 5),
+                 f"{fam}_bwd": timer(lambda: bwd_launch(
                      gy, gl, *ins[:-1], carries)(), 3)}
-        sp = wkv_spec(B, S)
+        sp = ssm_spec(B, S) if fam == "ssm_scan" else wkv_spec(B, S)
+        widths = (f"inner={inner} N={N}" if fam == "ssm_scan"
+                  else f"H={H} D={D}")
         for name, ms in times.items():
             b_ms, b_by = bound(*sp[name])
-            say(f"[lm-ssm] (a) {name} B={B} S={S} H={H} D={D} ({tag}): "
+            say(f"[lm-ssm] (a) {name} B={B} S={S} {widths} ({tag}): "
                 f"max_abs_err={err[name]:.3e} kernel_ms={ms:.4f} plain_ms="
                 f"{plain[name]:.2f} bound_ms={b_ms:.5f} ({b_by}) "
                 f"bound_share={b_ms / ms:.4f}")
@@ -2893,13 +2958,20 @@ def _lm_ssm_phase(dev, reset_counts) -> dict:
     names = [n for n, _ in _named_leaves(params32)]
     batch = SyntheticPipeline(cfg32, batch=SSM_TRAIN_B, seq_len=SSM_PAIR_S,
                               seed=SEED, device=dev).next_batch()
-    pair = {}
+    # Each layer's WKV inputs and the gradients that reach them are
+    # recorded on both paths (tools/wkv6_grad_accuracy.py), for C.22's
+    # check below; the peaks include the records (~1 GiB).
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    import wkv6_grad_accuracy as wga
+    from repro_torch.models import rwkv as trwkv
+    pair, calls = {}, {}
     for path in ("kernels", "plain"):
         peak_reset()
         base = torch.cuda.memory_allocated(dev) / 2**30
         counts = _scan_counts()
         with (_plain_scans() if path == "plain"
-              else contextlib.nullcontext()):
+              else contextlib.nullcontext()), \
+                wga.recording(trwkv.wkv6, calls.setdefault(path, [])):
             live = map_tree(lambda t: t.detach().requires_grad_(True),
                             params32)
             t0 = sync()
@@ -2932,6 +3004,29 @@ def _lm_ssm_phase(dev, reset_counts) -> dict:
                    in ("u", "w_base", "w_lora_a", "w_lora_b")}
     worst = max(rel, key=rel.get)
     del pair["kernels"]["grads"], pair["plain"]["grads"], params32
+    # C.22: each path's scan gradients (dr, dk, dv, dw, du of every layer)
+    # against the plain recurrence in float64 on that path's own recorded
+    # inputs; and the float64 gradients of the two paths' inputs apart,
+    # which is what the pair check above reads.
+    exact, own = {}, {}
+    for path in ("kernels", "plain"):
+        recs = [c for c in calls[path] if "gy" in c]
+        check(len(recs) == SSM_TRAIN_LAYERS and all(
+            set(c["grads"]) == set(wga.NAMES) for c in recs),
+            f"[lm-ssm] (c) recorded {len(recs)} WKV calls with gradients on "
+            f"the {path} path, {SSM_TRAIN_LAYERS} layers expected")
+        exact[path] = [wga.exact_grads(c) for c in recs]
+        own[path] = {n: max(wga.rel(c["grads"][n], e[n])
+                            for c, e in zip(recs, exact[path]))
+                     for n in wga.NAMES}
+    apart = {n: max(wga.rel(k[n], q[n]) for k, q in zip(exact["kernels"],
+                                                        exact["plain"]))
+             for n in wga.NAMES}
+    del calls, exact, recs
+    bad = {p: {n: x for n, x in o.items() if not x <= SSM_OWN_RTOL}
+           for p, o in own.items()}
+    check(not any(bad.values()), f"[lm-ssm] (c) WKV gradients farther "
+          f"than {SSM_OWN_RTOL} from float64 on their own inputs: {bad}")
     med = 1e3 * statistics.median(secs[1:])
     say(f"[lm-ssm] (c) rwkv6-7b published widths, {SSM_TRAIN_LAYERS} layers "
         f"({n4} parameters), AdamW, remat full, {SSM_TRAIN_B} x "
@@ -2949,8 +3044,24 @@ def _lm_ssm_phase(dev, reset_counts) -> dict:
         f"kernels={pair['kernels']['gib']:.2f} GiB plain="
         f"{pair['plain']['gib']:.2f} GiB (live before each: "
         f"{pair['kernels']['base']:.2f}, {pair['plain']['base']:.2f}: the "
-        f"parameters, then the kernels' gradients too); seconds="
+        f"parameters, then the kernels' gradients too; both passes' ms "
+        f"and peaks include C.22's records of the WKV inputs and "
+        f"gradients, ~1 GiB of clones a path); seconds="
         f"{time.perf_counter() - part_t0:.2f}")
+    def fmt(d):
+        return {n: f"{x:.2e}" for n, x in d.items()}
+
+    say(f"[lm-ssm] (c) C.22: each path's WKV gradients against the plain "
+        f"recurrence in float64 on its own recorded inputs, the largest "
+        f"over the {SSM_TRAIN_LAYERS} layers in relative L2 (limit "
+        f"{SSM_OWN_RTOL}): kernels {fmt(own['kernels'])}, plain "
+        f"{fmt(own['plain'])}; the float64 gradients of the two paths' "
+        f"inputs apart by {fmt(apart)}. What the seed-{SEED} pair can show: "
+        f"a missing or wrong gradient term (it moves a leaf by 1e-2 or "
+        f"more); what it cannot: the scans' own rounding, which the "
+        f"layers' conditioning hides under the distance between the two "
+        f"paths' inputs (the u leaves read it), and the float64 check "
+        f"holds instead")
     peak_reset()
 
     # -- (d) one jamba Mamba block at published widths --------------------
@@ -3415,9 +3526,10 @@ def main() -> int:
     built = _build.build()
     say(f"[build] {len(built)} sources in {time.perf_counter() - t0:.2f} s "
         f"({', '.join(f'{k}: {v.seconds:.2f} s' for k, v in built.items())})")
-    # The scan kernels' resources by kernel name (the WKV backward's shared
-    # memory is dynamic, ``wkv6_bwd_smem_bytes``, beside ptxas's static
-    # bytes); the other sources' ptxas lines as they are.
+    # The scan kernels' resources by kernel name (the backwards' shared
+    # memory is dynamic, ``wkv6_bwd_smem_bytes`` / ``ssm_scan_bwd_smem_
+    # bytes``, beside ptxas's static bytes); the other sources' ptxas lines
+    # as they are.
     for name, b in built.items():
         if name in ("ssm_scan", "wkv6"):
             if b.ptxas:
@@ -3431,6 +3543,11 @@ def main() -> int:
     smem = scan_ops.WKV_BWD._lib.wkv6_bwd_smem_bytes
     say(f"[build] wkv_bwd dynamic shared memory bytes by D: "
         f"{ {D: smem(D) for D in scan_ops.WKV_HEAD_DIMS} }")
+    scan_ops.SSM_BWD.load()
+    smem = scan_ops.SSM_BWD._lib.ssm_scan_bwd_smem_bytes
+    say(f"[build] ssm_bwd dynamic shared memory bytes by N at a chunk of "
+        f"{scan_ops.CHUNK} steps: "
+        f"{ {N: smem(N, scan_ops.CHUNK) for N in scan_ops.SSM_STATES} }")
     # The autotuner's feasibility model estimates registers from TR x TC;
     # ptxas says what each instantiation takes.
     regs = {}

@@ -61,8 +61,9 @@
 // whatever S is and wherever the step falls in a chunk or a staging
 // block (the state update is one helper; every sum is a fixed tree), so
 // a prefill of S steps and S one-step calls give the same bits. No float
-// atomics: du's per-row sums are added over the batch rows in order by a
-// second pass (scan.cuh), so two backward runs give the same bits.
+// atomics: du's per-row sums are added over the batch rows by a fixed
+// tree in a second pass (scan.cuh), so two backward runs give the same
+// bits.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -72,7 +73,6 @@
 namespace repro {
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int T = 16;     // forward: steps staged at a time
 constexpr int L = 8;      // backward: steps a sub-chunk (ops.WKV_SUBCHUNK)
 
@@ -96,22 +96,6 @@ struct Bwd {
   int b, S, H, ck, nc, nws;   // nws: workspace states a (b, h)
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // S[d][e] after a step; the forward and the backward's recompute share it.
 __device__ __forceinline__ float wkv_update(float s, float w, float kv) {
   return __fmaf_rn(w, s, kv);
@@ -123,17 +107,6 @@ __device__ __forceinline__ float wkv_update(float s, float w, float kv) {
 template <int R>
 __device__ __forceinline__ int owned(int q, int m) {
   return 4 * (q + R * (m >> 2)) + (m & 3);
-}
-
-// The sum of a[0..N) by a fixed pairwise tree.
-template <int N>
-__device__ __forceinline__ float tree_sum(float (&a)[N]) {
-#pragma unroll
-  for (int w = 1; w < N; w *= 2) {
-#pragma unroll
-    for (int i = 0; i + w < N; i += 2 * w) a[i] = __fadd_rn(a[i], a[i + w]);
-  }
-  return a[0];
 }
 
 // x summed over the R neighbouring lanes that own one row or column, by a
@@ -152,45 +125,6 @@ __device__ __forceinline__ float warp_sum(float x) {
     x = __fadd_rn(x, __shfl_xor_sync(kFull, x, o));
   return x;
 }
-
-// p[0..N), one value a column, summed over the lanes that differ only in
-// the lane bits O0, 2 O0, ..., < O1, by a butterfly: at each level a lane
-// keeps half of its values (the upper half where its bit is set) and adds
-// its partner's values of them; once one is left, both partners add. The
-// order is fixed, so every run and every step gives the same bits. On
-// return p[0..kept) are the sums of columns off .. off + kept - 1, and
-// the lanes with (lane & dup) != 0 hold copies of other lanes' sums.
-__host__ __device__ constexpr int ilog2(int x) {
-  return x > 1 ? 1 + ilog2(x / 2) : 0;
-}
-
-template <int N, int O0, int O1>
-struct Butterfly {
-  static constexpr int levels = ilog2(O1 / O0);
-  static constexpr int kept = (N >> levels) > 0 ? (N >> levels) : 1;
-  static __device__ __forceinline__ void run(float (&p)[N], int lane,
-                                             int& off, int& dup) {
-    off = 0;
-    dup = 0;
-#pragma unroll
-    for (int o = O0, nv = N; o < O1; o <<= 1) {
-      const bool up = lane & o;
-      if (nv > 1) {
-        nv >>= 1;
-#pragma unroll
-        for (int i = 0; i < nv; ++i) {
-          const float send = up ? p[i] : p[i + nv];
-          const float keep = up ? p[i + nv] : p[i];
-          p[i] = __fadd_rn(keep, __shfl_xor_sync(kFull, send, o));
-        }
-        if (up) off += nv;
-      } else {
-        p[0] = __fadd_rn(p[0], __shfl_xor_sync(kFull, p[0], o));
-        dup |= o;
-      }
-    }
-  }
-};
 
 // -------------------------------------------------------------------------
 // forward

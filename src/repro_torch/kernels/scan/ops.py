@@ -53,8 +53,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 SSM_FWD = Kernel("ssm_scan", "ssm_scan_fwd_launch", [_P] * 10 + [_I] * 5
                  + [_P])
-SSM_BWD = Kernel("ssm_scan", "ssm_scan_bwd_launch", [_P] * 21 + [_I] * 5
-                 + [_P])
+SSM_BWD = Kernel("ssm_scan", "ssm_scan_bwd_launch", [_P] * 17
+                 + [ctypes.c_int64] + [_I] * 5 + [_P])
 WKV_FWD = Kernel("wkv6", "wkv6_fwd_launch", [_P] * 9 + [_I] * 5 + [_P])
 WKV_BWD = Kernel("wkv6", "wkv6_bwd_launch", [_P] * 16 + [ctypes.c_int64]
                  + [_I] * 5 + [_P])
@@ -63,6 +63,10 @@ KERNELS = (SSM_FWD, SSM_BWD, WKV_FWD, WKV_BWD)
 # Channels a CTA of the Mamba kernels (csrc/ssm_scan.cu's CH).
 SSM_CHANNELS = 64
 SSM_STATES = (8, 16)
+# The longest chunk the Mamba kernels take (csrc/ssm_scan.cu's kMaxChunk:
+# the backward keeps the starts of a chunk's sub-chunks in shared memory,
+# and the forward refuses what its backward would).
+SSM_MAX_CHUNK = 256
 WKV_HEAD_DIMS = (16, 64)
 # Steps a sub-chunk of the WKV backward kernel (csrc/wkv6.cu's L).
 WKV_SUBCHUNK = 8
@@ -81,20 +85,20 @@ def _stream(dev):
 
 
 def _aligned(t: Tensor) -> Tensor:
-    """``t`` contiguous and 16-byte aligned (the WKV kernels stage their
+    """``t`` contiguous and 16-byte aligned (the scan kernels stage their
     inputs by 16-byte copies); a view at another offset is copied."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def ssm_bwd_workspace(bt, S, inner, N, chunk: int = CHUNK):
-    """The shapes of the Mamba backward kernel's f32 workspace: one
-    chunk's states, dB's and dC's per-CTA partial sums, and the per-row
-    partials of dA and dD."""
-    ck, _ = n_chunks(S, chunk)
+def ssm_bwd_workspace(bt, S, inner, N):
+    """The shapes of the Mamba backward kernel's f32 workspace, one flat
+    buffer in this order: dB's and dC's per-CTA partial sums (a CTA a
+    ``SSM_CHANNELS`` channels), then the per-row partials of dA and dD.
+    The states it recomputes stay on the chip (the sub-chunk starts in
+    shared memory), so the chunk does not enter."""
     nblk = -(-inner // SSM_CHANNELS)
-    return ((bt, ck, N, inner), (nblk, bt, S, N), (nblk, bt, S, N),
-            (bt, inner, N), (bt, inner))
+    return ((nblk, bt, S, N), (nblk, bt, S, N), (bt, inner, N), (bt, inner))
 
 
 def wkv6_bwd_workspace(b, S, H, D, chunk: int = CHUNK):
@@ -111,13 +115,24 @@ def _f32_bytes(shapes) -> int:
     return sum(4 * math.prod(s) for s in shapes)
 
 
+def _ssm_chunks(S, chunk):
+    """``n_chunks(S, chunk)`` for the Mamba kernels, which take chunks of at
+    most ``SSM_MAX_CHUNK`` steps: both launches raise for a longer one,
+    so a forward whose backward would be refused does no work."""
+    ck, nc = n_chunks(S, chunk)
+    if ck > SSM_MAX_CHUNK:
+        raise ValueError(f"ssm_scan on the card takes chunks of at most "
+                         f"{SSM_MAX_CHUNK} steps, not {ck}")
+    return ck, nc
+
+
 # ---------------------------------------------------------------------------
 # the kernels' launches
 # ---------------------------------------------------------------------------
 
 def launch_ssm_fwd(u, dt, B, C, A, D, h0, chunk: int = CHUNK) -> Launch:
     """The forward kernel's launch on CUDA operands, into new (y, h_last,
-    carries)."""
+    carries); chunks of at most ``SSM_MAX_CHUNK`` steps."""
     dev = u.device
     _f32_on(dev, u, dt, B, C, A, D, h0)
     bt, S, inner = u.shape
@@ -131,8 +146,8 @@ def launch_ssm_fwd(u, dt, B, C, A, D, h0, chunk: int = CHUNK) -> Launch:
         raise ValueError("ssm_scan shapes: u, dt (Bt, S, inner); B, C "
                          "(Bt, S, N); A (inner, N); D (inner,); h0 "
                          "(Bt, inner, N)")
-    ops = [t.contiguous() for t in (u, dt, B, C, A, D, h0)]
-    _, nc = n_chunks(S, chunk)
+    _, nc = _ssm_chunks(S, chunk)
+    ops = [_aligned(t) for t in (u, dt, B, C, A, D, h0)]
     y = torch.empty((bt, S, inner), dtype=torch.float32, device=dev)
     h = torch.empty((bt, inner, N), dtype=torch.float32, device=dev)
     carries = torch.empty((bt, nc, inner, N), dtype=torch.float32,
@@ -146,31 +161,31 @@ def launch_ssm_fwd(u, dt, B, C, A, D, h0, chunk: int = CHUNK) -> Launch:
 def launch_ssm_bwd(gy, gh, u, dt, B, C, A, D, carries,
                    chunk: int = CHUNK) -> Launch:
     """The backward kernel's launch on CUDA operands, into new (du, ddt,
-    dB, dC, dA, dD, dh0). Its workspace: one chunk's states and the
-    per-CTA / per-row partial sums that a second pass adds in a fixed
-    order."""
+    dB, dC, dA, dD, dh0). Its workspace (``ssm_bwd_workspace``, one flat
+    buffer; the kernel refuses one of another size): the per-CTA /
+    per-row partial sums that a second pass adds in a fixed order."""
     dev = u.device
     _f32_on(dev, gy, gh, u, dt, B, C, A, D, carries)
     bt, S, inner = u.shape
     N = A.shape[1]
-    _, nc = n_chunks(S, chunk)
+    _, nc = _ssm_chunks(S, chunk)
     if (gy.shape != u.shape or gh.shape != (bt, inner, N)
             or carries.shape != (bt, nc, inner, N)):
         raise ValueError("ssm_scan_bwd shapes: gy as u, gh (Bt, inner, N), "
                          "carries (Bt, nc, inner, N)")
-    ops = [t.contiguous() for t in (gy, gh, u, dt, B, C, A, D, carries)]
+    ops = [_aligned(t) for t in (gy, gh, u, dt, B, C, A, D, carries)]
     f32 = dict(dtype=torch.float32, device=dev)
     outs = (torch.empty((bt, S, inner), **f32),
             torch.empty((bt, S, inner), **f32),
             torch.empty((bt, S, N), **f32), torch.empty((bt, S, N), **f32),
             torch.empty((inner, N), **f32), torch.empty((inner,), **f32),
             torch.empty((bt, inner, N), **f32))
-    ws = tuple(torch.empty(s, **f32)
-               for s in ssm_bwd_workspace(bt, S, inner, N, chunk))
+    ws = torch.empty(_f32_bytes(ssm_bwd_workspace(bt, S, inner, N)) // 4,
+                     **f32)
     return Launch(SSM_BWD, dev.index, (
         *(t.data_ptr() for t in ops), *(t.data_ptr() for t in outs),
-        *(t.data_ptr() for t in ws), bt, S, inner, N, chunk,
-        _stream(dev)), outs, None, (ops, ws))
+        ws.data_ptr(), ws.numel(), bt, S, inner, N, chunk, _stream(dev)),
+        outs, None, (ops, ws))
 
 
 def launch_wkv6_fwd(r, k, v, w, u, S0, chunk: int = CHUNK) -> Launch:
@@ -385,7 +400,7 @@ def _wkv6_bwd_flop(gy, gS, r, *args, **kwargs) -> int:
 # they live only while the kernel runs).
 WORKSPACE_BYTES[torch.ops.repro_torch.ssm_scan_bwd] = (
     lambda gy, gh, u, dt, B, C, A, D, carries, chunk: _f32_bytes(
-        ssm_bwd_workspace(*u.shape, A.shape[1], chunk)))
+        ssm_bwd_workspace(*u.shape, A.shape[1])))
 WORKSPACE_BYTES[torch.ops.repro_torch.wkv6_bwd] = (
     lambda gy, gS, r, k, v, w, u, carries, chunk: _f32_bytes(
         wkv6_bwd_workspace(*r.shape, chunk)))

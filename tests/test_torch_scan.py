@@ -460,3 +460,45 @@ def test_wkv6_backward_workspace_is_the_sub_chunk_starts():
     for S in (1, 7, 16):
         assert sops.wkv6_bwd_workspace(2, S, 3, 16)[0][2] == 0
     assert sops.wkv6_bwd_workspace(2, 4096, 3, 64, chunk=100)[0][2] == 11
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 4096, 16384, 16),      # jamba's layer at 1 x 4096
+    (4, 512, 16384, 16),       # [lm]'s prefill at jamba's widths
+    (2, 131, 200, 8),          # three full CTAs and a ragged one
+    (3, 137, 133, 16),         # inner no multiple of 4
+    (1, 1, 5, 8),              # one step, one ragged CTA
+])
+def test_ssm_backward_workspace_is_the_sub_chunk_layout(shape):
+    """The Mamba backward kernel keeps the states it recomputes on the
+    chip (each chunk's sub-chunk starts in shared memory), so its global
+    workspace is the per-CTA partials of dB and dC (a CTA a
+    ``SSM_CHANNELS`` channels) and the per-row partials of dA and dD: at
+    jamba's 1 x 4096 at most 150 MiB (129.06 MiB; a whole chunk's states
+    took 128 MiB more)."""
+    bt, S, inner, N = shape
+    nblk = -(-inner // 64)
+    ws = sops.ssm_bwd_workspace(bt, S, inner, N)
+    assert sops.SSM_CHANNELS == 64
+    assert ws == ((nblk, bt, S, N), (nblk, bt, S, N), (bt, inner, N),
+                  (bt, inner))
+    ws_bytes = sum(4 * int(np.prod(s)) for s in ws)
+    if shape[:3] == (1, 4096, 16384):
+        assert ws_bytes == (128 + 1) * 2**20 + 4 * 16384
+        assert ws_bytes <= 150 * 2**20
+
+
+def test_ssm_launches_refuse_chunks_past_shared_memory():
+    """The Mamba backward kernel's sub-chunk starts live in shared memory,
+    so both launches take chunks of at most ``SSM_MAX_CHUNK`` steps and
+    raise before touching a card for a longer one: the forward too, so
+    that no forward runs whose backward would be refused."""
+    ins = _tensors(_ssm_inputs(0, 300, bt=1, inner=8, N=16))
+    for chunk, nc in ((300, 1), (sops.SSM_MAX_CHUNK + 1, 2)):
+        with pytest.raises(ValueError, match="chunks of at most"):
+            sops.launch_ssm_fwd(*ins, chunk=chunk)
+        with pytest.raises(ValueError, match="chunks of at most"):
+            sops.launch_ssm_bwd(ins[0], ins[-1], *ins[:6],
+                                torch.zeros((1, nc, 8, 16)), chunk=chunk)
+    assert sops._ssm_chunks(300, sops.SSM_MAX_CHUNK) == (256, 2)
+    assert sops._ssm_chunks(200, 300) == (200, 1)

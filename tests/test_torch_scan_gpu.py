@@ -9,13 +9,16 @@ imports nothing of JAX: the machine with the card has no JAX. Each
 kernel's forward and backward (through the ``repro_torch::*`` operators
 and autograd) against autograd through ``ref.ssm_scan_plain`` /
 ``ref.wkv6_plain`` on the same inputs, at N in {8, 16} and D in {16, 64},
-S in {1, 7, 129, 131, 136, 4096} (ragged against the WKV forward's
-staging blocks of 16 steps, the backward's sub-chunks of 8 and the chunks
-of 128), within the f32 ``TOLERANCES`` (``truth_tolerance``: both compute
-in f32 and differ in rounding and summation order only); two backward
-runs bitwise equal (the kernels' sums are fixed-order); a prefill of S
-steps bitwise S one-step calls; the WKV backward's global workspace the
-size ``ops.wkv6_bwd_workspace`` states (the kernel refuses another).
+S in {1, 7, 20, 129, 131, 136, 300, 4096} (ragged against both forwards'
+staging blocks of 16 steps, both backwards' sub-chunks of 8 and the
+chunks of 128), within the f32 ``TOLERANCES`` (``truth_tolerance``: both
+compute in f32 and differ in rounding and summation order only); two
+backward runs bitwise equal (the kernels' sums are fixed-order); a
+prefill of S steps bitwise S one-step calls; each backward's global
+workspace the size ``ops.ssm_bwd_workspace`` / ``ops.wkv6_bwd_workspace``
+states (the kernel refuses another); a ragged ``inner`` that is no
+multiple of 4 (the Mamba kernels then stage by 4-byte copies) and
+inputs that are views at an offset (the launches copy them).
 """
 import dataclasses
 
@@ -39,7 +42,8 @@ def cuda():
 
 
 def _ssm_inputs(seed, S, N, bt=2, inner=200):
-    """inner = 200: three full CTAs of 64 channels and a ragged one."""
+    """inner = 200: three full CTAs of 64 channels (``ops.SSM_CHANNELS``,
+    256 threads at 4 lanes a channel) and a ragged one of 8."""
     rng = np.random.default_rng(seed)
     u, B, C = (rng.standard_normal(s).astype(np.float32)
                for s in ((bt, S, inner), (bt, S, N), (bt, S, N)))
@@ -87,7 +91,7 @@ CASES = {"ssm_scan": (sops.ssm_scan, sref.ssm_scan_plain, _ssm_inputs,
                   (sops.WKV_FWD, sops.WKV_BWD))}
 
 
-@pytest.mark.parametrize("S", [1, 7, 129, 131, 136, 4096])
+@pytest.mark.parametrize("S", [1, 7, 20, 129, 131, 136, 300, 4096])
 @pytest.mark.parametrize("size_ix", [0, 1])
 @pytest.mark.parametrize("family", sorted(CASES))
 def test_kernels_match_their_plain_versions(cuda, family, size_ix, S):
@@ -155,6 +159,65 @@ def test_wkv6_backward_workspace_is_the_stated_size(cuda):
                                           *ln.args[17:]))
     with pytest.raises(RuntimeError, match="wkv6_bwd_launch failed"):
         short()
+
+
+def test_ssm_backward_workspace_is_the_stated_size(cuda):
+    """The backward's global workspace: dB's and dC's per-CTA partials and
+    dA's and dD's per-row ones (``ops.ssm_bwd_workspace``, one flat
+    buffer), at most 150 MiB at jamba's B = 1, S = 4096, inner 16384, N 16
+    (the recomputed states stay on the chip); the kernel refuses a
+    workspace of another size, and the launch a chunk past
+    ``SSM_MAX_CHUNK``."""
+    ws = sops.ssm_bwd_workspace(1, 4096, 16384, 16)
+    assert sum(4 * int(np.prod(s)) for s in ws) <= 150 * 2**20
+    arrays = [torch.as_tensor(a, device=cuda)
+              for a in _ssm_inputs(0, 300, 16)]
+    _, _, carries = sops.launch_ssm_fwd(*arrays)()
+    gy = torch.ones_like(arrays[0])
+    gh = torch.ones_like(arrays[-1])
+    ln = sops.launch_ssm_bwd(gy, gh, *arrays[:6], carries)
+    stated = sum(int(np.prod(s)) for s in sops.ssm_bwd_workspace(2, 300,
+                                                                  200, 16))
+    assert ln.scratch[1].numel() == ln.args[17] == stated
+    ln()
+    torch.cuda.synchronize()
+    short = dataclasses.replace(ln, args=(*ln.args[:17], ln.args[17] - 1,
+                                          *ln.args[18:]))
+    with pytest.raises(RuntimeError, match="ssm_scan_bwd_launch failed"):
+        short()
+    with pytest.raises(ValueError, match="chunks of at most"):
+        sops.launch_ssm_bwd(gy, gh, *arrays[:6], carries[:, :1],
+                            chunk=sops.SSM_MAX_CHUNK + 44)
+
+
+def test_ssm_ragged_inner_and_unaligned_views(cuda):
+    """inner = 133 (two full CTAs and a ragged one of 5 channels; rows not
+    16-byte aligned, so the kernels stage by 4-byte copies), S = 137, and
+    inputs that are views at an offset of one float (the launches copy
+    them), against the plain versions; two backward runs bitwise equal."""
+    arrays = _ssm_inputs(4, 137, 16, bt=3, inner=133)
+    flat = [torch.as_tensor(np.concatenate([[0.0], a.ravel()]).astype(
+        np.float32), device=cuda).requires_grad_() for a in arrays]
+    views = [f[1:].view(a.shape) for f, a in zip(flat, arrays)]
+    assert all(v.data_ptr() % 16 for v in views)
+    rng = np.random.default_rng(6)
+    cots = [torch.as_tensor(rng.standard_normal(a.shape).astype(np.float32),
+                            device=cuda) for a in (arrays[0], arrays[-1])]
+    outs = sops.ssm_scan(*views)
+    torch.autograd.backward(outs, cots)
+    grads = [f.grad[1:].view(a.shape).clone() for f, a in zip(flat, arrays)]
+    for f in flat:
+        f.grad = None
+    torch.autograd.backward(sops.ssm_scan(*views), cots)
+    assert all(torch.equal(f.grad[1:].view(a.shape), g)
+               for f, a, g in zip(flat, arrays, grads))
+    ref_live = [torch.as_tensor(a, device=cuda).requires_grad_()
+                for a in arrays]
+    ref_outs = sref.ssm_scan_plain(*ref_live)
+    torch.autograd.backward(ref_outs, cots)
+    torch.cuda.synchronize()
+    _held(outs, ref_outs, "y h".split())
+    _held(grads, [t.grad for t in ref_live], "u dt B C A D h0".split())
 
 
 def test_wkv6_odd_grid_and_unaligned_views(cuda):
