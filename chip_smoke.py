@@ -111,7 +111,7 @@ without printing the result line:
               window; the fault-tolerant loop with two injected failures;
               ``repro_torch.launch.train`` in a subprocess;
    lm-dist  — the sharded LM training step (see ``_lm_dist_phase``): four
-              gloo ranks sharing the card on a (2, 2) mesh, the ten archs
+              gloo ranks sharing the card on a (2, 2) mesh, LMD_ARCHS
               reduced ("tp" with fsdp, two steps) and llama3.2-3b at full
               width, 2 layers, f32 (tp with fsdp and Megatron's MLP, tp,
               fsdp: one step), each held against the single-device step
@@ -120,19 +120,23 @@ without printing the result line:
               step ms, tokens/s, peak memory and host ms in collectives
               beside [lm-train]'s;
    lm-serve-dist — sharded LM serving (see ``_lm_serve_dist_phase``):
-              four gloo ranks sharing the card on a (2, 2) mesh, the ten
-              archs reduced, B = 1, a short SWA prompt and llama3.2-3b at
-              full width, 2 layers, f32, prefill + 8 greedy decode steps
-              each held against the single-device run on the card
-              (logits, tokens, every rank's cache shard); then one NCCL
-              rank on the (1, 1) mesh with [lm]'s configuration, seed and
-              prompt through the sharded path and the per-rank draw,
-              held step by step against the single-device run in the
-              same process: prefill ms, decode ms a step, peak memory,
-              collectives and host ms in them beside it;
+              four gloo ranks sharing the card on a (2, 2) mesh, under
+              "tp" LMS_TP_ARCHS reduced, B = 1, a short SWA prompt and
+              llama3.2-3b at full width, 2 layers, f32, under "fsdp"
+              LMS_FSDP_ARCHS reduced and the short SWA prompt, prefill +
+              greedy decode steps each held against the single-device
+              run on the card (logits, tokens, every rank's cache shard);
+              then one NCCL rank on the (1, 1) mesh with [lm]'s
+              configuration, seed and prompt through the sharded path and
+              the per-rank draw, under "tp" and under "fsdp", held step
+              by step against the single-device run in the same process:
+              prefill ms, decode ms a step, peak memory, collectives and
+              host ms in them beside it;
    dryrun   — ``repro_torch.launch.dryrun`` (no card: rank 0 of the
               production mesh on meta tensors, a fake process group) in
-              processes of its own for DRYRUN_CELLS, each record's
+              processes of its own for DRYRUN_CELLS, started before
+              [examples] and read after [lm-ssm] (they use the host's
+              cores while the card's phases run), each record's
               predicted peak, dominant term and MFU fraction printed;
               [lm-train]'s configuration predicted on the one-rank mesh:
               its argument bytes exactly the live train state's and a
@@ -198,8 +202,8 @@ runs [dist] alone over N NCCL ranks, one card each (the cross-card path
 a one-card run cannot reach), held against single-device fits of the
 same rows on the first card, then [lm-dist] and [lm-serve-dist] over N
 NCCL ranks (llama3.2-3b at full width and depth, bf16, on a (2, N/2)
-mesh: training steps, then prefill and decode with the cache sharded);
-it needs N cards.
+mesh: training steps, then prefill and decode with the cache sharded,
+under "tp" and under "fsdp"); it needs N cards.
 """
 from __future__ import annotations
 
@@ -353,8 +357,8 @@ LMT_PARITY_LAYERS, LMT_PARITY_S = 2, 64
 LMT_GRAD_ATOL, LMT_GRAD_RTOL = 1e-4, 1e-3
 LMT_STEPS, LMT_BATCH, LMT_SEQ = 6, 4, 512
 LMT_CLI_ARGS = ["--arch", LM_ARCH, "--reduced", "--steps", "20"]
-# [lm-dist]: the sharded step. (a) LMD_RANKS gloo ranks on the card, the
-# ten archs reduced and LM_ARCH at full width (LMD_FULL_LAYERS layers,
+# [lm-dist]: the sharded step. (a) LMD_RANKS gloo ranks on the card,
+# LMD_ARCHS reduced and LM_ARCH at full width (LMD_FULL_LAYERS layers,
 # f32, LMD_FULL_B x LMD_FULL_S tokens), held against the single-device
 # step within LMD_RTOL (loss, ce, aux, grad norm); (b) one NCCL rank,
 # [lm-train]'s configuration, seed and batches, each step's loss and grad
@@ -366,22 +370,38 @@ LMD_RANKS, LMD_RTOL, LMD_TIMEOUT_S = 4, 1e-5, 600
 LMD_BF16_LOSS_RTOL, LMD_BF16_NORM_RTOL = 1e-3, 1e-2
 LMD_FULL_LAYERS, LMD_FULL_B, LMD_FULL_S = 2, 4, 64
 LMD_CARDS_STEPS = 4
+# The reduced archs (a) runs: the dense path, the MoE and the two whose
+# layers launch the scan kernels. The other six re-ran on the card what
+# tests/test_torch_lm_dist.py holds on the CPU against the JAX package,
+# with no kernel and no path of their own on the card (ROADMAP B.10).
+LMD_ARCHS = ("jamba-1.5-large-398b", "llama3.2-3b", "mixtral-8x22b",
+             "rwkv6-7b")
 # [lm-serve-dist]: sharded serving. (a) LMS_RANKS gloo ranks on the card,
-# (2, 2) "tp": the ten archs reduced with fsdp (LMS_B x LMS_PROMPT, then
-# LMS_STEPS greedy decode steps, a cache of LMS_CACHE), llama at B = 1,
-# mixtral after a prompt shorter than its window, LM_ARCH at full width
-# (LMS_FULL_LAYERS layers, f32, LMS_B x LMS_FULL_PROMPT), each held
-# against the single-device run on the card: the logits of every step
-# within LMS_ATOL, the greedy tokens equal, every rank's cache leaf the
-# single-device cache's cut for it within LMS_ATOL. (b) one NCCL rank on
-# (1, 1): [lm]'s configuration, seed and prompt (LM_BATCH x LM_PROMPT,
-# LM_NEW steps, bf16) through the sharded path and the per-rank draw,
-# then the single-device run in the same process fed its tokens: each
-# step's logits within [lm]'s bf16 check (TOLERANCES["bf16"], atol
-# scaled by the largest |logit|).
+# (2, 2): under "tp" with fsdp LMS_TP_ARCHS reduced (LMS_B x LMS_PROMPT,
+# then LMS_STEPS greedy decode steps, a cache of LMS_CACHE), llama at
+# B = 1, mixtral after a prompt shorter than its window, LM_ARCH at full
+# width (LMS_FULL_LAYERS layers, f32, LMS_B x LMS_FULL_PROMPT,
+# LMS_FULL_STEPS steps); under "fsdp" LMS_FSDP_ARCHS reduced and mixtral's
+# short prompt; each held against the single-device run on the card: the
+# logits of every step within LMS_ATOL, the greedy tokens equal, every
+# rank's cache leaf the single-device cache's cut for it within LMS_ATOL.
+# (b) one NCCL rank on (1, 1): [lm]'s configuration, seed and prompt
+# (LM_BATCH x LM_PROMPT, LM_NEW steps, bf16) through the sharded path and
+# the per-rank draw, under "tp" and then "fsdp", each followed by the
+# single-device run in the same process fed its tokens: each step's
+# logits within [lm]'s bf16 check (TOLERANCES["bf16"], atol scaled by
+# the largest |logit|).
 LMS_RANKS, LMS_ATOL, LMS_TIMEOUT_S = 4, 5e-4, 600
 LMS_B, LMS_PROMPT, LMS_STEPS, LMS_CACHE = 4, 16, 8, 32
-LMS_FULL_LAYERS, LMS_FULL_PROMPT = 2, 64
+LMS_FULL_LAYERS, LMS_FULL_PROMPT, LMS_FULL_STEPS = 2, 64, 2
+# The reduced archs (a) runs under "tp": the dense path and the two whose
+# layers launch the scan kernels (the other seven re-ran on the card what
+# tests/test_torch_lm_serve_dist.py holds on the CPU against the JAX
+# package; ROADMAP B.10). Under "fsdp": the same, gemma3's sliding-window
+# ring and mixtral's MoE besides.
+LMS_TP_ARCHS = ("jamba-1.5-large-398b", "llama3.2-3b", "rwkv6-7b")
+LMS_FSDP_ARCHS = ("gemma3-27b", "jamba-1.5-large-398b", "llama3.2-3b",
+                  "rwkv6-7b")
 # [dryrun]: ``repro_torch.launch.dryrun`` in processes of their own (its
 # fake process group of 256 / 512 ranks never becomes this one's), each
 # DRYRUN_CELLS cell (--arch, --shape, --mesh) one CLI process, all at once,
@@ -433,6 +453,9 @@ SSM_BF16_RATIO = 1.5
 BF16_PEAK_FLOPS = 989e12  # the H100 SXM data sheet's dense bf16 rate
 QP_SIZES = 4              # [paper] runs the QP at the first QP_SIZES sizes
 PROFILE_ITERS = 100       # solver iterations inside the profiler window
+# [dist]'s ranks' windows: the profiler's parse of its events took 34-40 s
+# a job for 100 iterations whose solve took 1-2 s (ROADMAP B.10).
+DIST_PROFILE_ITERS = 20
 # gram: the kernel matrix of the main path's rows, a ragged shape and one
 # whose rows are no multiple of a tile.
 GRAM_SHAPES = ((M, M, D), (130, 77, 129), (M + 1, 300, D))
@@ -519,7 +542,9 @@ def _dist_rank(rank: int, world: int, job: dict) -> dict:
     ``job["precisions"]`` on [main]'s data; with ``job["full"]`` also a
     ledger solve at m = 2048, the sharded fit at SHRINK_M and the sharded
     warm refit; then the sharded scorer on [main]'s served model. Returns
-    plain numbers and numpy arrays for the parent to check."""
+    plain numbers and numpy arrays for the parent to check, and under
+    "times" where the rank's seconds went (``_dist_phase`` prints them)."""
+    entered = time.time()
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -542,6 +567,7 @@ def _dist_rank(rank: int, world: int, job: dict) -> dict:
     spec = SlabSpec(nu1=0.5, nu2=0.05, eps=0.5, kernel=rbf(RBF_GAMMA))
     X = make_toy(SEED, M, d=D)[0]
     narrow = {c.entry for c in tiling.menu("fupdate", 2 * P)}
+    times = {"entered": entered, "setup_s": time.time() - entered}
 
     def reset():
         fup.FUPDATE.reset_counts()
@@ -612,10 +638,12 @@ def _dist_rank(rank: int, world: int, job: dict) -> dict:
         out["fits"]["warm-f32"] = rec
 
     # Where a distributed iteration's time goes: a profiler window over
-    # PROFILE_ITERS iterations (every rank runs it: the solve is SPMD).
+    # DIST_PROFILE_ITERS iterations (every rank runs it: the solve is SPMD).
+    t0 = time.perf_counter()
     out["trace"] = _traced(lambda: repro_torch.fit(
         X, spec, strategy="distributed", mesh=mesh, data_axes=axes, P=P,
-        tol=TOL, max_outer=PROFILE_ITERS))
+        tol=TOL, max_outer=DIST_PROFILE_ITERS))
+    times["trace_s"] = time.perf_counter() - t0
     sv = job["served"]
     model = OCSSVMModel(
         gamma=torch.as_tensor(sv["gamma"], device=dev),
@@ -638,6 +666,8 @@ def _dist_rank(rank: int, world: int, job: dict) -> dict:
     out["local_bitwise"] = all(
         scores[n].tobytes() == sm.score(q).tobytes()
         for n, q in queries.items())
+    times["returned"] = time.time()
+    out["times"] = times
     return out
 
 
@@ -658,8 +688,9 @@ def _dist_phase(jobs: dict, ref: dict):
     dev, spec, sm = ref["dev"], ref["spec"], ref["sm"]
     phase_t0 = time.perf_counter()
     ranks, job_s = {}, {}
+    spawned = {}
     for backend, (world, job) in jobs.items():
-        t0 = time.perf_counter()
+        t0, spawned[backend] = time.perf_counter(), time.time()
         ranks[backend] = spawn_ranks(_dist_rank, world, backend=backend,
                                      args=(job,), timeout_s=DIST_TIMEOUT_S)
         job_s[backend] = time.perf_counter() - t0
@@ -790,8 +821,19 @@ def _dist_phase(jobs: dict, ref: dict):
             for r, rec_r in enumerate(recs)}
         _say_trace("[dist]", f"{backend} rank 0 distributed fit f32 m={M}",
                    recs[0]["trace"])
+        tm = [r["times"] for r in recs]
+        last = max(t["returned"] for t in tm)
         say(f"[dist] {backend}: {world} rank(s) on "
-            f"{recs[0]['device']}, job seconds={job_s[backend]:.2f}")
+            f"{recs[0]['device']}, job seconds={job_s[backend]:.2f}: the "
+            f"spawn to the last rank's function "
+            f"{max(t['entered'] for t in tm) - spawned[backend]:.2f}, its "
+            f"imports and data {max(t['setup_s'] for t in tm):.2f}, the "
+            f"fits {sum(f['seconds'] for f in recs[0]['fits'].values()):.2f}"
+            f" (rank 0), the profiler window "
+            f"{max(t['trace_s'] for t in tm):.2f} (the traced solve's wall "
+            f"{recs[0]['trace']['wall_s']:.2f}), the scorer "
+            f"{recs[0]['score_seconds']:.2f}, the last rank's return to the "
+            f"join {spawned[backend] + job_s[backend] - last:.2f}")
     say(f"[dist] phase seconds={time.perf_counter() - phase_t0:.2f}")
     return dist_fupdate, dist_decision
 
@@ -1849,16 +1891,15 @@ def _lm_train_phase(dev, src: Path, reset_counts, launch_counts) -> dict:
 
 
 def _lm_dist_cases():
-    """[lm-dist] (a)'s cases: the ten archs reduced on (2, 2) "tp" with
+    """[lm-dist] (a)'s cases: LMD_ARCHS reduced on (2, 2) "tp" with
     fsdp, two steps, the parameters gathered; LM_ARCH at full width and
     LMD_FULL_LAYERS layers, f32, one step of LMD_FULL_B x LMD_FULL_S
     tokens, on (2, 2) "tp" with fsdp (``tp_mlp`` on: Megatron's MLP),
     "tp" without fsdp and "fsdp"."""
-    from repro_torch.configs import ARCHS
     mesh = [(2, 2), ("data", "model")]
     cases = [dict(key=f"{name} reduced tp fsdp", arch=name, mesh=mesh,
                   layout="tp", fsdp=True, steps=2, batch=4, seq=16,
-                  params=True, step_kw=LMT_STEP_KW) for name in sorted(ARCHS)]
+                  params=True, step_kw=LMT_STEP_KW) for name in LMD_ARCHS]
     full = dict(reduced=False, mesh=mesh, steps=1, batch=LMD_FULL_B,
                 seq=LMD_FULL_S, step_kw=LMT_STEP_KW, arch=LM_ARCH)
     over = dict(n_layers=LMD_FULL_LAYERS, param_dtype="float32")
@@ -1916,7 +1957,7 @@ def _lm_dist_phase(dev, lm_train: dict, reset_counts, launch_counts) -> dict:
 
     # -- (a) four gloo ranks sharing the card ------------------------------
     cases = _lm_dist_cases()
-    t0 = time.perf_counter()
+    t0, spawned = time.perf_counter(), time.time()
     with tempfile.TemporaryDirectory() as tmp:
         got = spawn_ranks(ranks_mod.lm_dist_steps, LMD_RANKS,
                           backend="gloo",
@@ -1964,14 +2005,15 @@ def _lm_dist_phase(dev, lm_train: dict, reset_counts, launch_counts) -> dict:
     del oracles, state
     torch.cuda.empty_cache()
     say(f"[lm-dist] (a) {len(cases)} cases held; ranks seconds="
-        f"{ranks_s:.2f}")
+        f"{ranks_s:.2f} (the spawn to the last rank's function "
+        f"{max(r['entered'] for r in got) - spawned:.2f})")
 
     # -- (b) one NCCL rank, (1, 1), full width and depth, bf16 ------------
     case = dict(key="full", arch=LM_ARCH, reduced=False,
                 mesh=[(1, 1), ("data", "model")], layout="tp", fsdp=False,
                 steps=LMT_STEPS, batch=LMT_BATCH, seq=LMT_SEQ, plain=True,
                 trace=True)
-    t0 = time.perf_counter()
+    t0, spawned = time.perf_counter(), time.time()
     with tempfile.TemporaryDirectory() as tmp:
         got = spawn_ranks(ranks_mod.lm_dist_steps, 1, backend="nccl",
                           args=(dict(device="cuda", seed=SEED,
@@ -2024,7 +2066,8 @@ def _lm_dist_phase(dev, lm_train: dict, reset_counts, launch_counts) -> dict:
         f" GiB a step), host ms in them a step (median of steps 2..) "
         f"{coll_ms:.2f} (each step "
         f"{[round(x, 2) for x in res['collective_ms']]}); process seconds="
-        f"{time.perf_counter() - t0:.2f}")
+        f"{time.perf_counter() - t0:.2f} (the spawn to the rank's function "
+        f"{got[0]['entered'] - spawned:.2f})")
     _say_trace("[lm-dist]", "(b) one sharded step under the profiler:",
                res["trace"])
     _say_trace("[lm-dist]", "(b) one single-device step under the "
@@ -2048,26 +2091,34 @@ def _lm_dist_phase(dev, lm_train: dict, reset_counts, launch_counts) -> dict:
 
 
 def _lm_serve_dist_cases():
-    """[lm-serve-dist] (a)'s cases on (2, 2) "tp": the ten archs reduced
-    with fsdp, llama at B = 1 (positions over data + model), mixtral
-    after a prompt of 5 (its ring longer than the prompt: C.12; the ten's
-    mixtral fills its ring), LM_ARCH at full width, LMS_FULL_LAYERS
-    layers, f32 (fsdp off below 4e9 parameters, as the launcher has it)."""
-    from repro_torch.configs import ARCHS
+    """[lm-serve-dist] (a)'s cases on (2, 2): under "tp" with fsdp
+    LMS_TP_ARCHS reduced, llama at B = 1 (positions over data + model),
+    mixtral after a prompt of 5 (its ring longer than the prompt: C.12),
+    LM_ARCH at full width, LMS_FULL_LAYERS layers, f32, LMS_FULL_STEPS
+    steps (fsdp off below 4e9 parameters, as the launcher has it); under
+    "fsdp" LMS_FSDP_ARCHS reduced and mixtral after a prompt of 5 (the
+    rows over ("data", "model"), each mixer on the cache's rows over
+    "data")."""
     mesh = [(2, 2), ("data", "model")]
-    base = dict(mesh=mesh, fsdp=True, batch=LMS_B, prompt=LMS_PROMPT,
-                steps=LMS_STEPS, cache_len=LMS_CACHE)
+    base = dict(mesh=mesh, fsdp=True, layout="tp", batch=LMS_B,
+                prompt=LMS_PROMPT, steps=LMS_STEPS, cache_len=LMS_CACHE)
     cases = [dict(base, key=f"{name} reduced", arch=name)
-             for name in sorted(ARCHS)]
+             for name in LMS_TP_ARCHS]
     cases.append(dict(base, key=f"{LM_ARCH} reduced B=1", arch=LM_ARCH,
                       batch=1))
     cases.append(dict(base, key="mixtral-8x22b reduced prompt=5",
                       arch="mixtral-8x22b", prompt=5))
     cases.append(dict(base, key=f"{LM_ARCH} full width", arch=LM_ARCH,
                       reduced=False, fsdp=False, prompt=LMS_FULL_PROMPT,
-                      cache_len=LMS_FULL_PROMPT + 2 * LMS_STEPS,
+                      steps=LMS_FULL_STEPS,
+                      cache_len=LMS_FULL_PROMPT + 2 * LMS_FULL_STEPS,
                       overrides=dict(n_layers=LMS_FULL_LAYERS,
                                      param_dtype="float32")))
+    fsdp = dict(base, fsdp=False, layout="fsdp")
+    cases += [dict(fsdp, key=f"{name} reduced fsdp", arch=name)
+              for name in LMS_FSDP_ARCHS]
+    cases.append(dict(fsdp, key="mixtral-8x22b reduced prompt=5 fsdp",
+                      arch="mixtral-8x22b", prompt=5))
     return cases
 
 
@@ -2083,7 +2134,7 @@ def _lm_serve_dist_phase(dev, lm: dict, reset_counts, launch_counts) -> dict:
     its rank, the parent's (its counts set to 0 before (a) and read at
     the end) for the oracle of (a).
 
-    (a) four gloo ranks sharing the card, (2, 2) "tp"
+    (a) four gloo ranks sharing the card, (2, 2) "tp" and "fsdp"
     (``_lm_serve_dist_cases``), each case held against the single-device
     run on the card (``lm_serve_oracle``, same parameters and prompt;
     an MoE arch's capacity factor E on both sides): every step's logits
@@ -2091,12 +2142,15 @@ def _lm_serve_dist_phase(dev, lm: dict, reset_counts, launch_counts) -> dict:
     rank's cache leaf the single-device leaf cut for that rank within
     LMS_ATOL. (b) one NCCL rank on the (1, 1) mesh: LM_ARCH at full width
     and depth in bf16, [lm]'s seed and prompt (``lm["prompt"]``),
-    prefill then LM_NEW greedy steps through the sharded path, then the
-    single-device run in the same process fed the same tokens: prefill
-    and each step's logits within the bf16 TOLERANCES (``_held_bf16``),
-    the margin reported; prefill ms, tokens/s, decode ms a step (median of steps
-    2..), peak memory, the draw's seconds and peak, collectives a step
-    and host ms in them, beside the single-device run's and [lm]'s."""
+    prefill then LM_NEW greedy steps through the sharded path ("tp",
+    twice; then "fsdp", once), each followed by the single-device run in
+    the same process fed the same tokens: prefill and each step's logits
+    within the bf16 TOLERANCES (``_held_bf16``), the margin reported,
+    and whether they are bitwise; prefill ms, tokens/s, decode ms a step
+    (median of steps 2..), peak memory, the draw's seconds and peak,
+    collectives a step and host ms in them, beside the single-device
+    run's and [lm]'s. The fsdp cases' seconds, the ranks' and the
+    checks', are printed on a line of their own."""
     import statistics
     import tempfile
     import numpy as np
@@ -2127,7 +2181,7 @@ def _lm_serve_dist_phase(dev, lm: dict, reset_counts, launch_counts) -> dict:
 
     # -- (a) four gloo ranks sharing the card ------------------------------
     cases = _lm_serve_dist_cases()
-    t0 = time.perf_counter()
+    t0, spawned = time.perf_counter(), time.time()
     with tempfile.TemporaryDirectory() as tmp:
         got = spawn_ranks(ranks_mod.lm_serve_steps, LMS_RANKS,
                           backend="gloo",
@@ -2137,7 +2191,9 @@ def _lm_serve_dist_phase(dev, lm: dict, reset_counts, launch_counts) -> dict:
     ranks_s = time.perf_counter() - t0
     by_call = {"a": _summed_launches(got)}
     scan_launches = _rank_scan_launches("lm-serve-dist", got, cases, False)
+    fsdp_s = {"ranks": 0.0, "held": 0.0}
     for case in cases:
+        held_t0 = time.perf_counter()
         res = got[0][case["key"]]
         check(all(np.array_equal(r[case["key"]]["tokens"], res["tokens"])
                   and all(np.array_equal(a, b) for a, b in zip(
@@ -2171,31 +2227,37 @@ def _lm_serve_dist_phase(dev, lm: dict, reset_counts, launch_counts) -> dict:
                 cerr = max(cerr, worst_diff(
                     leaf, cut, LMS_ATOL, 0.0,
                     f"{case['key']} rank {rank} cache leaf {j}")[0])
-        say(f"[lm-serve-dist] (a) {case['key']} on 4 gloo ranks, (2, 2) tp"
-            f"{' fsdp' * case['fsdp']}, B={case['batch']} prompt "
-            f"{case['prompt']}, {case['steps']} decode steps: logits max "
+        say(f"[lm-serve-dist] (a) {case['key']} on 4 gloo ranks, (2, 2) "
+            f"{case['layout']}{' fsdp' * case['fsdp']}, B={case['batch']} "
+            f"prompt {case['prompt']}, {case['steps']} decode steps: logits max "
             f"abs diff {err:.3e}, cache max abs diff {cerr:.3e} (atol "
             f"{LMS_ATOL}), tokens equal; draw s {res['draw_s']:.2f}, "
             f"prefill ms {res['prefill_ms']:.1f}, decode ms "
             f"{[round(x, 1) for x in res['ms']]}, collectives a decode "
             f"step {res['calls'][-1]} ({res['bytes'][-1]} bytes, host ms "
-            f"{res['coll_ms'][-1]:.1f}); ops {res['ops']}")
+            f"{res['coll_ms'][-1]:.1f}); ops {res['ops']}; seconds in the "
+            f"ranks {max(r[case['key']]['case_s'] for r in got):.2f}")
         del want
+        if case["layout"] == "fsdp":
+            fsdp_s["ranks"] += max(r[case["key"]]["case_s"] for r in got)
+            fsdp_s["held"] += time.perf_counter() - held_t0
     torch.cuda.empty_cache()
     say(f"[lm-serve-dist] (a) {len(cases)} cases held; ranks seconds="
-        f"{ranks_s:.2f}")
+        f"{ranks_s:.2f} (the spawn to the last rank's function "
+        f"{max(r['entered'] for r in got) - spawned:.2f})")
 
     # -- (b) one NCCL rank, (1, 1), [lm]'s configuration ------------------
     case = dict(key="full", arch=LM_ARCH, reduced=False,
-                mesh=[(1, 1), ("data", "model")], fsdp=False,
+                mesh=[(1, 1), ("data", "model")], fsdp=False, layout="tp",
                 batch=LM_BATCH, prompt=LM_PROMPT, steps=LM_NEW,
                 cache_len=LM_PROMPT + LM_NEW, plain=True, no_cache=True,
                 runs=2, inputs={"tokens": lm["prompt"]})
-    t0 = time.perf_counter()
+    fcase = dict(case, key="full fsdp", layout="fsdp", runs=1)
+    t0, spawned = time.perf_counter(), time.time()
     with tempfile.TemporaryDirectory() as tmp:
         got = spawn_ranks(ranks_mod.lm_serve_steps, 1, backend="nccl",
                           args=(dict(device="cuda", seed=SEED,
-                                     cases=[case]),),
+                                     cases=[case, fcase]),),
                           timeout_s=LMS_TIMEOUT_S, dir=tmp)
     b_s = time.perf_counter() - t0
     by_call["b"] = _summed_launches(got)
@@ -2216,8 +2278,9 @@ def _lm_serve_dist_phase(dev, lm: dict, reset_counts, launch_counts) -> dict:
         f"its tokens: logits max abs diff prefill {errs[0]:.3e}, decode "
         f"{max(errs[1:]):.3e} (largest share of the bf16 band "
         f"{max(shares):.3f}: margin {1 - max(shares):.1%}); argmax equal "
-        f"in {agree}/{res['tokens'].size}; the two sharded runs' tokens "
-        f"equal; first sequence {res['tokens'][0].tolist()}")
+        f"in {agree}/{res['tokens'].size}; bitwise {_bitwise(res, plain)};"
+        f" the two sharded runs' tokens equal; first sequence "
+        f"{res['tokens'][0].tolist()}")
     say(f"[lm-serve-dist] (b) sharded, the second of two runs (the first: "
         f"prefill ms {res['first']['prefill_ms']:.2f}, decode ms/step "
         f"{statistics.median(res['first']['ms'][2:]):.2f}): prefill ms="
@@ -2238,7 +2301,36 @@ def _lm_serve_dist_phase(dev, lm: dict, reset_counts, launch_counts) -> dict:
         f"{[round(x, 2) for x in plain['ms']]}), peak allocated "
         f"{plain['peak_gib']:.2f} GiB; [lm]: prefill ms="
         f"{lm['prefill_ms']:.2f}, decode ms/step={lm['decode_ms']:.2f}, "
-        f"peak {lm['peak_gib']:.2f} GiB; process seconds={b_s:.2f}")
+        f"peak {lm['peak_gib']:.2f} GiB; process seconds={b_s:.2f} (the "
+        f"spawn to the rank's function {got[0]['entered'] - spawned:.2f})")
+    fres = got[0]["full fsdp"]
+    ferrs, fshares, fagree = _held_bf16(fres, fres["plain"], fcase,
+                                        "(b) fsdp")
+    say(f"[lm-serve-dist] (b) fsdp: the same configuration through the "
+        f"sharded path under \"fsdp\" on (1, 1) (the rows over (\"data\", "
+        f"\"model\"), every weight gathered at use), once, after the tp "
+        f"runs; the single-device run after it, fed its tokens: logits max "
+        f"abs diff prefill {ferrs[0]:.3e}, decode {max(ferrs[1:]):.3e} "
+        f"(largest share of the bf16 band {max(fshares):.3f}); argmax "
+        f"equal in {fagree}/{fres['tokens'].size}; bitwise "
+        f"{_bitwise(fres, fres['plain'])}; tokens equal the tp run's "
+        f"{bool(np.array_equal(fres['tokens'], res['tokens']))}")
+    fmed = statistics.median(fres["ms"][2:])
+    say(f"[lm-serve-dist] (b) fsdp against tp (a measurement, no claim): "
+        f"prefill ms={fres['prefill_ms']:.2f} (tp {res['prefill_ms']:.2f}),"
+        f" decode ms/step (median of steps 2..)={fmed:.2f} (tp {med:.2f}; "
+        f"steps {[round(x, 2) for x in fres['ms']]}), collectives a decode "
+        f"step {statistics.median(fres['calls'][2:]):.0f} (tp {calls:.0f};"
+        f" {fres['bytes'][-1] / 2**30:.3f} GiB a step, tp "
+        f"{res['bytes'][-1] / 2**30:.3f}), host ms in them a step "
+        f"{statistics.median(fres['coll_ms'][2:]):.2f} (tp {coll_ms:.2f}), "
+        f"peak allocated {fres['peak_gib']:.2f} GiB (tp "
+        f"{res['peak_gib']:.2f})")
+    say(f"[lm-serve-dist] fsdp additions seconds="
+        f"{fsdp_s['ranks'] + fsdp_s['held'] + fres['case_s']:.2f} ((a) "
+        f"{sum(c['layout'] == 'fsdp' for c in cases)} cases: in the ranks "
+        f"{fsdp_s['ranks']:.2f}, held in this process {fsdp_s['held']:.2f};"
+        f" (b) {fres['case_s']:.2f}, its single-device run included)")
 
     launches = {k: by_call["a"][k] + by_call["b"][k] for k in by_call["a"]}
     oracle = launch_counts()
@@ -2255,6 +2347,14 @@ def _lm_serve_dist_phase(dev, lm: dict, reset_counts, launch_counts) -> dict:
         f"{time.perf_counter() - phase_t0:.2f}")
     return {"launches": launches, "scan_launches": scan_launches,
             "decode_ms": med, "coll_ms": coll_ms}
+
+
+def _bitwise(res: dict, plain: dict) -> bool:
+    """Whether a sharded run's logits at every step (prefill first) are
+    the single-device run's, bitwise."""
+    import numpy as np
+    return len(res["logits"]) == len(plain["logits"]) and all(
+        np.array_equal(g, w) for g, w in zip(res["logits"], plain["logits"]))
 
 
 def _held_bf16(res: dict, plain: dict, case: dict, what: str):
@@ -3119,62 +3219,97 @@ def _lm_ssm_phase(dev, reset_counts) -> dict:
             "train_ms": med}
 
 
-def _dryrun_phase(src: Path, lm_train: dict, lm_dist: dict) -> dict:
-    """[dryrun]: ``repro_torch.launch.dryrun`` — rank 0 of the production
-    mesh on meta tensors, no card — in processes of their own, all at
-    once: each DRYRUN_CELLS cell through the CLI (status "ok"; each
-    record's peak a rank, dominant term and MFU fraction printed: these
-    are predictions for 256 / 512 H100 cards), and [lm-train]'s own
-    configuration on the one-rank mesh, held against what the card
-    measured there: the argument bytes exactly the live train state's
-    plus a batch's; the predicted peak beside [lm-train]'s
-    ``max_memory_allocated`` (the single-device step) and [lm-dist] (b)'s
-    (the same sharded path on one NCCL rank), their ratios printed — a
-    measurement, not a check."""
-    import concurrent.futures
-    phase_t0 = time.perf_counter()
+@contextlib.contextmanager
+def _dryrun_started(src: Path):
+    """[dryrun]'s processes (``repro_torch.launch.dryrun``: rank 0 of the
+    production mesh on meta tensors, no card), all started at once: each
+    DRYRUN_CELLS cell through the CLI and the prediction of [lm-train]'s
+    configuration. Yields {"dir": their output directory, "procs": {name:
+    [the process, its stdout and stderr files, its start, its seconds
+    once it has exited, the thread that waits for it and notes them]}};
+    on exit kills any process still running."""
+    import threading
     env = dict(os.environ, PYTHONPATH=str(src))
+    with tempfile.TemporaryDirectory() as d:
+        argvs = {c: ["-m", "repro_torch.launch.dryrun", "--arch", c[0],
+                     "--shape", c[1], "--mesh", c[2], "--out", d]
+                 for c in DRYRUN_CELLS}
+        argvs["predict"] = ["-c", DRYRUN_PREDICT, LM_ARCH, str(LMT_BATCH),
+                            str(LMT_SEQ)]
+        procs = {}
+        try:
+            for n, (name, argv) in enumerate(argvs.items()):
+                out = open(os.path.join(d, f"{n}.out"), "w+")
+                err = open(os.path.join(d, f"{n}.err"), "w+")
+                t0 = time.perf_counter()
+                proc = subprocess.Popen([sys.executable, *argv], stdout=out,
+                                        stderr=err, text=True, env=env)
+                entry = procs[name] = [proc, out, err, t0, None, None]
 
-    def run(argv):
-        t0 = time.perf_counter()
-        out = subprocess.run([sys.executable, *argv], capture_output=True,
-                             text=True, timeout=DRYRUN_TIMEOUT_S, env=env)
-        return out, time.perf_counter() - t0
+                def note(entry=entry):
+                    entry[0].wait()
+                    entry[4] = time.perf_counter() - entry[3]
+                entry[5] = threading.Thread(target=note, daemon=True)
+                entry[5].start()
+            yield {"dir": d, "procs": procs}
+        finally:
+            for proc, out, err, *_ in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                out.close()
+                err.close()
 
-    with tempfile.TemporaryDirectory() as d, \
-            concurrent.futures.ThreadPoolExecutor(len(DRYRUN_CELLS) + 1) \
-            as pool:
-        cells = {c: pool.submit(run, [
-            "-m", "repro_torch.launch.dryrun", "--arch", c[0], "--shape",
-            c[1], "--mesh", c[2], "--out", d]) for c in DRYRUN_CELLS}
-        predict = pool.submit(run, ["-c", DRYRUN_PREDICT, LM_ARCH,
-                                    str(LMT_BATCH), str(LMT_SEQ)])
-        recs = {}
-        for (arch, shape, mesh), fut in cells.items():
-            out, secs = fut.result()
-            check(out.returncode == 0, f"[dryrun] {arch} {shape} {mesh}: "
-                  f"exited {out.returncode}: {out.stderr[-2000:]}")
-            with open(os.path.join(d, f"{arch}__{shape}__{mesh}.json")) as f:
-                rec = json.load(f)
-            recs[(arch, shape, mesh)] = rec
-            check(rec["status"] == "ok", f"[dryrun] {arch} {shape} {mesh}: "
-                  f"{rec['status']} {rec.get('error', '')}")
-            m, r = rec["memory"], rec["roofline"]
-            say(f"[dryrun] {arch} {shape} {rec['mesh']} (prediction for "
-                f"{r['chips']} H100 cards, not a measurement): peak a rank "
-                f"{m['peak_bytes_per_device'] / 1e9:.2f} GB (arguments "
-                f"{m['argument_bytes_per_device'] / 1e9:.2f}, temp "
-                f"{m['temp_bytes_per_device'] / 1e9:.2f}), fits 80 GB "
-                f"{m['fits_80gb_hbm']}; dominant {r['dominant']} (compute "
-                f"{r['compute_s']:.4g} s, memory {r['memory_s']:.4g} s, "
-                f"collective {r['collective_s']:.4g} s), useful FLOPs ratio "
-                f"{rec['analytic']['useful_flops_ratio']:.4f}, MFU fraction "
-                f"{r['mfu_fraction']:.4f}; {rec['ops']} operations counted "
-                f"in {rec['lower_s']} s; process seconds={secs:.2f}")
-        out, secs = predict.result()
-    check(out.returncode == 0, f"[dryrun] the prediction of [lm-train] "
-          f"exited {out.returncode}: {out.stderr[-2000:]}")
-    pred = json.loads(out.stdout.strip().splitlines()[-1])["memory"]
+
+def _dryrun_phase(started: dict, lm_train: dict, lm_dist: dict) -> dict:
+    """[dryrun]: the processes ``_dryrun_started`` began, read: each
+    DRYRUN_CELLS cell (status "ok"; each record's peak a rank, dominant
+    term and MFU fraction printed: these are predictions for 256 / 512
+    H100 cards), and [lm-train]'s own configuration on the one-rank
+    mesh, held against what the card measured there: the argument bytes
+    exactly the live train state's plus a batch's; the predicted peak
+    beside [lm-train]'s ``max_memory_allocated`` (the single-device step)
+    and [lm-dist] (b)'s (the same sharded path on one NCCL rank), their
+    ratios printed — a measurement, not a check. "phase seconds" is the
+    wait here, after [lm-ssm]; each process's own seconds are printed."""
+    phase_t0 = time.perf_counter()
+    d, procs = started["dir"], started["procs"]
+
+    def result(name):
+        proc, out, err, t0, _, waiter = procs[name]
+        waiter.join(max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+        check(not waiter.is_alive(), f"[dryrun] {name}: still running "
+              f"after {DRYRUN_TIMEOUT_S} s")
+        out.seek(0)
+        err.seek(0)
+        return proc.returncode, out.read(), err.read(), procs[name][4]
+
+    recs = {}
+    for arch, shape, mesh in DRYRUN_CELLS:
+        rc, _, err, secs = result((arch, shape, mesh))
+        check(rc == 0, f"[dryrun] {arch} {shape} {mesh}: exited {rc}: "
+              f"{err[-2000:]}")
+        with open(os.path.join(d, f"{arch}__{shape}__{mesh}.json")) as f:
+            rec = json.load(f)
+        recs[(arch, shape, mesh)] = rec
+        check(rec["status"] == "ok", f"[dryrun] {arch} {shape} {mesh}: "
+              f"{rec['status']} {rec.get('error', '')}")
+        m, r = rec["memory"], rec["roofline"]
+        say(f"[dryrun] {arch} {shape} {rec['mesh']} (prediction for "
+            f"{r['chips']} H100 cards, not a measurement): peak a rank "
+            f"{m['peak_bytes_per_device'] / 1e9:.2f} GB (arguments "
+            f"{m['argument_bytes_per_device'] / 1e9:.2f}, temp "
+            f"{m['temp_bytes_per_device'] / 1e9:.2f}), fits 80 GB "
+            f"{m['fits_80gb_hbm']}; dominant {r['dominant']} (compute "
+            f"{r['compute_s']:.4g} s, memory {r['memory_s']:.4g} s, "
+            f"collective {r['collective_s']:.4g} s), useful FLOPs ratio "
+            f"{rec['analytic']['useful_flops_ratio']:.4f}, MFU fraction "
+            f"{r['mfu_fraction']:.4f}; {rec['ops']} operations counted "
+            f"in {rec['lower_s']} s; process seconds={secs:.2f}")
+    rc, stdout, err, secs = result("predict")
+    check(rc == 0, f"[dryrun] the prediction of [lm-train] exited {rc}: "
+          f"{err[-2000:]}")
+    pred = json.loads(stdout.strip().splitlines()[-1])["memory"]
     want = lm_train["state_bytes"] + lm_train["batch_bytes"]
     check(pred["argument_bytes_per_device"] == want,
           f"[dryrun] [lm-train]'s argument bytes: predicted "
@@ -3425,14 +3560,17 @@ def _lm_dist_cards(cards: int) -> None:
 def _lm_serve_dist_cards(cards: int) -> None:
     """[lm-serve-dist] (c): (b)'s configuration (LM_ARCH at full width and
     depth, bf16, [lm]'s batch and lengths) on a (2, cards / 2) mesh of
-    NCCL ranks, one card each, "tp", the cache sharded (positions over
-    "model", rows over "data"): the ranks agree, and the first rank's
+    NCCL ranks, one card each, the cache sharded by the cache rules
+    (positions over "model", rows over "data"), under "tp" and then
+    under "fsdp" (the rows over ("data", "model"), each mixer on the
+    cache's rows): for each, the ranks agree, and the first rank's
     single-device run on its card after it (same parameters and prompt,
     fed the sharded run's tokens) and the f32 run of the same parameters:
     each bf16 run's prefill and decode logits within the bf16 band
     around the f32 run's (``_held_bf16_against_f32``, ROADMAP C.19),
-    the margin and how far apart the two bf16 runs lie reported; prefill ms, decode ms a step, peak memory a rank and host
-    ms in collectives."""
+    the margin and how far apart the two bf16 runs lie reported; prefill
+    ms, decode ms a step, peak memory a rank and host ms in
+    collectives."""
     import statistics
     import tempfile
     import numpy as np
@@ -3441,53 +3579,60 @@ def _lm_serve_dist_cards(cards: int) -> None:
     import torch_dist_ranks as ranks_mod
     check(cards % 2 == 0, f"--cards {cards}: [lm-serve-dist] needs an even "
           f"count")
-    case = dict(key="full", arch=LM_ARCH, reduced=False,
+    base = dict(arch=LM_ARCH, reduced=False,
                 mesh=[(2, cards // 2), ("data", "model")], fsdp=False,
                 batch=LM_BATCH, prompt=LM_PROMPT, steps=LM_NEW,
                 cache_len=LM_PROMPT + LM_NEW, no_cache=True, runs=2,
                 plain=True, truth=True)
+    cases = [dict(base, key="full", layout="tp"),
+             dict(base, key="full fsdp", layout="fsdp")]
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         got = spawn_ranks(ranks_mod.lm_serve_steps, cards, backend="nccl",
-                          args=(dict(device="cuda", seed=SEED, cases=[case],
+                          args=(dict(device="cuda", seed=SEED, cases=cases,
                                      card_per_rank=True),),
                           timeout_s=LMS_TIMEOUT_S, dir=tmp)
-    res = got[0]["full"]
-    check(all(np.array_equal(r["full"]["tokens"], res["tokens"])
-              and r["full"]["repeat_equal"] for r in got)
-          and all(np.isfinite(x).all() for x in res["logits"]),
-          "[lm-serve-dist] (c): the ranks disagree or the logits are not "
-          "finite")
     launches = _summed_launches(got)
     plain_c = _summed_launches(got, "oracle_launches")
     check(not any(launches.values()) and not any(plain_c.values()),
           f"[lm-serve-dist] (c): slab kernels launched: the ranks' sharded "
-          f"path {launches}, the single-device run {plain_c}")
-    med = statistics.median(res["ms"][2:])
-    say(f"[lm-serve-dist] (c) {LM_ARCH} full width and depth, bf16, "
-        f"{cards} NCCL ranks on (2, {cards // 2}) tp, B={LM_BATCH} x "
-        f"{LM_PROMPT}, {LM_NEW} steps, the second of two runs (the same "
-        f"tokens): prefill ms={res['prefill_ms']:.2f}, "
-        f"decode ms/step (median of steps 2..)={med:.2f} (steps "
-        f"{[round(x, 2) for x in res['ms']]}), peak allocated a rank "
-        f"{max(r['full']['peak_gib'] for r in got):.2f} GiB, collectives a "
-        f"step {res['calls'][-1]} ({res['bytes'][-1] / 2**20:.2f} MiB), "
-        f"host ms in them a step "
-        f"{statistics.median(res['coll_ms'][2:]):.2f}; first sequence "
-        f"{res['tokens'][0].tolist()}; seconds="
-        f"{time.perf_counter() - t0:.2f}")
-    got = _held_bf16_against_f32(res, res["plain"], res["truth"], case,
-                                 "(c)")
-    agree = int((res["tokens"] == res["plain"]["tokens"]).sum())
-    pair = got["pair"]
-    worst = max(max(got[k]["shares"]) for k in ("sharded", "single-device"))
-    say(f"[lm-serve-dist] (c) held against the f32 run on card 0, with the "
-        f"single-device bf16 run, fed the sharded run's tokens: largest "
-        f"share of the bf16 band {worst:.3f} (margin {1 - worst:.1%}); the "
-        f"two bf16 runs apart by at most {max(pair['shares']):.3f} of the "
-        f"sum of their bands (max abs diff prefill {pair['max_abs'][0]:.3e}"
-        f", decode {max(pair['max_abs'][1:]):.3e}); argmax equal in "
-        f"{agree}/{res['tokens'].size}")
+          f"path {launches}, the single-device runs {plain_c}")
+    for case in cases:
+        key, layout = case["key"], case["layout"]
+        res = got[0][key]
+        check(all(np.array_equal(r[key]["tokens"], res["tokens"])
+                  and r[key]["repeat_equal"] for r in got)
+              and all(np.isfinite(x).all() for x in res["logits"]),
+              f"[lm-serve-dist] (c) {layout}: the ranks disagree or the "
+              f"logits are not finite")
+        med = statistics.median(res["ms"][2:])
+        say(f"[lm-serve-dist] (c) {LM_ARCH} full width and depth, bf16, "
+            f"{cards} NCCL ranks on (2, {cards // 2}) {layout}, B={LM_BATCH}"
+            f" x {LM_PROMPT}, {LM_NEW} steps, the second of two runs (the "
+            f"same tokens): prefill ms={res['prefill_ms']:.2f}, "
+            f"decode ms/step (median of steps 2..)={med:.2f} (steps "
+            f"{[round(x, 2) for x in res['ms']]}), peak allocated a rank "
+            f"{max(r[key]['peak_gib'] for r in got):.2f} GiB, collectives "
+            f"a step {res['calls'][-1]} ({res['bytes'][-1] / 2**20:.2f} "
+            f"MiB), host ms in them a step "
+            f"{statistics.median(res['coll_ms'][2:]):.2f}; first sequence "
+            f"{res['tokens'][0].tolist()}; seconds in the ranks="
+            f"{max(r[key]['case_s'] for r in got):.2f}")
+        held = _held_bf16_against_f32(res, res["plain"], res["truth"], case,
+                                      f"(c) {layout}")
+        agree = int((res["tokens"] == res["plain"]["tokens"]).sum())
+        pair = held["pair"]
+        worst = max(max(held[k]["shares"])
+                    for k in ("sharded", "single-device"))
+        say(f"[lm-serve-dist] (c) {layout} held against the f32 run on card "
+            f"0, with the single-device bf16 run, fed the sharded run's "
+            f"tokens: largest share of the bf16 band {worst:.3f} (margin "
+            f"{1 - worst:.1%}); the two bf16 runs apart by at most "
+            f"{max(pair['shares']):.3f} of the sum of their bands (max abs "
+            f"diff prefill {pair['max_abs'][0]:.3e}, decode "
+            f"{max(pair['max_abs'][1:]):.3e}); argmax equal in "
+            f"{agree}/{res['tokens'].size}")
+    say(f"[lm-serve-dist] (c) seconds={time.perf_counter() - t0:.2f}")
 
 
 def main() -> int:
@@ -4597,16 +4742,18 @@ def main() -> int:
         "gram": gram_ops.GRAM.launches})
     path_launches["lm-serve-dist"] = lm_serve_dist["launches"]
 
-    # -- 3o. [dryrun]: the dry run and [lm-train]'s predicted memory -------
-    _dryrun_phase(src, lm_train, lm_dist)
+    # -- 3o. [dryrun]: the dry run and [lm-train]'s predicted memory,
+    # started here and read after [lm-ssm]: its processes use no card, so
+    # they run on the host's cores while the card's phases do ----------
+    with _dryrun_started(src) as dryrun_procs:
+        # -- 3p. [examples]: the port's examples on the card ----------------
+        examples = _examples_phase(dev, reset_counts, fupdate_classes,
+                                   hold_fupdate_at)
 
-    # -- 3p. [examples]: the port's examples on the card --------------------
-    examples = _examples_phase(dev, reset_counts, fupdate_classes,
-                               hold_fupdate_at)
+        # -- 3q. [lm-ssm]: the scan kernels, rwkv6-7b and a jamba block --
+        lm_ssm = _lm_ssm_phase(dev, reset_counts)
+        _dryrun_phase(dryrun_procs, lm_train, lm_dist)
     path_launches["examples"] = {k: v["fupdate"] for k, v in examples.items()}
-
-    # -- 3q. [lm-ssm]: the scan kernels, rwkv6-7b and a jamba block ------
-    lm_ssm = _lm_ssm_phase(dev, reset_counts)
     scan_rows = list(lm_ssm["rows"].values())
     for row in scan_rows:
         fam = row["name"].rsplit("_", 1)[0]
@@ -4917,9 +5064,12 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated()} bytes")
 
     # -- 6. where a fit's time goes: a profiler window over one solve ------
+    t0 = time.perf_counter()
     tr = _traced(lambda: repro_torch.fit(X_np, spec, strategy="auto", P=P,
                                          tol=TOL, max_outer=PROFILE_ITERS))
     _say_trace("[trace]", f"fit f32 m={M}", tr)
+    say(f"[trace] the window's seconds={time.perf_counter() - t0:.2f} (the "
+        f"profiler's parse of its events included)")
 
     f_ms, f_plain, f_b, f_by = timed[("fupdate", M, 2 * P, "f32")]
     w_s = warm_shapes["f32"][0][1]

@@ -12,7 +12,8 @@ Unlike the JAX package, a ring prefill shorter than the window is
 supported (ROADMAP C.12): it writes the last min(s, window) keys at their
 position modulo the window.
 
-Sharded (``attention_forward_sharded``, the "tp" layout with a cache):
+Sharded (``attention_forward_sharded``, a cache under the "tp" layout,
+or under "fsdp" on the cache's rows, ``transformer._regrouped``):
 each rank's KV buffers are its shard under ``cache_spec_for_leaf`` —
 rows over the batch axes, positions over "model" (over the batch axes
 and "model" together when the batch does not split). It shares the

@@ -44,25 +44,35 @@ unembedding gather their weights at use and run replicated over "model"
 (no tensor parallelism of their own yet). Under "fsdp" every weight is
 gathered at use.
 
-Sharded serving (a cache under a "tp" ``constrain``): the tokens are the
+Sharded serving (a cache under a ``constrain``): the tokens are the
 GLOBAL batch, each rank keeps its rows (``ShardCtx.batch_split``: the
-longest prefix of the batch axes that divides it, none at B = 1, as the
-JAX package's ``_b``) and returns its rows' logits (the cache's "split";
-``train.serve_step`` gathers them). The cache is this rank's shard of it
-(``sharding.state.shard_cache`` / ``init_cache_sharded``: each leaf
-``shard(leaf, cache_spec_for_leaf(...))``, beside its layout, worked out
-once for the cache: "split", "specs", each KV layer's "slots"); the
-split goes on a local copy of the ``ShardCtx``, so the caller's
-``constrain`` is left as it is. Attention reads and writes its KV shard
-(``attention.attention_forward_sharded``: prefill keeps its positions,
-decode is flash-decoding over the ranks that hold them); Mamba and RWKV
-gather their state's "model" shards at use, run replicated over "model"
-as their weights do, and keep their slice of the new state (one state
-gather a layer a step). The logits take the gathered unembedding, so an
-argmax sees the whole vocab. Under the "fsdp" layout sharded prefill and
-decode raise ``NotImplementedError`` (ROADMAP A.12b.2f): the JAX
-launcher serves on "tp" only, and the cache rule's positions over
-"model" conflict with a batch split over ("data", "model").
+longest prefix of the layout's batch axes that divides it, none at B = 1,
+as the JAX package's ``_b``) and returns its rows' logits (the cache's
+"split"; ``train.serve_step`` gathers them). The cache is this rank's
+shard of it (``sharding.state.shard_cache`` / ``init_cache_sharded``:
+each leaf ``shard(leaf, cache_spec_for_leaf(...))``, beside its layout,
+worked out once for the cache: "split", "specs", each KV layer's
+"slots"); the split goes on a local copy of the ``ShardCtx``, so the
+caller's ``constrain`` is left as it is. Attention reads and writes its
+KV shard (``attention.attention_forward_sharded``: prefill keeps its
+positions, decode is flash-decoding over the ranks that hold them);
+Mamba and RWKV gather their state's "model" shards at use, run
+replicated over "model" as their weights do, and keep their slice of
+the new state (one state gather a layer a step). The logits take the
+gathered unembedding, so an argmax sees the whole vocab.
+
+Under the "fsdp" layout the JAX package serves through the same steps
+(``make_constrain(mesh, layout="fsdp")``: the activations' batch over
+("pod", "data", "model")), with the cache placed by ``decode_specs``,
+i.e. by the same ``cache_spec_for_leaf`` (rows over ("pod", "data"),
+positions or the state's inner dim over "model"). So the port splits the
+rows over every axis outside the mixers (embedding, norms, MLP, MoE,
+unembedding; every weight gathered at use), and each mixer runs on the
+cache's rows, the split without "model": its input rows gathered over
+"model" before it, this rank's rows kept after it (``_regrouped``), and
+the mixer is the "tp" layout's with every head. Where the split does not
+reach "model" (B = 1, or B not divisible by every axis), the two splits
+are one and nothing is regrouped.
 """
 from __future__ import annotations
 
@@ -454,6 +464,34 @@ def _apply_layer(p, x: Tensor, cfg: ArchConfig, spec: LayerSpec, *,
                 constrain=constrain, pspec=pspec)
 
 
+def _regrouped(p, x: Tensor, cfg: ArchConfig, spec: LayerSpec,
+               mix_constrain, *, positions: Tensor, state, constrain,
+               **kw):
+    """One sharded layer under "fsdp" where the rows split over "model"
+    and the cache's rows do not: the mixer on the cache's rows (this
+    rank's rows gathered over "model", ``mix_constrain``'s split), the
+    second half on this rank's rows. RWKV's channel-mix shift state is
+    cut to this rank's rows for the channel mix and its new value
+    gathered back. Returns (x, new_state, aux)."""
+    sh = constrain.sharding
+    comm = sh.comm(("model",))
+
+    def mine(t: Tensor) -> Tensor:
+        n = t.shape[0] // sh.model
+        return t.narrow(0, sh.index(("model",)) * n, n)
+    xc = comm.all_gather(x, dim=0)
+    xc, mixed = _mix(p, xc, cfg, spec, state=state,
+                     positions=positions[:1].expand(xc.shape[0], -1),
+                     constrain=mix_constrain, **kw)
+    if spec.mixer == "rwkv":
+        state = state._replace(x_cm=mine(state.x_cm))
+    x, nst, aux = _ffn(p, mine(xc), cfg, spec, state=state, mixed=mixed,
+                       constrain=constrain, pspec=kw["pspec"])
+    if spec.mixer == "rwkv":
+        nst = nst._replace(x_cm=comm.all_gather(nst.x_cm, dim=0))
+    return x, nst, aux
+
+
 def _save_weight_matmuls(ctx, op, *args, **kwargs):
     """"dots": keep the outputs of the weight matmuls (``aten.mm``; 3-D
     activations reach it folded to 2-D) and recompute the rest, the
@@ -558,11 +596,6 @@ def forward(params, cfg: ArchConfig, *,
     specs = sh.param_specs(cfg) if sh is not None else None
     sharded = sh is not None and cache is not None
     if sharded:
-        if sh.layout != "tp":
-            raise NotImplementedError(
-                "sharded prefill and decode under the 'fsdp' layout "
-                "(ROADMAP A.12b.2f): the cache rule puts the positions over "
-                "'model', which this layout splits the batch over")
         if "slots" not in cache:
             raise ValueError("a sharded forward takes this rank's shard of "
                              "a cache (sharding.state.shard_cache or "
@@ -579,6 +612,13 @@ def forward(params, cfg: ArchConfig, *,
         tokens, embeds, vision_embeds = (
             None if t is None else sh.split_slice(t)
             for t in (tokens, embeds, vision_embeds))
+        # The mixers run on the cache's rows: the split without "model"
+        # (under "tp" the split has no "model": the same rows).
+        mix_sh = sh.with_split(ax for ax in sh.split if ax != "model")
+        mix_constrain = with_sharding(constrain, mix_sh)
+        regroup = "model" in sh.split and sh.model > 1
+        if not regroup:     # both splits hold the same rows
+            constrain = mix_constrain
     if embeds is not None:                       # audio frontend stub
         x = embeds.to(cfg.dtype)
     else:
@@ -606,13 +646,17 @@ def forward(params, cfg: ArchConfig, *,
             st = cache["layers"][i] if cache is not None else None
             ssm = sharded and spec.mixer in ("mamba", "rwkv")
             if ssm:     # the state's "model" shards gathered at use
-                st = gather_state(st, cache["specs"][i], sh)
-            x, nst, aux = _apply_layer(
-                layer, x, cfg, spec, positions=positions, state=st,
-                cache_pos=pos0, q_chunk=q_chunk, constrain=constrain,
-                pspec=pspecs[i], kv=cache["slots"][i] if sharded else None)
+                st = gather_state(st, cache["specs"][i], mix_sh)
+            kw = dict(positions=positions, state=st, cache_pos=pos0,
+                      q_chunk=q_chunk, constrain=constrain, pspec=pspecs[i],
+                      kv=cache["slots"][i] if sharded else None)
+            if sharded and regroup:
+                x, nst, aux = _regrouped(layer, x, cfg, spec, mix_constrain,
+                                         **kw)
+            else:
+                x, nst, aux = _apply_layer(layer, x, cfg, spec, **kw)
             if ssm:     # this rank's slice of the new state
-                nst = scatter_state(nst, cache["specs"][i], sh)
+                nst = scatter_state(nst, cache["specs"][i], mix_sh)
         aux_total = aux_total + aux
         new_states.append(nst)
     new_cache = None

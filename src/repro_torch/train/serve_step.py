@@ -6,12 +6,14 @@ at long contexts the cache is the memory footprint and a copy would
 double it. Greedy decoding is a Python loop of decode steps.
 
 Sharded (``constrain`` from ``sharding.specs.make_constrain``, layout
-"tp"): every rank calls the step with the same global inputs, its shard
-of the parameters (``init_params_sharded`` / ``shard_params``) and its
-shard of the cache (``sharding.state.init_cache_sharded`` /
-``shard_cache``); the logits come back for the whole batch on every rank
-(its rows gathered over the batch split), as the JAX steps' global
-arrays do.
+"tp" or "fsdp"): every rank calls the step with the same global inputs,
+its shard of the parameters (``init_params_sharded`` / ``shard_params``)
+and its shard of the cache (``sharding.state.init_cache_sharded`` /
+``shard_cache``; under either layout placed by ``cache_spec_for_leaf``,
+as the JAX package's ``decode_specs`` places it); the logits come back
+for the whole batch on every rank (its rows gathered over the batch
+split, every axis of it under "fsdp"), as the JAX steps' global arrays
+do.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ Tensor = torch.Tensor
 
 def _whole_batch(logits: Tensor, constrain, cache: dict) -> Tensor:
     """A sharded forward's rows of the logits -> every row (gathered over
-    the cache's batch split)."""
+    the batch split the cache's layout records, the layout's own)."""
     sh = getattr(constrain, "sharding", None)
     return (logits if sh is None
             else sh.with_split(cache["split"]).gather_split(logits))

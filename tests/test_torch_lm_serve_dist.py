@@ -1,7 +1,7 @@
 """The port's sharded LM serving (``train.serve_step.make_prefill`` /
-``make_decode`` with ``constrain=make_constrain(...)``, the "tp" layout)
-on four gloo ranks on the CPU, held against the port's single-device
-prefill + decode (itself held against the JAX package in
+``make_decode`` with ``constrain=make_constrain(...)``, the "tp" and the
+"fsdp" layouts) on four gloo ranks on the CPU, held against the port's
+single-device prefill + decode (itself held against the JAX package in
 tests/test_torch_lm_serve.py) and, where the JAX package's sharded
 serving runs, against it directly.
 
@@ -28,7 +28,8 @@ Tolerances, stated before the first run:
   slots);
 * on the (1, 1) mesh, no ranks needed, the sharded path is the
   single-device run bitwise (all ten reduced archs in f32; llama and
-  gemma3 in bf16), and the caller's constrain keeps its batch split;
+  gemma3 in bf16; under "fsdp" llama and rwkv6 in f32, llama in bf16),
+  and the caller's constrain keeps its batch split;
 * against the JAX package's sharded ``make_prefill`` / ``make_decode``
   (jitted on a ``jax.sharding.Mesh`` of four forced host devices, whose
   axes are Auto — the JAX package's own ``make_test_mesh`` gives Explicit
@@ -36,7 +37,12 @@ Tolerances, stated before the first run:
   and the cache placed by its ``param_shardings`` / ``decode_specs``):
   the logits within rtol 2e-5 and atol 2e-5 x the largest |logit| (the
   two links of the chain added), the tokens equal; all ten reduced archs
-  on (2, 2) with fsdp, llama at B = 1 and B = 3;
+  on (2, 2) "tp" with fsdp, llama at B = 1 and B = 3; the seven archs
+  without MoE on (2, 2) "fsdp" (``make_constrain`` and
+  ``param_shardings`` with ``layout="fsdp"``, the cache by
+  ``decode_specs`` as under "tp"; the JAX package's fsdp MoE spec raises
+  ``DuplicateSpecError`` under jax 0.9.0, ROADMAP C.3, so the MoE archs'
+  fsdp cases are held against the single-device run alone);
 * ``moe_forward`` at decode sizes (one position, B = 4, 3, 1; impl "psum"
   and "a2a") against the JAX function on the same mesh within atol 1e-5
   / rtol 1e-5, and the port's local capacity dropless (T_loc * K, as the
@@ -44,6 +50,10 @@ Tolerances, stated before the first run:
 * decode's collective bytes a step do not grow with the cache length
   (the ledger's "decode" phase at cache lengths 32 and 64, equal);
 * the ranks launch none of the slab kernels;
+* the dry run's ``cost_cell`` under "fsdp" records a decode and a
+  prefill cell of reduced llama on the (2, 2) mesh (rank 0 of a fake
+  group of four) with the same cache bytes a rank as under "tp": both
+  layouts place the cache by ``cache_spec_for_leaf``;
 * ``FaultTolerantLoop`` on (2, 2) with two injected failures restarts
   twice and ends bitwise equal to the uninterrupted sharded run on every
   rank; its checkpoints are one directory of full arrays, which the JAX
@@ -59,7 +69,12 @@ without fsdp, (1, 4) (kv heads 2 on 4 model ranks: attention gathered,
 positions over 4) and (2, 1, 2) with "pod"; llama at B = 1 (positions
 over data + model) and B = 3 (the batch replicates); mixtral's SWA ring
 (window 8, split over "model") after a prompt of 16 and of 5 (C.12);
-rwkv6 after a prompt of 131 (C.13); llama with a cache of 64.
+rwkv6 after a prompt of 131 (C.13); llama with a cache of 64. Under
+"fsdp" on (2, 2) (the rows over ("data", "model"), each mixer on the
+cache's rows over "data"): the ten archs, llama at B = 1 (no split) and
+B = 2 (the rows over "data" alone) and with a cache of 64, mixtral after
+a prompt of 5, rwkv6 after a prompt of 131; llama, mixtral, jamba and
+rwkv6 on (1, 4) and (2, 1, 2) too.
 """
 import math
 import pickle
@@ -88,13 +103,19 @@ CLI_SERVE = ["--arch", "llama3.2-3b", "--batch", "4", "--prompt-len", "16",
 
 
 def _case(arch, mesh="2x2", fsdp=True, batch=4, prompt=16, steps=8,
-          cache_len=32):
+          cache_len=32, layout="tp"):
     shape, axes = MESH[mesh]
-    key = (f"{arch} {mesh}{' fsdp' * fsdp} B={batch} prompt={prompt} "
-           f"cache={cache_len}")
+    key = (f"{arch} {mesh}{' fsdp' * fsdp}"
+           f"{' layout=fsdp' * (layout == 'fsdp')} B={batch} "
+           f"prompt={prompt} cache={cache_len}")
     return dict(key=key, arch=arch, mesh=[shape, axes], fsdp=fsdp,
-                batch=batch, prompt=prompt, steps=steps, cache_len=cache_len,
-                unshard=True)
+                layout=layout, batch=batch, prompt=prompt, steps=steps,
+                cache_len=cache_len, unshard=True)
+
+
+def _fsdp(arch, **kw):
+    """A case under the "fsdp" layout (the fsdp flag is "tp"'s alone)."""
+    return _case(arch, fsdp=False, layout="fsdp", **kw)
 
 
 CASES = ([_case(a) for a in ALL]
@@ -103,9 +124,17 @@ CASES = ([_case(a) for a in ALL]
          + [_case("llama3.2-3b", batch=1), _case("llama3.2-3b", batch=3),
             _case("mixtral-8x22b", prompt=5),
             _case("rwkv6-7b", prompt=131, steps=2, cache_len=136),
-            _case("llama3.2-3b", cache_len=64)])
+            _case("llama3.2-3b", cache_len=64)]
+         + [_fsdp(a) for a in ALL]
+         + [_fsdp(a, mesh=m) for a in FOUR for m in ("1x4", "2x1x2")]
+         + [_fsdp("llama3.2-3b", batch=1), _fsdp("llama3.2-3b", batch=2),
+            _fsdp("llama3.2-3b", cache_len=64),
+            _fsdp("mixtral-8x22b", prompt=5),
+            _fsdp("rwkv6-7b", prompt=131, steps=2, cache_len=136)])
+MOE = ["arctic-480b", "jamba-1.5-large-398b", "mixtral-8x22b"]
 REF_KEYS = ([_case(a)["key"] for a in ALL]
-            + [_case("llama3.2-3b", batch=b)["key"] for b in (1, 3)])
+            + [_case("llama3.2-3b", batch=b)["key"] for b in (1, 3)]
+            + [_fsdp(a)["key"] for a in ALL if a not in MOE])
 PROBE = (_case("llama3.2-3b")["key"],
          _case("llama3.2-3b", cache_len=64)["key"])
 MOE_CELLS = [dict(key=f"{impl} B={b}", impl=impl, batch=b)
@@ -129,8 +158,8 @@ auto = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
 out = {"serve": {}, "moe": {}}
 for c in job["ref"]:
     cfg = dataclasses.replace(ARCHS[c["arch"]].reduced(), **c["overrides"])
-    constrain = make_constrain(auto, fsdp=c["fsdp"])
-    p_shd = param_shardings(cfg, auto, fsdp=c["fsdp"])
+    constrain = make_constrain(auto, fsdp=c["fsdp"], layout=c["layout"])
+    p_shd = param_shardings(cfg, auto, fsdp=c["fsdp"], layout=c["layout"])
     _, c_shd, _, _ = decode_specs(cfg, auto, c["batch"], c["cache_len"])
     with auto:
         params = jax.device_put(jax.tree.map(jnp.asarray, c["params"]),
@@ -427,17 +456,14 @@ def test_the_serving_cli_prints_the_single_device_tokens(runs):
 
 ONE_RANK = [(a, "float32") for a in ALL] + [("llama3.2-3b", "bfloat16"),
                                              ("gemma3-27b", "bfloat16")]
+ONE_RANK_FSDP = [("llama3.2-3b", "float32"), ("rwkv6-7b", "float32"),
+                 ("llama3.2-3b", "bfloat16")]
 
 
-@pytest.mark.parametrize("arch,dtype", ONE_RANK,
-                         ids=[f"{a}-{d}" for a, d in ONE_RANK])
-def test_one_rank_sharded_serving_is_the_single_device_run_bitwise(arch,
-                                                                  dtype):
-    """No ranks needed: on the (1, 1) mesh the sharded path's collectives
-    are identities and its flash-decoding combine weighs the one rank's
-    softmax by exactly 1, so prefill and every decode step give the
-    single-device logits bitwise (f32 and bf16). The caller's constrain
-    keeps its own batch split."""
+def _one_rank_bitwise(arch, dtype, layout):
+    """Prefill and five decode steps on the (1, 1) mesh under ``layout``
+    against the single-device run: every step's logits equal bitwise; the
+    caller's constrain keeps its batch split."""
     from repro_torch.launch import make_test_mesh
     from repro_torch.models.transformer import init_cache, init_params
     from repro_torch.sharding import make_constrain
@@ -445,7 +471,8 @@ def test_one_rank_sharded_serving_is_the_single_device_run_bitwise(arch,
     from repro_torch.train.serve_step import make_decode, make_prefill
     cfg = R.lm_dist_cfg({"arch": arch,
                          "overrides": {"param_dtype": dtype}})
-    constrain = make_constrain(make_test_mesh((1, 1), ("data", "model")))
+    constrain = make_constrain(make_test_mesh((1, 1), ("data", "model")),
+                               layout=layout)
     split = constrain.sharding.split
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     inputs = R.serve_inputs(cfg, 4, 9, 1, "cpu")
@@ -464,3 +491,72 @@ def test_one_rank_sharded_serving_is_the_single_device_run_bitwise(arch,
     for i, (a, b) in enumerate(zip(*runs)):
         assert a.dtype == b.dtype and torch.equal(a, b), f"step {i}"
     assert constrain.sharding.split == split
+
+
+@pytest.mark.parametrize("arch,dtype", ONE_RANK,
+                         ids=[f"{a}-{d}" for a, d in ONE_RANK])
+def test_one_rank_sharded_serving_is_the_single_device_run_bitwise(arch,
+                                                                  dtype):
+    """No ranks needed: on the (1, 1) mesh the sharded path's collectives
+    are identities and its flash-decoding combine weighs the one rank's
+    softmax by exactly 1, so prefill and every decode step give the
+    single-device logits bitwise (f32 and bf16). The caller's constrain
+    keeps its own batch split."""
+    _one_rank_bitwise(arch, dtype, "tp")
+
+
+@pytest.mark.parametrize("arch,dtype", ONE_RANK_FSDP,
+                         ids=[f"{a}-{d}" for a, d in ONE_RANK_FSDP])
+def test_one_rank_fsdp_serving_is_the_single_device_run_bitwise(arch,
+                                                               dtype):
+    """The same under the "fsdp" layout: the rows split over ("data",
+    "model") of one rank each, the mixers on the cache's split, every
+    weight gathered at use."""
+    _one_rank_bitwise(arch, dtype, "fsdp")
+
+
+DRYRUN_FSDP = """
+import json
+from repro_torch.configs import get_arch
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.utils.cost_analysis import storage_bytes
+cfg = get_arch("llama3.2-3b").reduced()
+out = {}
+with dryrun.fake_world(4):
+    mesh = make_test_mesh((2, 2), ("data", "model"))
+    for step in ("decode", "prefill"):
+        cell = {"seq_len": 32, "batch": 4, "step": step}
+        for layout in ("tp", "fsdp"):
+            _, args, _ = dryrun.lower_cell(cfg, cell, mesh, fsdp=False,
+                                           layout=layout)
+            rec = dryrun.cost_cell(cfg, cell, mesh, fsdp=False,
+                                   layout=layout)
+            out[f"{step} {layout}"] = {
+                "cache_bytes": storage_bytes(args[1]["layers"]),
+                "peak": rec["memory"]["peak_bytes_per_device"],
+                "flops": rec["op_cost"]["flops_trip_scaled"]}
+print(json.dumps(out))
+"""
+
+
+def test_the_dry_run_costs_fsdp_serving_with_the_cache_of_tp():
+    """Rank 0 of a fake group of four, the (2, 2) mesh: ``cost_cell``
+    under "fsdp" runs a decode and a prefill cell of reduced llama at
+    B = 4 (the rows over ("data", "model"), the cache's over "data") and
+    its rank's cache takes the bytes it takes under "tp"."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    p = subprocess.run([sys.executable, "-c", DRYRUN_FSDP],
+                       capture_output=True, text=True, env=env, timeout=300)
+    assert p.returncode == 0, p.stderr[-3000:]
+    got = json.loads(p.stdout.strip().splitlines()[-1])
+    for step in ("decode", "prefill"):
+        tp, fsdp = got[f"{step} tp"], got[f"{step} fsdp"]
+        assert fsdp["cache_bytes"] == tp["cache_bytes"] > 0, step
+        assert fsdp["peak"] > 0 and fsdp["flops"] > 0, step

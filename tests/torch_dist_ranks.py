@@ -298,8 +298,10 @@ def lm_dist_steps(rank: int, world: int, job: dict) -> dict:
     "launches": this rank's launches of each slab kernel on the sharded
     path over all the cases (the counts set to 0 at the start and read
     before any single-device run); under "oracle_launches", the
-    single-device runs' (``plain``), counted apart."""
+    single-device runs' (``plain``), counted apart. Under "entered": the
+    host clock (``time.time``) when the rank function began."""
     import time
+    entered = time.time()
     import types
     import torch
     from repro_torch.api import resolve_device
@@ -325,7 +327,7 @@ def lm_dist_steps(rank: int, world: int, job: dict) -> dict:
             torch.cuda.synchronize()
         return time.perf_counter()
 
-    out = {}
+    out = {"entered": entered}
     for case in job["cases"]:
         _take_counts(scans, {})   # this case's sharded run only
         cfg = lm_dist_cfg(case)
@@ -794,8 +796,12 @@ def lm_serve_steps(rank: int, world: int, job: dict) -> dict:
     launches of each slab kernel on the sharded path over all the cases
     (the counts set to 0 at the start and read before any single-device
     run); under "oracle_launches", the single-device runs', counted
-    apart."""
+    apart. Under "entered": the host clock (``time.time``) when the rank
+    function began (the parent reads the process start from it); each
+    case's "case_s": its wall seconds in this rank, its single-device runs
+    included."""
     import time
+    entered = time.time()
     import torch
     from repro_torch.api import resolve_device
     from repro_torch.core.engine import CollectiveLedger
@@ -818,8 +824,9 @@ def lm_serve_steps(rank: int, world: int, job: dict) -> dict:
             torch.cuda.synchronize()
         return time.perf_counter()
 
-    out = {}
+    out = {"entered": entered}
     for case in job["cases"]:
+        case_t0 = time.perf_counter()
         _take_counts(scans, {})   # this case's sharded run only
         cfg = lm_dist_cfg(case)
         mesh = make_test_mesh(tuple(case["mesh"][0]), tuple(case["mesh"][1]))
@@ -886,6 +893,7 @@ def lm_serve_steps(rank: int, world: int, job: dict) -> dict:
                     forced=res["tokens"], upcast=True)
                 res["truth"]["cache"] = None
             _take_counts(kernels, oracle)
+        res["case_s"] = time.perf_counter() - case_t0
         out[case["key"]] = res
     out["launches"], out["oracle_launches"] = path, oracle
     return out
