@@ -30,7 +30,10 @@ d = 1664, streamed above.
 "cuda"), unless ``tm``/``tn`` are given); ``decision_packed`` stays off
 the table, as in the JAX package, and launches the entry the bucket
 picks (``tiling.packed_decision_config``). Every entry of a class gives
-bitwise the same output.
+bitwise the same output. During a ``repro_torch.utils.trace``
+recording, ``decision_packed`` marks its two halves with spans:
+``repro_torch.decision.prepare`` (``prepare_packed``: the cast and the
+norms) and ``repro_torch.decision.launch``.
 """
 from __future__ import annotations
 
@@ -49,6 +52,7 @@ from repro_torch.kernels.tiling import (LANE, TileConfig, backend_name,
                                         decision_splits, default_config,
                                         menu_index, packed_decision_config,
                                         resolve_tiles, tma_rows)
+from repro_torch.utils import trace
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 DECISION = Kernel("decision", "decision_launch",
@@ -179,8 +183,9 @@ def decision_packed(q_pad, t_pad, gamma_pad, t_norms, rho1, rho2,
     bucket and the width (the kernel masks ragged edges, so its query tile
     need not be ``tm``).
     """
-    ops = prepare_packed(q_pad, t_pad, gamma_pad, t_norms, tm=tm, tn=tn,
-                         precision=precision)
-    return _run(*ops, rho1, rho2, kernel,
-                packed_decision_config(ops[0].shape[0], precision,
-                                       ops[0].shape[1]))
+    with trace.span("repro_torch.decision.prepare"):
+        ops = prepare_packed(q_pad, t_pad, gamma_pad, t_norms, tm=tm, tn=tn,
+                             precision=precision)
+    cfg = packed_decision_config(ops[0].shape[0], precision, ops[0].shape[1])
+    with trace.span("repro_torch.decision.launch"):
+        return _run(*ops, rho1, rho2, kernel, cfg)

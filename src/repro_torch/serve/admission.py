@@ -45,6 +45,16 @@ Time enters ONLY through the injected ``clock`` (default
 controller builds — so every policy decision (``due``, latency
 estimates, deadline ordering) is unit-testable with a fake clock and no
 sleeps. Deadlines are absolute times on that clock.
+
+During a ``repro_torch.utils.trace`` recording, spans mark a
+submit (``repro_torch.admission.submit``: model, rows, the window's
+per-model sequence number), the wait for the model lock
+(``.lock_wait``) and each window's flush from its pop to the end of its
+service flush (``.flush``: model, window, rows, requests, and why it
+closed: ``full`` or ``dead`` at a submit, in the sender's thread;
+``due`` by its deadline or fill, or ``aged`` by ``max_wait_s``, at a
+poll; ``drain``; ``explicit`` for ``flush_model``, ``result()`` and
+``forget``); their stamps never read the injected clock.
 """
 from __future__ import annotations
 
@@ -57,6 +67,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 from repro_torch.serve.scorer import BUCKETS
 from repro_torch.serve.service import Pending, ScoringService
+from repro_torch.utils import trace
 
 
 class QuotaExceededError(RuntimeError):
@@ -153,13 +164,14 @@ class AdmissionHandle:
 class _Window:
     """One model's open coalescing window."""
 
-    __slots__ = ("items", "rows", "earliest_deadline", "opened_at")
+    __slots__ = ("items", "rows", "earliest_deadline", "opened_at", "seq")
 
-    def __init__(self, now: float):
+    def __init__(self, now: float, seq: int):
         self.items: List[Tuple[object, AdmissionHandle]] = []
         self.rows = 0
         self.earliest_deadline = math.inf
         self.opened_at = now
+        self.seq = seq      # the model's window number, from 1
 
 
 @dataclasses.dataclass
@@ -350,6 +362,12 @@ class AdmissionController:
         n = int(q.shape[0])
         if n < 1:
             raise ValueError("need at least one query row per request")
+        with trace.span("repro_torch.admission.submit", model=model,
+                        rows=n) as sp:
+            return self._admit(model, q, n, deadline, sp)
+
+    def _admit(self, model: str, q, n: int, deadline: Optional[float],
+               sp) -> AdmissionHandle:
         # Admission decisions run BEFORE the service is resolved: a
         # rejected request must not pay (or trigger) the model's
         # fit-on-first-use. registry.quota also routes, so unknown
@@ -385,10 +403,13 @@ class AdmissionController:
                 # no window is created for a rejected request (above):
                 # an empty one would backdate the next admitted
                 # request's age under max_wait_s
-                win = self._windows[model] = _Window(self.clock())
-                self._wstats(model).opened += 1
+                ws = self._wstats(model)
+                ws.opened += 1
+                win = self._windows[model] = _Window(self.clock(),
+                                                     ws.opened)
             win.items.append((q, handle))
             win.rows += n
+            sp.set(window=win.seq)
             if deadline is not None:
                 win.earliest_deadline = min(win.earliest_deadline,
                                             deadline)
@@ -399,7 +420,7 @@ class AdmissionController:
             if dead:
                 self._wstats(model).inline_flushes += 1
         if full or dead:
-            self.flush_model(model)
+            self.flush_model(model, _reason="full" if full else "dead")
         else:
             self._notify_wakers()
         return handle
@@ -582,12 +603,22 @@ class AdmissionController:
             now = self.clock()
             due = [m for m in list(self._windows) if self.due(m, now)]
             due.sort(key=lambda m: (self._windows[m].earliest_deadline, m))
-        return sum(self.flush_model(m) for m in due)
+            # due by its deadline or its fill, or else by max_wait_s
+            why = {m: "due" if self._windows[m].rows >= self.max_batch
+                   or math.isfinite(self._windows[m].earliest_deadline)
+                   else "aged" for m in due}
+        return sum(self.flush_model(m, _reason=why[m]) for m in due)
 
-    def flush_model(self, model: str) -> int:
-        """Flush one model's window unconditionally."""
-        with self._model_lock(model):
-            return self._flush_under_model_lock(model)
+    def flush_model(self, model: str, _reason: str = "explicit") -> int:
+        """Flush one model's window unconditionally (``_reason``: why it
+        closed, for its flush span)."""
+        lk = self._model_lock(model)
+        with trace.span("repro_torch.admission.lock_wait", model=model):
+            lk.acquire()
+        try:
+            return self._flush_under_model_lock(model, _reason)
+        finally:
+            lk.release()
 
     def drain(self) -> int:
         """Flush everything (earliest deadline first) — end of stream."""
@@ -595,9 +626,9 @@ class AdmissionController:
             order = sorted(
                 self._windows,
                 key=lambda m: (self._windows[m].earliest_deadline, m))
-        return sum(self.flush_model(m) for m in order)
+        return sum(self.flush_model(m, _reason="drain") for m in order)
 
-    def _flush_under_model_lock(self, model: str) -> int:
+    def _flush_under_model_lock(self, model: str, reason: str) -> int:
         # caller holds this model's lock, so no one else can mutate this
         # model's window or service underneath us. Resolve the service
         # BEFORE popping the window: if it raises (the name was
@@ -622,6 +653,13 @@ class AdmissionController:
                 ws.max_rows = max(ws.max_rows, win.rows)
         if win is None or not win.items:
             return 0
+        with trace.span("repro_torch.admission.flush", model=model,
+                        window=win.seq, rows=win.rows,
+                        requests=len(win.items), reason=reason):
+            return self._serve(svc, win)
+
+    @staticmethod
+    def _serve(svc: ScoringService, win: _Window) -> int:
         for q, handle in win.items:
             try:
                 handle._bind(svc.submit(q))
@@ -650,7 +688,7 @@ class AdmissionController:
         retired tenant's packed support set forever.
         """
         with self._model_lock(model):
-            self._flush_under_model_lock(model)
+            self._flush_under_model_lock(model, "explicit")
             with self._lock:
                 self._services.pop(model, None)
                 self._service_versions.pop(model, None)

@@ -30,6 +30,12 @@ not vanish into a dead thread: every queued request is failed with
 ``result()``), and the next ``stop()``/``check()`` re-raises it on the
 caller's thread.
 
+During a ``repro_torch.utils.trace`` recording, each stretch in which
+the thread finds nothing due, up to its next poll, is one
+``repro_torch.driver.idle`` span; its field ``due_ns`` is the wake time
+it last slept for, on the span's clock (None when it parked with nothing
+due, and on the stretch a stop ends).
+
 Fake clocks: the driver sleeps in *clock deltas* interpreted as wall
 seconds. Under the test fake clock real sleeps are meaningless, so
 tests drive the driver through the waker (every submit pokes it) and
@@ -39,9 +45,11 @@ deterministic use.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Optional, Tuple
 
 from repro_torch.serve.admission import AdmissionController
+from repro_torch.utils import trace
 
 
 class DriverCrashed(RuntimeError):
@@ -145,13 +153,21 @@ class AsyncDriver:
 
     def _run(self) -> None:
         ctrl = self.controller
+        idle = trace.NULL
         try:
             while True:
                 t = ctrl.next_due_time()
                 now = ctrl.clock()
                 if t is not None and t <= now:
+                    idle.close()
+                    idle = trace.NULL
                     self.step()
                     continue
+                if not idle:
+                    idle = trace.span("repro_torch.driver.idle")
+                if idle:
+                    idle.set(due_ns=None if t is None else
+                             time.time_ns() + round((t - now) * 1e9))
                 with self._cond:
                     if self._stop_flag:
                         return
@@ -174,6 +190,9 @@ class AsyncDriver:
             crash = DriverCrashed(e)
             self._crash = crash
             ctrl.abort_pending(crash)
+        finally:
+            idle.set(due_ns=None)      # a stop, not a wake-up, ends it
+            idle.close()
 
 
 # -- process-default fleet ----------------------------------------------------

@@ -18,6 +18,13 @@ Two execution paths share the packing:
 Scoring runs at the model's packed ``precision``: the support block is
 already in the serving tile dtype, queries are cast per launch, and the
 accumulate/epilogue stays f32.
+
+During a ``repro_torch.utils.trace`` recording, ``score`` is one
+``repro_torch.scorer.score`` span with the children ``.stage``
+(``_pad_queries``: the host pad and host-to-device copy, or the device
+pad and cast) and, for numpy requests, ``.fetch`` (the scores'
+device-to-host copy, which waits for the kernel) around the decision's
+own.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ from repro_torch.core.engine.stats import MeshComm
 from repro_torch.kernels.decision.ops import decision_packed
 from repro_torch.kernels.tiling import LANE, _pad_to
 from repro_torch.serve.model_cache import ServingModel
+from repro_torch.utils import trace
 
 # Request row-counts are padded up to one of these; the top bucket is also
 # the chunk size for larger batches.
@@ -132,27 +140,32 @@ class BatchScorer:
         self._check(q)
         n = int(q.shape[0])
         cap = self.chunk_rows()
-        if n > cap:
-            chunks = [self._score_once(q[i:i + cap])
-                      for i in range(0, n, cap)]
-            if isinstance(chunks[0], np.ndarray):
-                return np.concatenate(chunks)
-            return torch.cat(chunks)
-        return self._score_once(q)
+        with trace.span("repro_torch.scorer.score", rows=n):
+            if n > cap:
+                chunks = [self._score_once(q[i:i + cap])
+                          for i in range(0, n, cap)]
+                if isinstance(chunks[0], np.ndarray):
+                    return np.concatenate(chunks)
+                return torch.cat(chunks)
+            return self._score_once(q)
 
     def _score_once(self, q):
         n = int(q.shape[0])
         if self.mesh is None:
-            out = self._score_bucket(self._pad_queries(q, bucket_for(n)))
+            with trace.span("repro_torch.scorer.stage"):
+                q_pad = self._pad_queries(q, bucket_for(n))
+            out = self._score_bucket(q_pad)
         else:
             out = self._score_sharded(q, n)
         if isinstance(q, np.ndarray):
-            return out.cpu().numpy()[:n]
+            with trace.span("repro_torch.scorer.fetch"):
+                return out.cpu().numpy()[:n]
         return out[:n]
 
     def _score_sharded(self, q, n: int) -> torch.Tensor:
         per_rank = self.bucket_used(n)
-        q_pad = self._pad_queries(q, per_rank * self._n_ranks())
+        with trace.span("repro_torch.scorer.stage"):
+            q_pad = self._pad_queries(q, per_rank * self._n_ranks())
         r = self.mesh.coords()[self.data_axis]
         out = self._score_bucket(q_pad[r * per_rank:(r + 1) * per_rank])
         return self._comm.all_gather(out, tiled=True)

@@ -19,6 +19,11 @@ Requests are host rows at the service boundary (a tensor request is
 copied to the host), so each launch's scores come back through a
 device-to-host copy that waits for the kernel: every recorded launch
 time ends at the device.
+
+During a ``repro_torch.utils.trace`` recording, each coalesced group is
+one ``repro_torch.service.flush`` span (rows, requests) with the
+children ``.concat`` (the host rows joined) and ``.scatter`` (each
+handle set, its done-callbacks run) beside the scorer's own.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ import numpy as np
 
 from repro_torch.core.engine.state import host_f32
 from repro_torch.serve.scorer import BUCKETS, BatchScorer
+from repro_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -212,58 +218,66 @@ class ScoringService:
                 group.append(item)
                 rows += item[1].n
 
-            t_group = self.clock()
-            launch_s = 0.0
+            with trace.span("repro_torch.service.flush", rows=rows,
+                            requests=len(group)):
+                launches += self._serve_group(group, rows)
+        return launches
+
+    def _serve_group(self, group: List[Tuple], rows: int) -> int:
+        """One coalesced group of ``rows`` rows: concatenate, one scorer
+        call per planned launch, scatter; returns its launches."""
+        t_group = self.clock()
+        launch_s = 0.0
+        with trace.span("repro_torch.service.concat"):
             if len(group) == 1:
                 batch = host_f32(group[0][0])
             else:
                 batch = np.concatenate([host_f32(q) for q, _ in group])
 
-            # One scorer call per planned launch so every launch's
-            # wall-clock and rows are credited to the bucket that really
-            # served it (an oversized group spans several; the remainder
-            # chunk's bucket can be smaller than the top one). The
-            # group's request count is filed with the first launch — a
-            # request belongs to one group. The per-chunk sync is the
-            # price of honest per-launch timing: an oversized group pays
-            # one host-device round-trip per extra chunk, on a path that
-            # is already multiple full-bucket kernel launches deep.
-            plan = self.scorer.launch_plan(rows)
-            launches += len(plan)
-            parts = []
-            off = 0
-            for i, (chunk_rows, bucket) in enumerate(plan):
-                cold = (bucket not in self._launched
-                        and bucket not in getattr(self.scorer,
-                                                  "warmed_buckets", ()))
-                self._launched.add(bucket)
-                t0 = self.clock()
-                # numpy in, numpy out: the scores' device-to-host copy
-                # waits for the kernel, so dt ends at the device.
-                part = self.scorer.score(batch[off:off + chunk_rows])
-                dt = self.clock() - t0
-                launch_s += dt
-                with self._stats_lock:
-                    self.stats.setdefault(bucket, BucketStats()).record(
-                        chunk_rows, len(group) if i == 0 else 0, dt,
-                        cold=cold)
-                # Host-side from here: the launch is already synced (the
-                # timing above blocks); numpy slices are O(1) views, and
-                # results are host arrays, symmetric with the host-array
-                # request boundary.
-                parts.append(part)
-                off += chunk_rows
+        # One scorer call per planned launch so every launch's
+        # wall-clock and rows are credited to the bucket that really
+        # served it (an oversized group spans several; the remainder
+        # chunk's bucket can be smaller than the top one). The
+        # group's request count is filed with the first launch — a
+        # request belongs to one group. The per-chunk sync is the
+        # price of honest per-launch timing: an oversized group pays
+        # one host-device round-trip per extra chunk, on a path that
+        # is already multiple full-bucket kernel launches deep.
+        plan = self.scorer.launch_plan(rows)
+        parts = []
+        off = 0
+        for i, (chunk_rows, bucket) in enumerate(plan):
+            cold = (bucket not in self._launched
+                    and bucket not in getattr(self.scorer,
+                                              "warmed_buckets", ()))
+            self._launched.add(bucket)
+            t0 = self.clock()
+            # numpy in, numpy out: the scores' device-to-host copy
+            # waits for the kernel, so dt ends at the device.
+            part = self.scorer.score(batch[off:off + chunk_rows])
+            dt = self.clock() - t0
+            launch_s += dt
+            with self._stats_lock:
+                self.stats.setdefault(bucket, BucketStats()).record(
+                    chunk_rows, len(group) if i == 0 else 0, dt,
+                    cold=cold)
+            # Host-side from here: the launch is already synced (the
+            # timing above blocks); numpy slices are O(1) views, and
+            # results are host arrays, symmetric with the host-array
+            # request boundary.
+            parts.append(part)
+            off += chunk_rows
+        with trace.span("repro_torch.service.scatter"):
             scores = parts[0] if len(parts) == 1 else np.concatenate(parts)
-
             off = 0
             for _, p in group:
                 p._set(scores[off:off + p.n])
                 off += p.n
-            with self._stats_lock:
-                self.flush_groups += 1
-                self.flush_overhead_s += max(
-                    0.0, (self.clock() - t_group) - launch_s)
-        return launches
+        with self._stats_lock:
+            self.flush_groups += 1
+            self.flush_overhead_s += max(
+                0.0, (self.clock() - t_group) - launch_s)
+        return len(plan)
 
     def stats_lines(self) -> List[str]:
         """Human/CSV-ready per-bucket counter lines."""
