@@ -45,10 +45,14 @@ without printing the result line:
               bitwise;
    serve-wide — a bf16 model of d = 768 (BERT-base pooled embeddings)
               scored through the scorer at every bucket, and one of
-              d = 2048 at the smallest, against the plain decision with
-              no label flipped: each bucket takes a decision entry whose
-              query tile fits d (the streamed one above 1664), and every
-              entry that fits gives bitwise the same values;
+              d = 2048 at the smallest, and the pooled screen's top
+              bucket (d = 4096 against 32768 support rows), against the
+              plain decision with no label flipped: each bucket takes a
+              decision entry whose query tile fits d (a streamed one
+              above 1664, the wide one at the pooled screen), and every
+              entry that fits gives bitwise the same values; the wide
+              entry's clusters a wave as the card gives them, held
+              against tiling's;
    fleet    — the serving control plane: a ModelRegistry of three tenants
               (main-f32 and main-bf16 on the first 7783 [main] rows,
               wide-bf16 on [serve-wide]'s 4096 rows at d = 768), each
@@ -236,6 +240,10 @@ SUPPORT = 4096            # packed support rows the decision kernel meets
 # [serve-wide]: the width of BERT-base pooled embeddings, scored at every
 # bucket, and one past every resident 16-bit query tile (1664).
 WIDE_D, WIDEST_D = 768, 2048
+# ... and the pooled screen's launch (the benchmark's pooled4096 cells): the
+# top bucket of d = 4096 rows against 32768 support rows, where the wide
+# streamed entry runs (tiling.STREAMED_WIDE).
+POOLED_D, POOLED_SUPPORT = 4096, 32768
 SHRINK_M = 32768          # [shrink]: "auto" takes the shrinking driver
 SOLVER_ATOL_FLOOR = 5e-3  # tests/test_engine_parity.py's solver floor
 # [fleet]: windows of up to two top buckets (a group past 4096 rows spans
@@ -1408,7 +1416,8 @@ def _lm_phase(dev, src: Path, reset_counts, fupdate_classes,
     r1, r2 = float(sm.rho1), float(sm.rho2)
     bucket = bucket_for(LM_SLAB_Q)
     cfg_dec = tiling.packed_decision_config(bucket, "bf16",
-                                            sm.t_pad.shape[1])
+                                            sm.t_pad.shape[1],
+                                            sm.t_pad.shape[0])
     tol32 = TOLERANCES["f32"]
     worst = {"decision": 0.0, "fupdate": 0.0}
     for what, Q, s in (("held-out", Q_in, s_in), ("OOD", Q_out, s_out)):
@@ -3841,8 +3850,8 @@ def main() -> int:
             q = q / np.linalg.norm(q, axis=1, keepdims=True)
         return torch.as_tensor(q, device=dev)
 
-    def support_model(kind, precision, d=D):
-        """A packed model of SUPPORT check rows of d features (rbf at
+    def support_model(kind, precision, d=D, n=SUPPORT):
+        """A packed model of n check rows of d features (rbf at
         gamma = 1/d away from the main width). Its weights are positive,
         as almost all of a fitted model's are, and scaled so that
         |s| <= 1 over the largest bucket's queries; its offsets sit at the
@@ -3850,9 +3859,9 @@ def main() -> int:
         (with weights of both signs, s of the linear kernel gathers near
         0 and its output near -s^2, small beside the tolerance)."""
         kern = kernels[kind] if d == D else rbf(1.0 / d)
-        T = torch.as_tensor(rows[kind][:SUPPORT] if d == D
-                            else make_toy(SEED, SUPPORT, d=d)[0], device=dev)
-        g = torch.as_tensor(np.abs(rng.standard_normal(SUPPORT))
+        T = torch.as_tensor(rows[kind][:n] if d == D
+                            else make_toy(SEED, n, d=d)[0], device=dev)
+        g = torch.as_tensor(np.abs(rng.standard_normal(n))
                             .astype(np.float32), device=dev)
         s = kern.cross(check_queries(kind, BUCKETS[-1], d), T) @ g
         g, s = g / s.abs().max(), s / s.abs().max()
@@ -4330,14 +4339,26 @@ def main() -> int:
 
     # -- 3e. [serve-wide]: 16-bit scoring at embedding widths ----------------
     # A bf16 model of BERT-base pooled embeddings' width (d = 768) scored
-    # through the scorer at every bucket, and one of d = 2048 at the
-    # smallest: the resident query tile caps d at 640-1664 by the entry,
-    # so each bucket takes an entry that fits (tiling.wgmma_fits), the
-    # streamed one above 1664.
+    # through the scorer at every bucket, one of d = 2048 at the smallest,
+    # and the pooled screen's (d = 4096, 32768 support rows) at the top:
+    # the resident query tile caps d at 640-1664 by the entry, so each
+    # bucket takes an entry that fits (tiling.wgmma_fits), a streamed one
+    # above 1664, the wide one (2-CTA clusters) at the pooled screen.
     phase_t0 = time.perf_counter()
     wide_models, serve_wide = {}, {}
-    for d_w, buckets in ((WIDE_D, BUCKETS), (WIDEST_D, BUCKETS[:1])):
-        smw = support_model("rbf", "bf16", d=d_w)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clusters = dec.wide_clusters("bf16")
+    check(clusters == tiling.wide_clusters(),
+          f"the card holds {clusters} clusters of the wide streamed entry at "
+          f"once ({sms} SMs); tiling.decision_grid assumes "
+          f"{tiling.wide_clusters()}")
+    say(f"[serve-wide] wide streamed entry: {clusters} clusters of "
+        f"{tiling.CLUSTER_CTAS} CTAs at once on {sms} SMs (tiling assumes "
+        f"{tiling.wide_clusters()})")
+    for d_w, buckets, n_sv in ((WIDE_D, BUCKETS, SUPPORT),
+                               (WIDEST_D, BUCKETS[:1], SUPPORT),
+                               (POOLED_D, BUCKETS[-1:], POOLED_SUPPORT)):
+        smw = support_model("rbf", "bf16", d=d_w, n=n_sv)
         wide_models[d_w] = smw
         r1, r2 = float(smw.model.rho1), float(smw.model.rho2)
         kern_w = smw.spec.kernel
@@ -4351,12 +4372,20 @@ def main() -> int:
         check(serve_wide[d_w] == len(buckets),
               f"d={d_w}: {serve_wide[d_w]} decision launches for "
               f"{len(buckets)} buckets")
+        if d_w == POOLED_D:
+            check(dec.DECISION.by_entry[tiling.STREAMED_WIDE] == len(buckets),
+                  f"the pooled screen's launches by entry: "
+                  f"{dict(dec.DECISION.by_entry)}")
         for bucket in buckets:
             out, cfg = outs[bucket], cfgs[bucket]
             ops = decision_operands("rbf", smw, bucket, "bf16")
             check(cfg == tiling.packed_decision_config(
-                bucket, "bf16", ops[0].shape[1]),
+                bucket, "bf16", ops[0].shape[1], ops[1].shape[0]),
                 f"d={d_w} bucket={bucket} launched {cfg}")
+            if d_w == POOLED_D:
+                check(cfg.entry == tiling.STREAMED_WIDE,
+                      f"the pooled screen launched {cfg.entry}, not the wide "
+                      f"streamed entry {tiling.STREAMED_WIDE}")
             plain = decision_plain(*ops, r1, r2, kind="rbf",
                                    gamma=kern_w.gamma)
             err, rel, tol, share = hold(out, plain, plain + r1 * r2,
@@ -4368,8 +4397,9 @@ def main() -> int:
                         .sum())
             check(flips == 0, f"serve-wide d={d_w} bucket={bucket}: {flips} "
                   f"labels differ from the plain decision")
-            # Every entry of the class that fits d, the streamed one among
-            # them, gives bitwise the scorer's values.
+            # Every entry of the class that fits d, the streamed ones
+            # (tiling.STREAMED_ENTRIES) among them, gives bitwise the
+            # scorer's values.
             fits_d = [c for c in tiling.menu("decision", precision="bf16")
                       if tiling.wgmma_fits(c, ops[0].shape[1])]
             for c in fits_d:
@@ -4933,12 +4963,13 @@ def main() -> int:
     # entry the bucket and d pick, and at d = WIDE_D the streamed entry
     # beside it (what streaming the query tile costs where both fit).
     for d_w, bucket in ((WIDE_D, BUCKETS[0]), (WIDE_D, BUCKETS[-1]),
-                        (WIDEST_D, BUCKETS[0]), (WIDEST_D, BUCKETS[-1])):
+                        (WIDEST_D, BUCKETS[0]), (WIDEST_D, BUCKETS[-1]),
+                        (POOLED_D, BUCKETS[-1])):
         smw = wide_models[d_w]
         r1, r2 = float(smw.model.rho1), float(smw.model.rho2)
         ops = decision_operands("rbf", smw, bucket, "bf16")
         nt, dp = ops[1].shape
-        cfg = tiling.packed_decision_config(bucket, "bf16", dp)
+        cfg = tiling.packed_decision_config(bucket, "bf16", dp, nt)
         kern_w = smw.spec.kernel
         ms = time_ms(lambda: dec.launch(*ops, r1, r2, kern_w, cfg)(),
                      iters=20)

@@ -51,10 +51,16 @@ int launch_wgmma(const Args& a, cudaStream_t st) {
       split_args(a), slab_rule(a), st);
 }
 
+// A streamed query tile: NW = 4 * TC = 256 takes the wide kernel whose
+// clusters share the support rows, narrower chunks the plain one.
 template <typename T, int BM, int BN, int BK, int TR, int TC, int DEPTH>
 int launch_stream(const Args& a, cudaStream_t st) {
-  return launch_split_wgmma<T, BM, BN, BK, TR, TC, DEPTH, true>(
-      split_args(a), slab_rule(a), st);
+  if constexpr (4 * TC == 256)
+    return launch_split_cluster<T, BM, BN, BK, TR, TC, DEPTH>(
+        split_args(a), slab_rule(a), st);
+  else
+    return launch_split_wgmma<T, BM, BN, BK, TR, TC, DEPTH, true>(
+        split_args(a), slab_rule(a), st);
 }
 
 // The menu: launch index -> <BM, BN, BK, TR, TC, DEPTH>, in the order of
@@ -62,8 +68,9 @@ int launch_stream(const Args& a, cudaStream_t st) {
 // classes by the rows' type, each compiled for its types only: f32 runs
 // the SIMT entries (SW = BN = 64; entry 0 is the default), bf16 and f16
 // the wgmma entries (SW = BN = 32, NW = 4 * TC; entry 4 is the default;
-// entry 9 streams the query tile, for any d). An index of the other class
-// is refused with cudaErrorInvalidValue.
+// entries 9 and 10 stream the query tile, for any d, 10 in 2-CTA clusters
+// of NW = 256). An index of the other class is refused with
+// cudaErrorInvalidValue.
 template <typename T>
 int launch_f32(int cfg, const Args& a, cudaStream_t st) {
   switch (cfg) {
@@ -84,6 +91,7 @@ int launch_16bit(int cfg, const Args& a, cudaStream_t st) {
     case 7: return launch_wgmma<T, 128, 32, 64, 2, 32, 4>(a, st);
     case 8: return launch_wgmma<T, 128, 32, 64, 2, 32, 2>(a, st);
     case 9: return launch_stream<T, 128, 32, 64, 2, 16, 3>(a, st);
+    case 10: return launch_stream<T, 128, 32, 64, 2, 64, 4>(a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -119,6 +127,22 @@ extern "C" int decision_launch(const void* q, const void* t,
     case kF32: return launch_f32<float>(cfg, a, st);
     case kBF16: return launch_16bit<__nv_bfloat16>(cfg, a, st);
     case kF16: return launch_16bit<__half>(cfg, a, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The clusters of case 10 (the wide streamed entry) the current card holds
+// at once, for rows of `dtype` (1 bf16, 2 f16), into *most: what its
+// launcher sizes the grid from. Returns a CUDA error, or
+// cudaErrorInvalidValue for another dtype.
+extern "C" int decision_wide_clusters(int dtype, int* most) {
+  using namespace repro;
+  switch (dtype) {
+    case kBF16:
+      return split_cluster_capacity<__nv_bfloat16, 128, 32, 64, 2, 64, 4>(
+          most);
+    case kF16:
+      return split_cluster_capacity<__half, 128, 32, 64, 2, 64, 4>(most);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

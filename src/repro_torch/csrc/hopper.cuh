@@ -270,6 +270,55 @@ int encode_map(CUtensorMap* map, CUtensorMapDataType type, int size,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
+// Clusters (split_rows.cuh's wide streamed entry). A tma_load into the
+// same offset of the shared memory of every CTA of the cluster in `mask`
+// (bit r: the CTA of rank r), completing its bytes on the barrier at
+// `bar`'s offset in each of them.
+__device__ __forceinline__ void tma_load_multicast(void* dst,
+                                                   const CUtensorMap* map,
+                                                   uint64_t* bar, int c0,
+                                                   int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask),
+      "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// This CTA's rank in its cluster.
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// Every thread of every CTA of the cluster: the writes before it (the
+// barriers' initialisation) are seen by all of them after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// An arrival on the barrier at `bar`'s offset in the shared memory of
+// the cluster's CTA of rank `cta`, with the default (release, CTA scope)
+// semantics, as CUTLASS's ClusterBarrier::arrive: a cluster-scope release
+// here cost the wide streamed entry 0.8 ms of 2.3 at 4096 x 32768,
+// d = 4096 (PERF.md).
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    int cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}"
+      "\n" ::"r"(smem_u32(bar)),
+      "r"(cta)
+      : "memory");
+}
+
 // The accumulator operands of wgmma m64n32k16 (16 f32 a thread), for
 // split_rows.cuh's narrower chunks (its 128-row chunks take the
 // m64n128k16 above) ...
@@ -337,8 +386,9 @@ struct Wgmma<__half, 32> {
 // the thread's columns c = col0 + 8j + 2*(lane % 4) + h below n, in
 // (j, h) order, the kind fixed. cn and w are read from global memory
 // (the quad's lanes read neighbouring columns; the 8 quads of a warp the
-// same ones).
-template <int KIND, int N>
+// same ones). MASKED = false: the caller knows every column lies below n
+// (the same sums, without the checks).
+template <int KIND, int N, bool MASKED = true>
 __device__ __forceinline__ void fragment_add_weighted(
     const float (&acc)[N / 2], float rn0, float rn1,
     const float* __restrict__ cn, const float* __restrict__ w, int n,
@@ -349,7 +399,7 @@ __device__ __forceinline__ void fragment_add_weighted(
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int c = col0 + 8 * j + 2 * (lane % 4) + h;
-      if (c < n) {
+      if (!MASKED || c < n) {
         const float cc = __ldg(cn + c), wc = __ldg(w + c);
         part0 = fmaf(kernel_value<KIND>(acc[4 * j + h], rn0, cc, p), wc,
                      part0);

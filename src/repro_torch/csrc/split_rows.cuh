@@ -42,9 +42,10 @@
 //   - streamed: each ring stage holds the A tile's k-block beside the B
 //     rows' k-block, loaded once per chunk; shared memory no longer grows
 //     with d, at the price of re-reading the A tile (from L2) for every
-//     chunk.
-//   Both feed wgmma the same k-blocks in the same order, so the two modes
-//   give bitwise the same sums.
+//     chunk. split_wgmma_kernel_cluster (below) streams chunks of 256
+//     rows of B shared by 2-CTA clusters, for launches that fill the card.
+//   All feed wgmma the same k-blocks in the same order, so every mode
+//   gives bitwise the same sums.
 //
 // Sum order, what every entry of a class keeps: a split's partial for
 // row r is the sum of w[c] * k(r, c) over the split's columns, each
@@ -309,8 +310,10 @@ int launch_split_simt(const SplitArgs& a, const Epi& epi,
 // NW-wide fragment, the kind fixed: split u's columns are fragment
 // columns u*BN .. u*BN + BN - 1, i.e. accumulators u*BN/2 .. on, laid
 // out as a BN-wide fragment's (hopper.cuh); the quad's lane 0 writes
-// rows r0 and r0 + 8 of the split's workspace row.
-template <int KIND, int NW, int BN>
+// rows r0 and r0 + 8 of the split's workspace row. MASKED = false: the
+// caller knows every split and column of the chunk lies below nb (the
+// same sums, without the checks).
+template <int KIND, int NW, int BN, bool MASKED = true>
 __device__ __forceinline__ void chunk_partials(
     const float (&acc)[NW / 2], float rn0, float rn1,
     const float* __restrict__ bn, const float* __restrict__ w,
@@ -319,18 +322,41 @@ __device__ __forceinline__ void chunk_partials(
 #pragma unroll
   for (int u = 0; u < NW / BN; ++u) {
     const int s = c * (NW / BN) + u;
-    if (s >= splits) break;
+    if (MASKED && s >= splits) break;
     const float(&sub)[BN / 2] =
         *reinterpret_cast<const float(*)[BN / 2]>(&acc[u * (BN / 2)]);
     float part0 = 0.0f, part1 = 0.0f;
-    fragment_add_weighted<KIND, BN>(sub, rn0, rn1, bn, w, nb, s * BN, lane,
-                                    p, part0, part1);
+    fragment_add_weighted<KIND, BN, MASKED>(sub, rn0, rn1, bn, w, nb,
+                                            s * BN, lane, p, part0, part1);
     quad_reduce(part0, part1);
     if (lane % 4 == 0) {
       float* out = ws + static_cast<size_t>(s) * na;
       if (r0 < na) out[r0] = part0;
       if (r0 + 8 < na) out[r0 + 8] = part1;
     }
+  }
+}
+
+// chunk_partials with the kind dispatched once a chunk, not once a value.
+template <int NW, int BN, bool MASKED = true>
+__device__ __forceinline__ void kind_partials(
+    const float (&acc)[NW / 2], float rn0, float rn1,
+    const float* __restrict__ bn, const float* __restrict__ w,
+    float* __restrict__ ws, int na, int nb, int splits, int c, int r0,
+    int lane, const KernelParams& p) {
+  switch (p.kind) {
+    case kRbf:
+      chunk_partials<kRbf, NW, BN, MASKED>(acc, rn0, rn1, bn, w, ws, na, nb,
+                                           splits, c, r0, lane, p);
+      break;
+    case kPoly:
+      chunk_partials<kPoly, NW, BN, MASKED>(acc, rn0, rn1, bn, w, ws, na, nb,
+                                            splits, c, r0, lane, p);
+      break;
+    default:
+      chunk_partials<kLinear, NW, BN, MASKED>(acc, rn0, rn1, bn, w, ws, na,
+                                              nb, splits, c, r0, lane, p);
+      break;
   }
 }
 
@@ -454,20 +480,8 @@ __global__ void __launch_bounds__(BM / 64 * kWarpGroup + 32)
         phase ^= 1;
       }
     }
-    switch (p.kind) {     // one dispatch a chunk, not one a value
-      case kRbf:
-        chunk_partials<kRbf, NW, BN>(acc, rn0, rn1, bn, w, ws, na, nb,
-                                     splits, c, r0, lane, p);
-        break;
-      case kPoly:
-        chunk_partials<kPoly, NW, BN>(acc, rn0, rn1, bn, w, ws, na, nb,
-                                      splits, c, r0, lane, p);
-        break;
-      default:
-        chunk_partials<kLinear, NW, BN>(acc, rn0, rn1, bn, w, ws, na, nb,
-                                        splits, c, r0, lane, p);
-        break;
-    }
+    kind_partials<NW, BN>(acc, rn0, rn1, bn, w, ws, na, nb, splits, c, r0,
+                          lane, p);
   }
 }
 
@@ -520,6 +534,261 @@ int launch_split_wgmma(const SplitArgs& a, const Epi& epi,
     const int per_cta = (chunks + groups - 1) / groups;
     groups = (chunks + per_cta - 1) / per_cta;
     kernel<<<qtiles * groups, threads, smem, stream>>>(
+        map_a, map_b, static_cast<const float*>(a.w),
+        static_cast<const float*>(a.an), static_cast<const float*>(a.bn),
+        a.ws, a.na, a.nb, a.d, a.p, per_cta);
+    err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+  }
+  return launch_reduce(a, (a.nb + BN - 1) / BN, epi, stream);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 / f16, the wide streamed entry: 2-CTA clusters share the support rows
+// ---------------------------------------------------------------------------
+
+// The wgmma accumulators stay in their registers across the asm
+// statements around them (no copy while a wgmma is in flight).
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&acc)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+}
+
+// CTAs of a cluster of the wide streamed entry: neighbouring query tiles.
+constexpr int kClusterCtas = 2;
+
+// The streamed tile, widened and shared. The streamed kernel above pulls
+// the A tile's k-block from L2 again for every chunk of NW rows of B: at
+// 4096 queries x 32768 support rows, d = 4096, bf16, NW = 64, that is
+// 32 A tiles x 512 chunks x 1 MiB = 16 GiB a launch, beside 32 x 256 MiB
+// = 8 GiB of B: 24 GiB through L2 for 1.1 TFLOP, whose bound is 1.11 ms
+// at 989 TFLOP/s (it took 3.45 ms on an H100 SXM, PERF.md).
+// This kernel takes NW = 256 (wgmma m64n256k16, 128 f32 accumulators a
+// consumer thread), so the A k-block is reloaded once every 256 rows of
+// B (4 GiB), and runs in clusters of kClusterCtas CTAs on neighbouring A
+// tiles that walk the same chunks: each CTA loads its own A k-block and
+// half of the chunk's B k-block, which TMA multicasts into both CTAs'
+// rings, so each B row is pulled once a cluster (4 GiB): 8 GiB a launch
+// (1.52 ms there, 73% of the bound).
+// A stage is refilled only when the consumers of both CTAs have released
+// it (each consumer warp arrives on the stage's empty barrier in both),
+// and a producer leaves only when every stage is released, so no remote
+// arrival or copy meets a CTA that has left. The consumers keep one wgmma
+// group in flight (wait_group 1) and release the stage before it; a
+// chunk whose columns all lie below nb takes the epilogue without masks.
+// The ring (DEPTH stages of BM + NW rows x BK) takes most of an SM's
+// shared memory, so the launcher sizes the grid to one wave: pairs of A
+// tiles x runs of chunks, one CTA an SM. A partner tile past the last A
+// tile loads the last one and writes nothing; a B half past the last row
+// loads rows the column masks drop. The k-blocks, the fragment and the
+// split partials are the streamed kernel's: bitwise its sums.
+template <typename T, int BM, int BN, int BK, int TR, int TC, int DEPTH>
+__global__ void __cluster_dims__(kClusterCtas, 1, 1)
+    __launch_bounds__(BM / 64 * kWarpGroup + 32, 1)
+    split_wgmma_kernel_cluster(const __grid_constant__ CUtensorMap map_a,
+                               const __grid_constant__ CUtensorMap map_b,
+                               const float* __restrict__ w,
+                               const float* __restrict__ an,
+                               const float* __restrict__ bn,
+                               float* __restrict__ ws, int na, int nb,
+                               int d, KernelParams p, int per_cta) {
+  constexpr int NW = 4 * TC;
+  constexpr int CL = kClusterCtas;
+  constexpr int WGS = BM / 64;
+  static_assert(BM % 64 == 0 && BM <= 128 && BK == 64,
+                "m64 warpgroups, k-block 64");
+  static_assert(TR == 2 && NW % BN == 0 && BN % 8 == 0 && NW % (8 * CL) == 0,
+                "the wgmma fragment: 2 x NW/4, whole splits a chunk");
+  constexpr int ABLOCK = BM * BK * 2;     // one k-block of the A tile
+  constexpr int BBLOCK = NW * BK * 2;     // one k-block of a chunk of B
+  constexpr int BHALF = BBLOCK / CL;      // the part a CTA multicasts
+  constexpr int STAGE = ABLOCK + BBLOCK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + DEPTH * STAGE);
+  uint64_t* empty = full + DEPTH;
+
+  const int rank = cluster_rank();
+  const int nk = (d + BK - 1) / BK;
+  const int qtiles = (na + BM - 1) / BM;
+  const int pairs = (qtiles + CL - 1) / CL;
+  const int splits = (nb + BN - 1) / BN;
+  const int chunks = (nb + NW - 1) / NW;
+  const int cluster = blockIdx.x / CL;
+  const int qt = (cluster % pairs) * CL + rank;
+  const int c0 = (cluster / pairs) * per_cta;
+  const int c1 = c0 + per_cta < chunks ? c0 + per_cta : chunks;
+  const int wg = threadIdx.x / kWarpGroup;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < DEPTH; ++s) {
+      mbar_init(&full[s], 1);                    // the producer's expect_tx
+      mbar_init(&empty[s], CL * WGS * 4);        // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();   // the partner's barriers exist before any copy
+
+  if (wg == WGS) {
+    if (threadIdx.x == WGS * kWarpGroup) {
+      const int arow = (qt < qtiles ? qt : qtiles - 1) * BM;
+      const int blast = (nb - 1) / (NW / CL) * (NW / CL);
+      const auto brow = [&](int c) {
+        const int r = c * NW + rank * (NW / CL);
+        return r < blast ? r : blast;
+      };
+      int stage = 0, phase = 0;
+      for (int c = c0; c < c1; ++c) {
+        for (int kb = 0; kb < nk; ++kb) {
+          unsigned char* st = ring + stage * STAGE;
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], STAGE);
+          tma_load(st, &map_a, &full[stage], kb * BK, arow);
+          tma_load_multicast(st + ABLOCK + rank * BHALF, &map_b,
+                             &full[stage], kb * BK, brow(c),
+                             static_cast<uint16_t>((1 << CL) - 1));
+          if (++stage == DEPTH) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+      for (int s = 0; s < DEPTH; ++s) {   // every stage released
+        mbar_wait(&empty[stage], phase ^ 1);
+        if (++stage == DEPTH) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  const int t = threadIdx.x % kWarpGroup;
+  const int lane = t % 32;
+  const int rr = (t / 32) * 16 + lane / 4;       // row in the 64-row box
+  const int r0 = qt * BM + wg * 64 + rr;
+  const float rn0 = r0 < na ? an[r0] : 0.0f;
+  const float rn1 = r0 + 8 < na ? an[r0 + 8] : 0.0f;
+  const int wg_off = wg * 64 * BK * 2;           // the warpgroup's rows
+  const auto release = [&](int s) {              // in every CTA
+    if (lane == 0) {
+      mbar_arrive(&empty[s]);
+      for (int k = 1; k < CL; ++k)
+        mbar_arrive_cluster(&empty[s], (rank + k) % CL);
+    }
+  };
+  int stage = 0, phase = 0;
+  for (int c = c0; c < c1; ++c) {
+    float acc[NW / 2];
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) acc[i] = 0.0f;
+    int prev = -1;
+    for (int kb = 0; kb < nk; ++kb) {
+      mbar_wait(&full[stage], phase);
+      const unsigned char* st = ring + stage * STAGE;
+      fence_acc(acc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)    // 32 bytes = 2 units a step
+        Wgmma<T, NW>::mma(acc, smem_desc(st + wg_off) + 2 * kk,
+                          smem_desc(st + ABLOCK) + 2 * kk);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      fence_acc(acc);
+      if (prev >= 0) release(prev);              // its wgmma has retired
+      prev = stage;
+      if (++stage == DEPTH) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+    if (prev >= 0) release(prev);
+    if ((c + 1) * NW <= nb)
+      kind_partials<NW, BN, false>(acc, rn0, rn1, bn, w, ws, na, nb,
+                                   splits, c, r0, lane, p);
+    else
+      kind_partials<NW, BN, true>(acc, rn0, rn1, bn, w, ws, na, nb,
+                                  splits, c, r0, lane, p);
+  }
+}
+
+// The clusters of the wide streamed kernel the current card holds at once,
+// its shared memory opted in first; asked once a card. The SMs of a GPC
+// pair up: 66 on an H100 SXM's 132 SMs when all do, what
+// tiling.decision_grid assumes (tiling.wide_clusters); the card's answer
+// is checked against it (ops.wide_clusters).
+template <typename T, int BM, int BN, int BK, int TR, int TC, int DEPTH>
+int split_cluster_capacity(int* most) {
+  constexpr int smem =
+      split_wgmma_smem_bytes<BM, 4 * TC, BK, DEPTH, true>(1);
+  static_assert(smem <= kMaxSmem, "the ring exceeds shared memory");
+  static bool smem_set[64] = {};
+  static int most_of[64] = {};
+  const auto kernel =
+      split_wgmma_kernel_cluster<T, BM, BN, BK, TR, TC, DEPTH>;
+  int dev = 0;
+  int err = static_cast<int>(cudaGetDevice(&dev));
+  if (err != 0) return err;
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidValue);
+  err = allow_smem(kernel, smem, smem_set);
+  if (err != 0) return err;
+  if (most_of[dev] == 0) {
+    cudaLaunchConfig_t lc = {};
+    lc.gridDim = dim3(kClusterCtas, 1, 1);
+    lc.blockDim = dim3(BM / 64 * kWarpGroup + 32, 1, 1);
+    lc.dynamicSmemBytes = smem;
+    err = static_cast<int>(
+        cudaOccupancyMaxActiveClusters(&most_of[dev], kernel, &lc));
+    if (err != 0) return err;
+  }
+  *most = most_of[dev];
+  return 0;
+}
+
+// The wide streamed entry's launch: one wave of clusters, pairs of A
+// tiles x runs of chunks, one CTA an SM (the ring's shared memory allows
+// no more); tiling.decision_grid mirrors it.
+template <typename T, int BM, int BN, int BK, int TR, int TC, int DEPTH,
+          typename Epi>
+int launch_split_cluster(const SplitArgs& a, const Epi& epi,
+                         cudaStream_t stream) {
+  constexpr int NW = 4 * TC;
+  constexpr int smem = split_wgmma_smem_bytes<BM, NW, BK, DEPTH, true>(1);
+  if (a.na == 0) return 0;
+  const int chunks = (a.nb + NW - 1) / NW;
+  if (chunks > 0) {
+    if (a.d % 8 != 0 || reinterpret_cast<uintptr_t>(a.a) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(a.b) % 16 != 0)
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    const CUtensorMapDataType type = std::is_same<T, __half>::value
+                                         ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    CUtensorMap map_a, map_b;
+    int err = encode_map(&map_a, type, 2, a.a, a.na, a.d, BM, BK);
+    if (err == 0)
+      err = encode_map(&map_b, type, 2, a.b, a.nb, a.d, NW / kClusterCtas,
+                       BK);
+    int most = 0;
+    if (err == 0)
+      err = split_cluster_capacity<T, BM, BN, BK, TR, TC, DEPTH>(&most);
+    if (err != 0) return err;
+    if (most < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    const int qtiles = (a.na + BM - 1) / BM;
+    const int pairs = (qtiles + kClusterCtas - 1) / kClusterCtas;
+    int groups = most / pairs;
+    if (groups < 1) groups = 1;
+    if (groups > chunks) groups = chunks;
+    const int per_cta = (chunks + groups - 1) / groups;
+    groups = (chunks + per_cta - 1) / per_cta;
+    constexpr int threads = BM / 64 * kWarpGroup + 32;
+    const auto kernel =
+        split_wgmma_kernel_cluster<T, BM, BN, BK, TR, TC, DEPTH>;
+    kernel<<<kClusterCtas * pairs * groups, threads, smem, stream>>>(
         map_a, map_b, static_cast<const float*>(a.w),
         static_cast<const float*>(a.an), static_cast<const float*>(a.bn),
         a.ws, a.na, a.nb, a.d, a.p, per_cta);

@@ -23,8 +23,9 @@ The moving parts:
   wgmma kernels is dynamic: the launchers opt in with
   ``cudaFuncSetAttribute``), :func:`threads` a multiple of 32 and at
   most 1024, a row's ``BN/TC`` threads inside one warp for the row-sum
-  kernels, and :func:`register_estimate` within 255 a thread and 65536
-  a CTA. ``chip_smoke.py`` holds the estimate against the counts
+  kernels (the 16-bit split kernels: whole splits of ``BN`` rows in a
+  wgmma's ``4 TC``), and :func:`register_estimate` within 255 a thread
+  and 65536 a CTA. ``chip_smoke.py`` holds the estimate against the counts
   ``ptxas -v`` prints when the kernels are built
   (:func:`ptxas_registers`).
 * :func:`cost_model` — the logical FLOPs (as the JAX package counts
@@ -216,8 +217,12 @@ def feasible(family: str, cfg: TileConfig, precision: str = "f32",
              d: int = 128) -> bool:
     """Whether ``cfg`` can launch on a Hopper SM with rows of
     ``precision`` and ``d`` features (module docstring)."""
-    if cfg.block_m % cfg.tr or cfg.block_n % cfg.tc:
+    split_wgmma = (family != "gram"
+                   and kernel_of(family, cfg) in WGMMA_KERNELS)
+    if cfg.block_m % cfg.tr:
         return False
+    if (4 * cfg.tc % cfg.block_n if split_wgmma else cfg.block_n % cfg.tc):
+        return False            # whole splits a chunk; whole tiles a CTA
     nt = threads(family, cfg)
     if nt % 32 or nt > MAX_THREADS:
         return False
@@ -505,7 +510,8 @@ def write_table(entries: List[dict], path=TUNED_TABLE_PATH, *,
 # ---------------------------------------------------------------------------
 
 _ENTRY_RE = re.compile(r"(gram|fupdate|decision|split)"
-                       r"(?:_simt|_wgmma|_pipe)?_kernelI(f|13__nv_bfloat16|6__half)((?:Li\d+E){6})")
+                       r"(?:_simt|_wgmma|_pipe)?_kernel(?:_cluster)?"
+                       r"I(f|13__nv_bfloat16|6__half)((?:Li\d+E){6})")
 _REGS_RE = re.compile(r"Used (\d+) registers")
 _DTYPES = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
 

@@ -23,7 +23,9 @@ features zero-padded to a multiple of 8 after rounding and after taking
 the norms (``tiling.tma_rows``); the packed operands have a multiple of
 128 features already. A 16-bit launch takes an entry whose query tile
 fits shared memory at its d (``tiling.wgmma_fits``): resident up to
-d = 1664, streamed above.
+d = 1664, streamed above (in 2-CTA clusters of 256 support rows a chunk,
+``tiling.STREAMED_WIDE``, where the queries and support rows fill that
+grid).
 
 ``decision`` takes its launch shape from ``tiling.resolve_tiles``
 (``tiles``: the tuned table keyed on (support rows, d, precision,
@@ -57,6 +59,23 @@ from repro_torch.utils import trace
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 DECISION = Kernel("decision", "decision_launch",
                   [_P] * 7 + [_I] * 5 + [_F, _F, _I, _F, _F, _I, _P])
+
+
+def wide_clusters(precision: str = "bf16") -> int:
+    """The clusters of ``tiling.STREAMED_WIDE`` the current card holds at
+    once for rows of ``precision`` (bf16 or f16), as its launcher asks the
+    card: what ``tiling.decision_grid`` assumes
+    (``tiling.wide_clusters``) when all the card's SMs pair up."""
+    DECISION.load()
+    fn = DECISION._lib.decision_wide_clusters
+    fn.argtypes = [_I, ctypes.POINTER(_I)]
+    fn.restype = _I
+    most = _I(0)
+    err = fn(DTYPE_CODES[tile_dtype(precision)], ctypes.byref(most))
+    if err != 0:
+        raise RuntimeError(f"decision_wide_clusters failed: CUDA error "
+                           f"{err} ({DECISION._err_str(err).decode()})")
+    return most.value
 
 
 def prepare(q, t, gamma_vec, *, precision: str = "f32"
@@ -93,13 +112,13 @@ def launch(q, t, gamma_vec, qn, tnorm, rho1, rho2, kernel: KernelFn,
     ``prepare_packed``), into a new (nq,) f32 output and a new
     (splits, nq) f32 workspace, on the current stream of q's card, with
     tile config ``cfg`` (default: the default of the rows' class, or the
-    first entry of the class that fits d)."""
+    first entry of the class that fits d, ``tiling.default_config``)."""
     dev = q.device
     nq, d = q.shape
     nt = t.shape[0]
     if cfg is None:
-        cfg = default_config("decision", precision=precision_of(q.dtype),
-                             d=d)
+        cfg = default_config("decision", n=nq,
+                             precision=precision_of(q.dtype), d=d, m=nt)
     out = torch.empty((nq,), dtype=torch.float32, device=dev)
     ws = torch.empty((decision_splits(nt, cfg), nq), dtype=torch.float32,
                      device=dev)
@@ -186,6 +205,7 @@ def decision_packed(q_pad, t_pad, gamma_pad, t_norms, rho1, rho2,
     with trace.span("repro_torch.decision.prepare"):
         ops = prepare_packed(q_pad, t_pad, gamma_pad, t_norms, tm=tm, tn=tn,
                              precision=precision)
-    cfg = packed_decision_config(ops[0].shape[0], precision, ops[0].shape[1])
+    cfg = packed_decision_config(ops[0].shape[0], precision, ops[0].shape[1],
+                                 ops[1].shape[0])
     with trace.span("repro_torch.decision.launch"):
         return _run(*ops, rho1, rho2, kernel, cfg)

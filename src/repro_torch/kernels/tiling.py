@@ -19,7 +19,9 @@ pipelined f32 tiles (gram's, and the f32 split class of decision and
 fupdate's wide launches; ``BK = 8``, two stages); "wgmma", the
 tensor-core kernels (``BK = WGMMA_K``, bf16/f16 only); "stream", the
 16-bit split kernel with its first operand's tile streamed through the
-ring instead of resident (:data:`STREAMED`), for any d.
+ring instead of resident (:data:`STREAMED`, and decision's
+:data:`STREAMED_WIDE`, whose 2-CTA clusters share the second operand's
+chunks), for any d.
 
 **Classes and the bitwise rule.** A launch may only take the menu
 entries of its class (:func:`menu`), whose first entry is the class's
@@ -167,13 +169,29 @@ MENUS = {
                  (32, 64, 8, 4, 8, 2), (16, 64, 8, 4, 8, 2),
                  (128, 32, 64, 2, 8, 4), (64, 32, 64, 2, 8, 4),   # wgmma
                  (128, 32, 64, 2, 16, 4), (128, 32, 64, 2, 32, 4),
-                 (128, 32, 64, 2, 32, 2), (128, 32, 64, 2, 16, 3)),
+                 (128, 32, 64, 2, 32, 2), (128, 32, 64, 2, 16, 3),
+                 (128, 32, 64, 2, 64, 4)),
 }
 
 # The 16-bit split entry whose first operand's tile is streamed through
 # the ring (``launch_stream``), not resident: no cap on d. decision and
 # fupdate list it alike.
 STREAMED = (128, 32, 64, 2, 16, 3)
+# decision's wide streamed entry: chunks of NW = 256 support rows, each
+# loaded once for a cluster of CLUSTER_CTAS neighbouring query tiles by
+# TMA multicast; one CTA an SM (a ring of 4 stages of 48 KiB). A request
+# at 4096 x 32768, d = 4096, bf16 pulls 8 GiB through L2 against
+# STREAMED's 24 (``csrc/split_rows.cuh``). Not on fupdate's menu.
+STREAMED_WIDE = (128, 32, 64, 2, 64, 4)
+STREAMED_ENTRIES = (STREAMED, STREAMED_WIDE)
+CLUSTER_CTAS = 2
+# The packed and default decision launches take STREAMED_WIDE over
+# STREAMED where its grid (decision_grid) has at least this many CTAs, one
+# an SM: at d = 768-4096 on an H100 it was 1.2-2.3x faster at every shape
+# timed from 72 CTAs up (72-96 included), and 0.70-0.89x as fast at most
+# shapes of 32-68 CTAs, where STREAMED puts more CTAs on the card
+# (PERF.md).
+WIDE_MIN_CTAS = 72
 FAMILIES = tuple(MENUS)
 
 
@@ -200,7 +218,7 @@ def kernel_of(family: str, cfg: TileConfig) -> str:
     """The kernel a menu entry instantiates: "tile", "pipe", "simt",
     "wgmma" or "stream" (the ``launch_<kernel>`` of its case line)."""
     if cfg.block_k == WGMMA_K:
-        return "stream" if cfg.entry == STREAMED else "wgmma"
+        return "stream" if cfg.entry in STREAMED_ENTRIES else "wgmma"
     if cfg.depth == 1:
         return "tile"
     return "simt" if cfg.block_k == SIMT_K else "pipe"
@@ -228,6 +246,17 @@ def _class_key(family: str, cfg: TileConfig) -> tuple:
     return (wgmma, cfg.block_n, None if wgmma else cfg.tc)
 
 
+def _streamed_entry(nq: int, nt: Optional[int]) -> tuple:
+    """The streamed entry of a 16-bit decision launch of ``nq`` queries
+    against ``nt`` support rows: :data:`STREAMED_WIDE` where its grid
+    (:func:`decision_grid`) has :data:`WIDE_MIN_CTAS` CTAs, else (and
+    when ``nt`` is not known) :data:`STREAMED`."""
+    if nt is None:
+        return STREAMED
+    qtiles, groups = decision_grid(nq, nt, config_of(STREAMED_WIDE))
+    return STREAMED_WIDE if qtiles * groups >= WIDE_MIN_CTAS else STREAMED
+
+
 def wgmma_smem_bytes(cfg: TileConfig, d: int) -> int:
     """Dynamic shared memory of a 16-bit split entry at ``d`` features
     (``split_wgmma_smem_bytes`` of csrc/split_rows.cuh): the first
@@ -235,7 +264,8 @@ def wgmma_smem_bytes(cfg: TileConfig, d: int) -> int:
     stage), the ring of NW = 4 * TC rows x 64 a stage, 1024 bytes of
     alignment slack and 2 DEPTH + 1 barriers."""
     k = WGMMA_K
-    blocks = cfg.depth if cfg.entry == STREAMED else -(-int(d) // k)
+    streamed = cfg.entry in STREAMED_ENTRIES
+    blocks = cfg.depth if streamed else -(-int(d) // k)
     return (blocks * cfg.block_m * k * 2 + cfg.depth * 4 * cfg.tc * k * 2
             + 1024 + 8 * (2 * cfg.depth + 1))
 
@@ -262,12 +292,16 @@ def _sixteen_bit(precision: Optional[str]) -> bool:
 
 def default_config(family: str, n: Optional[int] = None,
                    precision: Optional[str] = None,
-                   d: Optional[int] = None) -> TileConfig:
+                   d: Optional[int] = None,
+                   m: Optional[int] = None) -> TileConfig:
     """The launch with no table: ``n`` is the selected block's size S for
-    fupdate (narrow class up to 32), ``precision`` the rows' (the class of
-    gram, decision and fupdate's wide launches; f32 when ``None``). With
-    ``d``, the first entry of the class, from its default on, that fits
-    ``d`` features (:func:`wgmma_fits`)."""
+    fupdate (narrow class up to 32) and the queries for decision,
+    ``precision`` the rows' (the class of gram, decision and fupdate's
+    wide launches; f32 when ``None``). With ``d``, the first entry of the
+    class, from its default on, that fits ``d`` features
+    (:func:`wgmma_fits`); for decision that is :data:`STREAMED`, or
+    :data:`STREAMED_WIDE` where ``n`` queries against ``m`` support rows
+    fill its grid."""
     _check_family(family)
     if family == "fupdate" and (n is None or n <= FUPDATE_NARROW_MAX_S):
         dflt = DEFAULT_CONFIGS["fupdate"]
@@ -281,8 +315,11 @@ def default_config(family: str, n: Optional[int] = None,
         dflt = DEFAULT_CONFIGS[family]
     if d is None or wgmma_fits(dflt, d):
         return dflt
-    return next(config_of(c.entry) for c in _class_menu(family, dflt)
-                if wgmma_fits(c, d))
+    fit = next(config_of(c.entry) for c in _class_menu(family, dflt)
+               if wgmma_fits(c, d))
+    if family == "decision" and fit.entry == STREAMED and n is not None:
+        return config_of(_streamed_entry(n, m))
+    return fit
 
 
 def menu(family: str, n: Optional[int] = None,
@@ -325,22 +362,25 @@ _PACKED_DECISION = {
 # the streamed one (STREAMED), also the faster where the resident tiles
 # that still fit leave one CTA a SM: at d = 768, 4096 x 4096 queries x
 # support, bf16, it took 0.1021 ms against 0.1233-0.3530 ms for the
-# resident entries (PERF.md).
+# resident entries (PERF.md); and STREAMED to STREAMED_WIDE where the
+# bucket and the support rows fill its grid (WIDE_MIN_CTAS).
 
 
-def packed_decision_config(bucket: int, precision: str,
-                           d: int = LANE) -> TileConfig:
+def packed_decision_config(bucket: int, precision: str, d: int = LANE,
+                           nt: Optional[int] = None) -> TileConfig:
     """The entry ``decision_packed`` launches for a padded query block of
-    ``bucket`` rows of ``d`` features in ``precision``: one of the
-    precision's class (so every bucket gives bitwise the same value for a
-    query), chosen for speed by the bucket, or the streamed entry where
-    that one's resident query tile does not fit d (:func:`wgmma_fits`).
-    The tuned table is not read."""
+    ``bucket`` rows of ``d`` features in ``precision`` against ``nt``
+    support rows: one of the precision's class (so every bucket gives
+    bitwise the same value for a query), chosen for speed by the bucket,
+    or a streamed entry where that one's resident query tile does not fit
+    d (:func:`wgmma_fits`): :data:`STREAMED_WIDE` where the launch fills
+    its grid, else :data:`STREAMED` (also when ``nt`` is not given). The
+    tuned table is not read."""
     precision = check_precision(precision)
     rule = _PACKED_DECISION["f32" if precision == "f32" else "wgmma"]
     entry = next(e for top, e in rule if top is None or bucket <= top)
     if not wgmma_fits(config_of(entry), d):
-        entry = STREAMED
+        entry = _streamed_entry(bucket, nt)
     return TileConfig(*entry, source="bucket")
 
 
@@ -361,6 +401,14 @@ def fupdate_splits(s: int, cfg: TileConfig) -> int:
     return decision_splits(s, cfg)
 
 
+def wide_clusters(sms: int = 132) -> int:
+    """The clusters of :data:`STREAMED_WIDE` a card of ``sms`` SMs holds
+    at once, one CTA an SM, when all its SMs pair up; the launcher asks
+    the card (``cudaOccupancyMaxActiveClusters``), and
+    ``ops.wide_clusters`` gives the card's answer to hold against this."""
+    return sms // CLUSTER_CTAS
+
+
 def decision_grid(nq: int, nt: int, cfg: TileConfig, sms: int = 132,
                   per_sm: int = 4) -> Tuple[int, int]:
     """(query tiles, split groups) of a decision launch's grid, as
@@ -368,13 +416,21 @@ def decision_grid(nq: int, nt: int, cfg: TileConfig, sms: int = 132,
     a SIMT CTA takes one split; the wgmma launcher gives each CTA a run
     of chunks of NW = 4 * TC support rows, with as many CTAs as the SMs
     hold at once (``per_sm`` a SM; the launcher asks the runtime), so
-    that a CTA loads its query tile once for its run."""
+    that a CTA loads its query tile once for its run; for
+    :data:`STREAMED_WIDE` one CTA an SM, its query tiles rounded up to
+    whole clusters (a partner past the last tile computes nothing), and
+    :func:`wide_clusters` clusters."""
     qtiles = -(-int(nq) // cfg.block_m)
     if cfg.block_k != WGMMA_K:
         return qtiles, decision_splits(nt, cfg)
     chunks = -(-int(nt) // (4 * cfg.tc))
     if chunks == 0:
         return qtiles, 0
+    if cfg.entry == STREAMED_WIDE:
+        pairs = -(-qtiles // CLUSTER_CTAS)
+        groups = min(max(wide_clusters(sms) // pairs, 1), chunks)
+        per_cta = -(-chunks // groups)
+        return pairs * CLUSTER_CTAS, -(-chunks // per_cta)
     groups = min(-(-per_sm * sms // qtiles), chunks)
     per_cta = -(-chunks // groups)
     return qtiles, -(-chunks // per_cta)
@@ -568,7 +624,7 @@ def resolve_tiles(family: str, *, m: int, d: int, precision: str,
     precedence (the packed decision path does not come here:
     :func:`packed_decision_config`).
     """
-    default = default_config(family, n, precision, d)
+    default = default_config(family, n, precision, d, m)
     if block_m is not None or block_n is not None or block_k is not None:
         cls = [c for c in menu(family, n, precision) if wgmma_fits(c, d)]
         want = (block_m if block_m is not None else default.block_m,

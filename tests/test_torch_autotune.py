@@ -313,6 +313,20 @@ def test_wgmma_fits_caps_each_resident_entry():
                          .read_text()).group(1)) == ttil.MAX_SMEM
     assert ttil.STREAMED in ttil.MENUS["decision"] \
         and ttil.STREAMED in ttil.MENUS["fupdate"]
+    # the wide streamed entry: decision's only, streamed at any d, one CTA
+    # an SM, its ring sized as launch_split_cluster sizes it
+    wide = ttil.config_of(ttil.STREAMED_WIDE)
+    assert ttil.STREAMED_WIDE in ttil.MENUS["decision"] \
+        and ttil.STREAMED_WIDE not in ttil.MENUS["fupdate"]
+    assert ttil.kernel_of("decision", wide) == "stream"
+    for d in (128, 4096, 1 << 16):
+        assert ttil.wgmma_smem_bytes(wide, d) == \
+            4 * (128 + 256) * 64 * 2 + 1024 + 8 * 9
+        assert ttil.wgmma_fits(wide, d)
+    assert 2 * ttil.wgmma_smem_bytes(wide, 4096) > 228 * 1024
+    assert "constexpr int smem = split_wgmma_smem_bytes<BM, NW, BK, DEPTH, " \
+        "true>(1);" in src
+    assert "constexpr int kClusterCtas = %d;" % ttil.CLUSTER_CTAS in src
 
 
 @pytest.mark.parametrize("precision", ["f32", "bf16", "f16"])
@@ -332,6 +346,145 @@ def test_packed_decision_config_fits_d(precision, d):
             assert cfg == ttil.packed_decision_config(bucket, precision)
         if precision != "f32" and d > 1664:
             assert ttil.kernel_of("decision", cfg) == "stream"
+        # against the pooled screen's 32768 support rows: the same class,
+        # either streamed entry where the resident one does not fit
+        wide = ttil.packed_decision_config(bucket, precision, d, 32768)
+        assert wide.entry in {c.entry for c in ttil.menu(
+            "decision", precision=precision)}
+        assert ttil.wgmma_fits(wide, d)
+        if ttil.kernel_of("decision", cfg) != "stream":
+            assert wide == cfg
+        else:
+            assert ttil.kernel_of("decision", wide) == "stream"
+
+
+@pytest.mark.parametrize("precision", ["bf16", "f16"])
+def test_packed_decision_takes_the_wide_streamed_entry_where_it_fills(
+        precision):
+    """At d = 4096 the top bucket against 32768 support rows (the pooled
+    screen) takes the wide streamed entry, and so does every bucket whose
+    wide grid has WIDE_MIN_CTAS CTAs; the 64-row bucket against the
+    served model's 8192 support rows, the [lm] slab scores (1024 queries,
+    2048 support rows, d = 3072), a ragged 300-row support set, or no
+    support count given keep STREAMED."""
+    top = ttil.packed_decision_config(4096, precision, 4096, 32768)
+    assert top.entry == ttil.STREAMED_WIDE and top.source == "bucket"
+    wide = ttil.config_of(ttil.STREAMED_WIDE)
+    for bucket, nt, d in ((64, 32768, 4096), (256, 32768, 4096),
+                          (1024, 32768, 4096), (4096, 4096, 4096),
+                          (1024, 4096, 768), (4096, 32768, 2048)):
+        qtiles, groups = ttil.decision_grid(bucket, nt, wide)
+        assert qtiles * groups >= ttil.WIDE_MIN_CTAS
+        assert ttil.packed_decision_config(bucket, precision, d,
+                                           nt).entry == ttil.STREAMED_WIDE
+    for bucket, nt, d in ((64, 8192, 4096), (256, 8192, 4096),
+                          (64, 4096, 2048), (1024, 2048, 3072),
+                          (4096, 300, 4096), (4096, None, 4096)):
+        if nt is not None:
+            qtiles, groups = ttil.decision_grid(bucket, nt, wide)
+            assert qtiles * groups < ttil.WIDE_MIN_CTAS
+        assert ttil.packed_decision_config(bucket, precision, d,
+                                           nt).entry == ttil.STREAMED
+    # the wrapper's default and the table-free resolution agree
+    assert ttil.default_config("decision", 4096, precision, 4096,
+                               32768).entry == ttil.STREAMED_WIDE
+    assert ttil.default_config("decision", 64, precision, 4096,
+                               8192).entry == ttil.STREAMED
+    ttil.set_tuned_table({"entries": []})
+    assert ttil.resolve_tiles("decision", m=32768, d=4096, n=4096,
+                              precision=precision,
+                              backend="cuda").entry == ttil.STREAMED_WIDE
+    # resident entries are untouched
+    assert ttil.packed_decision_config(4096, precision, 640, 32768) \
+        == ttil.packed_decision_config(4096, precision)
+
+
+@pytest.mark.parametrize("nq,groups,ctas", [(4096, 4, 128), (4000, 4, 128),
+                                            (4224, 3, 102), (64, 64, 128)])
+def test_wide_streamed_grid_is_one_wave(nq, groups, ctas):
+    """The wide entry's grid: query tiles rounded up to whole clusters x
+    runs of 256-row chunks, at most one CTA on each of the card's 132
+    SMs, as launch_split_cluster lays it out from the clusters the card
+    holds at once (66 when all SMs pair up)."""
+    wide = ttil.config_of(ttil.STREAMED_WIDE)
+    qtiles, got = ttil.decision_grid(nq, 32768, wide)
+    assert qtiles % ttil.CLUSTER_CTAS == 0
+    assert qtiles == -(-nq // 256) * 2
+    assert (got, qtiles * got) == (groups, ctas)
+    assert qtiles * got <= tat.H100_SMS
+    chunks = 32768 // 256
+    per_cta = -(-chunks // got)
+    assert -(-chunks // per_cta) == got      # no empty run
+    assert ttil.decision_grid(4096, 300, wide) == (32, 2)   # 2 chunks
+    src = (CSRC / "split_rows.cuh").read_text()
+    for line in ("const int pairs = (qtiles + kClusterCtas - 1) / "
+                 "kClusterCtas;", "int groups = most / pairs;",
+                 "if (groups < 1) groups = 1;",
+                 "if (groups > chunks) groups = chunks;",
+                 "kernel<<<kClusterCtas * pairs * groups, threads, smem, "
+                 "stream>>>("):
+        assert line in src
+
+
+@pytest.mark.parametrize("precision", ["bf16", "f16"])
+@pytest.mark.parametrize("d", [2048, 4096])
+def test_packed_and_default_decision_take_one_streamed_entry(precision, d):
+    """The packed launch and the wrapper's default pick the streamed entry
+    by one rule: the wide one exactly where its grid has WIDE_MIN_CTAS
+    CTAs, over the buckets and support counts either side of it."""
+    wide = ttil.config_of(ttil.STREAMED_WIDE)
+    for bucket in (64, 256, 1024, 2304, 4096):
+        for nt in (300, 1024, 2048, 4096, 8192, 32768):
+            qtiles, groups = ttil.decision_grid(bucket, nt, wide)
+            want = (ttil.STREAMED_WIDE if qtiles * groups
+                    >= ttil.WIDE_MIN_CTAS else ttil.STREAMED)
+            assert ttil.packed_decision_config(bucket, precision, d,
+                                               nt).entry == want
+            assert ttil.default_config("decision", bucket, precision, d,
+                                       nt).entry == want
+
+
+def test_wide_grid_takes_the_clusters_the_card_holds():
+    """decision_grid sizes the wide grid from wide_clusters (sms // 2), as
+    launch_split_cluster sizes it from split_cluster_capacity, the query
+    decision_wide_clusters exports for case 10."""
+    wide = ttil.config_of(ttil.STREAMED_WIDE)
+    assert ttil.wide_clusters() == 66 and ttil.wide_clusters(114) == 57
+    assert ttil.decision_grid(4096, 32768, wide, sms=114) == (32, 3)
+    assert ttil.decision_grid(4096, 32768, wide) == (32, 4)
+    src = (CSRC / "split_rows.cuh").read_text()
+    assert "err = split_cluster_capacity<T, BM, BN, BK, TR, TC, DEPTH>(" \
+        "&most);" in src
+    assert "cudaOccupancyMaxActiveClusters" in src
+    dec = (CSRC / "decision.cu").read_text()
+    case = "case 10: return launch_stream<T, %d, %d, %d, %d, %d, %d>(a, st);"
+    assert case % ttil.STREAMED_WIDE in dec
+    assert ttil.menu_index("decision", wide) == 10
+    for t in ("__nv_bfloat16", "__half"):
+        assert "split_cluster_capacity<%s, %d, %d, %d, %d, %d, %d>(" % (
+            (t,) + ttil.STREAMED_WIDE) in dec
+
+
+def test_fupdate_menu_and_choices_are_unchanged_by_the_wide_entry():
+    """fupdate keeps its menu and STREAMED for 16-bit launches whose
+    resident tile does not fit d (the [lm] init pass: m = S = 2048,
+    d = 3072), whatever the row counts."""
+    assert ttil.MENUS["fupdate"] == (
+        (64, 32, 32, 4, 2, 1), (16, 32, 32, 1, 2, 1), (64, 32, 32, 4, 2, 4),
+        (32, 32, 32, 2, 2, 4), (16, 32, 32, 1, 2, 4), (64, 64, 8, 4, 8, 2),
+        (128, 64, 8, 8, 8, 2), (32, 64, 8, 4, 8, 2), (16, 64, 8, 4, 8, 2),
+        (128, 32, 64, 2, 8, 4), (64, 32, 64, 2, 8, 4),
+        (128, 32, 64, 2, 16, 4), (128, 32, 64, 2, 32, 4),
+        (128, 32, 64, 2, 16, 3))
+    ttil.set_tuned_table({"entries": []})
+    for m, s in ((2048, 2048), (65536, 32768)):
+        for precision in ("bf16", "f16"):
+            got = ttil.resolve_tiles("fupdate", m=m, d=3072, n=s,
+                                     precision=precision, backend="cuda")
+            assert got.entry == ttil.STREAMED
+            assert ttil.default_config("fupdate", s, precision, 3072,
+                                       m).entry == ttil.STREAMED
+    assert "launch_split_cluster" not in (CSRC / "fupdate.cu").read_text()
 
 
 @pytest.mark.parametrize("family,n", [("decision", 4096), ("fupdate", 128)])
@@ -345,7 +498,7 @@ def test_resolve_tiles_never_returns_an_entry_that_does_not_fit(family, n,
     ttil.set_tuned_table({"entries": []})
     dflt = ttil.resolve_tiles(family, **kw)
     assert ttil.wgmma_fits(dflt, d) and dflt.entry in {c.entry for c in cls}
-    assert dflt == ttil.default_config(family, n, "bf16", d)
+    assert dflt == ttil.default_config(family, n, "bf16", d, kw["m"])
     if d <= 832:
         assert dflt.entry == cls[0].entry
     for c in cls:                   # a table row naming each entry
@@ -919,6 +1072,14 @@ def test_ptxas_lines_of_the_split_kernels_take_the_source_family():
         ("fupdate", "f32", (64, 64, 8, 4, 8, 2)): 75,
         ("fupdate", "bf16", (128, 32, 64, 2, 16, 3)): 66}
     assert tat.ptxas_registers(lines) == {}
+    # decision's wide streamed entry: split_wgmma_kernel_cluster
+    wide = ["ptxas info    : Compiling entry function '_ZN5repro44_GLOBAL__N"
+            "__8c5a0d6c_11_decision_cu_004caa9626split_wgmma_kernel_clusterI"
+            "13__nv_bfloat16Li128ELi32ELi64ELi2ELi64ELi4EEEv14CUtensorMap_st"
+            "S3_PKfS5_S5_PfiiiNS_12KernelParamsEi' for 'sm_90a'",
+            "ptxas info    : Used 168 registers, used 0 barriers"]
+    assert tat.ptxas_registers(wide, "decision") == {
+        ("decision", "bf16", ttil.STREAMED_WIDE): 168}
 
 
 # ---------------------------------------------------------------------------

@@ -521,7 +521,8 @@ def test_decision_serves_wide_rows_at_every_bucket(cuda, precision, d):
                                    tn=sm.tn, precision=precision)
         cfg = tdec.DECISION.last_config
         assert cfg == ttil.packed_decision_config(b, precision,
-                                                  sm.t_pad.shape[1])
+                                                  sm.t_pad.shape[1],
+                                                  sm.t_pad.shape[0])
         assert ttil.wgmma_fits(cfg, sm.t_pad.shape[1])
         ops = tdec.prepare_packed(q, sm.t_pad, sm.gamma_pad, sm.t_norms,
                                   tm=min(b, 256), tn=sm.tn,
@@ -559,10 +560,56 @@ def test_streamed_tile_is_bitwise_the_resident_one(cuda, precision):
                if ttil.wgmma_fits(c, d)]
         kinds = {ttil.kernel_of(family, c) for c in cls}
         assert kinds == {"wgmma", "stream"}
+        assert (ttil.STREAMED_WIDE in {c.entry for c in cls}) == (
+            family == "decision")
         outs = [run(c) for c in cls]
         torch.cuda.synchronize()
         for c, out in zip(cls, outs):
             assert _bitwise(out, outs[0]), (family, c)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "f16"])
+@pytest.mark.parametrize("nt", [32768, 32768 - 37, 300])
+@pytest.mark.parametrize("nq", [4000, 4096, 4224])
+def test_wide_streamed_entry_is_bitwise_streamed_at_d4096(cuda, precision,
+                                                          nq, nt):
+    """At d = 4096 the wide streamed entry (2-CTA clusters of 256 support
+    rows a chunk) gives bitwise STREAMED's values and agrees with the plain
+    version without a flipped sign: an odd count of query tiles (a
+    cluster's partner past the last one), ragged chunks and fewer chunks
+    than runs (nt = 300)."""
+    d = 4096
+    rng = np.random.default_rng(22)
+    q = torch.randn((nq, d), generator=torch.Generator(cuda).manual_seed(1),
+                    device=cuda)
+    t = torch.randn((nt, d), generator=torch.Generator(cuda).manual_seed(2),
+                    device=cuda)
+    g = _t(np.abs(rng.standard_normal(nt)) / nt, cuda)
+    tk = tkf.rbf(1.0 / d)
+    ops = tdec.prepare(q, t, g, precision=precision)
+    wide = tdec.launch(*ops, 0.1, 0.9, tk,
+                       ttil.config_of(ttil.STREAMED_WIDE))()
+    base = tdec.launch(*ops, 0.1, 0.9, tk, ttil.config_of(ttil.STREAMED))()
+    torch.cuda.synchronize()
+    assert _bitwise(wide, base)
+    plain = decision_plain(*ops, 0.1, 0.9, kind="rbf", gamma=tk.gamma)
+    _close(wide, plain)
+    sure = plain.abs() > 1e-2 * plain.abs().median()
+    assert torch.equal(torch.sign(wide[sure]), torch.sign(plain[sure]))
+    if nq == 4096 and nt == 32768:    # the pooled screen's launch
+        assert tdec.tiles(ops[0], ops[1]).entry == ttil.STREAMED_WIDE
+
+
+@pytest.mark.parametrize("precision", ["bf16", "f16"])
+def test_wide_streamed_clusters_are_what_tiling_assumes(cuda, precision):
+    """The card holds as many clusters of the wide streamed entry at once
+    as tiling.decision_grid assumes (all its SMs paired, one CTA an SM):
+    the grid the launcher sizes from the card's answer is the one the
+    entry's choice (tiling.WIDE_MIN_CTAS) reads."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    most = tdec.wide_clusters(precision)
+    assert most == ttil.wide_clusters(sms) == ttil.wide_clusters(), \
+        (most, sms)
 
 
 # -- shrinking and warm starts through the fused provider -------------------
